@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                # every phase, full size
+    python3 chip_smoke.py --phases 1,2,3 # device, build, kernel checks only
+    python3 chip_smoke.py --reads 4194304  # cut the full-size read count
+
+Phases:
+  1. device: require CUDA; print the card's name and power limit;
+  2. build: compile every kernel in src/repro_torch/csrc with nvcc;
+  3. each kernel against its plain version on the card, bit-equal (the
+     insert: equal (key, count) sets and drops exactly when the plain
+     version drops);
+  4. the paper's workload at full size: "Synthetic 26" (2**26 uniform
+     bases), 2**23 reads of 150 bp, k=31, chunk_reads=256, 8 PEs on the
+     card, checked exactly against an independent torch.unique count;
+     every kernel must have launched on this path;
+  5. small runs at k=13 (32-bit words, 'dual') and k=21 ('packed');
+  6. each kernel's time at the main path's shapes beside its plain
+     version, one library call where one exists, and its bound;
+  7. on request only: the main path under torch.profiler (device time by
+     kernel, the device's busy share).
+
+The second-to-last line is the `kernels` JSON record, the last the result
+record. Any failure raises and exits non-zero. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+K = 31
+NUM_PES = 8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# --- phase 3: kernels against their plain versions -------------------------
+
+def _sorted_runs(torch, gen, rows, n, n_distinct, sent, word_bits, dev,
+                 long_run=0, all_sentinel=False):
+    hi = (1 << 62) if word_bits == 64 else (1 << 30)
+    vals = torch.randint(0, hi, (rows, n_distinct), generator=gen, device=dev)
+    idx = torch.randint(0, n_distinct, (rows, n), generator=gen, device=dev)
+    keys = torch.sort(vals.gather(1, idx), dim=1).values
+    if long_run:
+        keys[:, 1000:1000 + long_run] = keys[:, 1000:1001]
+        keys = torch.sort(keys, dim=1).values
+    tail = n // 10
+    keys[:, n - tail:] = sent
+    if all_sentinel:
+        keys[:] = sent
+    w = torch.randint(1, 6, (rows, n), generator=gen, dtype=torch.int32,
+                      device=dev)
+    return keys, w
+
+
+def check_kernels(torch, ops, ref, errs):
+    from repro_torch import words as W
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    dgen = torch.Generator(device=dev).manual_seed(0)
+    store_per_pe = 188_743_680   # one PE's store on the full-size path
+
+    log("[kernels] partition: bucket_hist + bucket_positions")
+    for rows, n, b in ((3, 1000, 2), (8, 30720, 9), (8, 61440, 9),
+                       (8, 30720, 257), (2, 5000, 257), (1, 3001, 9),
+                       (1, store_per_pe, 257)):
+        ids = torch.randint(0, b, (rows, n), generator=gen,
+                            dtype=torch.int32).to(dev)
+        hist = ops.bucket_hist(ids, b)
+        torch.cuda.synchronize()
+        check(torch.equal(hist, ref.bucket_hist(ids, b, ops.TILE)),
+              f"bucket_hist differs at {(rows, n, b)}")
+        plan = ops.make_partition_plan(ids, b)
+        torch.cuda.synchronize()
+        want = ref.partition_plan(ids, b)
+        for field in ("positions", "totals", "starts"):
+            check(torch.equal(getattr(plan, field), getattr(want, field)),
+                  f"partition {field} differs at {(rows, n, b)}")
+        log(f"  rows={rows} n={n} B={b}: bit-equal")
+        del ids, hist, plan, want
+
+    errs["bucket_hist"] = errs["bucket_positions"] = 0   # every case equal
+    log("[kernels] segment_accumulate")
+    for word_bits in (32, 64):
+        sent = W.sentinel(word_bits)
+        for rows, n, nd, long_run, all_s in (
+                (8, 30720, 3000, 0, False), (8, 30720, 40, 0, False),
+                (2, 300_000, 5, 150_000, False), (3, 5000, 10, 0, True),
+                (1, 4099, 7, 0, False)):
+            keys, w = _sorted_runs(torch, dgen, rows, n, nd, sent,
+                                   word_bits, dev, long_run, all_s)
+            got = ops.segment_accumulate(keys, w, sentinel_val=sent)
+            torch.cuda.synchronize()
+            want = ref.segment_accumulate(keys, w, sent)
+            for g, r, name in zip(got, want, ("is_new", "is_end", "totals")):
+                check(torch.equal(g, r), f"segment_accumulate {name} differs "
+                      f"at {(word_bits, rows, n, nd)}")
+            log(f"  {word_bits}-bit rows={rows} n={n} distinct<={nd} "
+                f"long_run={long_run} all_sentinel={all_s}: bit-equal")
+    keys, w = _sorted_runs(torch, dgen, 1, store_per_pe, 1 << 26, -1, 64,
+                           dev)
+    got = ops.segment_accumulate(keys, w, sentinel_val=-1)
+    torch.cuda.synchronize()
+    want = ref.segment_accumulate(keys, w, -1)
+    for g, r in zip(got, want):
+        check(torch.equal(g, r), "segment_accumulate differs at store size")
+    log(f"  64-bit rows=1 n={store_per_pe}: bit-equal")
+    errs["segment_accumulate"] = 0
+    del keys, w, got, want
+
+    log("[kernels] hash_insert")
+    for word_bits in (32, 64):
+        sent = W.sentinel(word_bits)
+        hi = (1 << 62) if word_bits == 64 else (1 << 30)
+        for rows, cap, n, nd, wrap, name in (
+                (4, 4096, 20000, 1500, False, "duplicates"),
+                (3, 257, 600, 200, True, "wraps past the last slot"),
+                (2, 64, 400, 100, False, "fills until it drops"),
+                (2, 64, 400, 64, False, "exactly full"),
+                (8, 1 << 20, 138_240, 400_000, False, "main-path batch")):
+            vals = torch.randint(0, hi, (rows, nd), generator=gen)
+            keys = vals.gather(1, torch.randint(0, nd, (rows, n),
+                                                generator=gen))
+            keys[:, ::17] = sent
+            w = torch.randint(0, 4, (rows, n), generator=gen,
+                              dtype=torch.int32)
+            # a key's home slot is a function of the key, as on the path
+            slots = (torch.full((rows, n), cap - 1, dtype=torch.int32)
+                     if wrap else (keys % cap).to(torch.int32))
+            tk = torch.full((rows, cap), sent, dtype=torch.int64)
+            tc = torch.zeros((rows, cap), dtype=torch.int32)
+            dk, dc = tk.to(dev), tc.to(dev)
+            dd = torch.zeros((rows,), dtype=torch.int32, device=dev)
+            ops.hash_insert(dk, dc, keys.to(dev), w.to(dev), slots.to(dev),
+                            sentinel_val=sent, dropped=dd)
+            torch.cuda.synchronize()
+            pd = torch.zeros((rows,), dtype=torch.int32)
+            ops.hash_insert(tk, tc, keys, w, slots, sentinel_val=sent,
+                            dropped=pd)
+            dk, dc, dd = dk.cpu(), dc.cpu(), dd.cpu()
+            for r in range(rows):
+                got = sorted(zip(dk[r][dk[r] != sent].tolist(),
+                                 dc[r][dk[r] != sent].tolist()))
+                want = sorted(zip(tk[r][tk[r] != sent].tolist(),
+                                  tc[r][tk[r] != sent].tolist()))
+                if int(pd[r]) == 0:
+                    check(got == want, f"hash_insert set differs ({name})")
+                else:   # a full table: which keys win the slots may differ
+                    check(len(got) == len(want) == cap,
+                          f"hash_insert fill differs ({name})")
+                check((int(dd[r]) > 0) == (int(pd[r]) > 0),
+                      f"hash_insert drop signal differs ({name})")
+            log(f"  {word_bits}-bit rows={rows} cap={cap} n={n} ({name}): "
+                f"same (key, count) sets, drops {dd.tolist()} vs plain "
+                f"{pd.tolist()}")
+    errs["hash_insert"] = 0
+
+
+# --- phase 4/5: the main path and its independent reference ----------------
+
+def reference_check(torch, reads, k, res, stats, num_pes, pieces):
+    """Every k-mer extracted by a path of its own (unfold + multiply-add),
+    counted with torch.unique in `pieces` slices of k-mer space, must equal
+    the port's concatenated per-PE histograms exactly."""
+    L = res.unique.numel() // num_pes
+    uniq = res.unique.view(num_pes, L)
+    cnt = res.counts.view(num_pes, L)
+    live = (torch.arange(L, device=uniq.device)[None, :]
+            < res.num_unique[:, None].to(torch.int64))
+    got_k, got_c = uniq[live], cnt[live].to(torch.int64)
+    check(int(got_c.sum()) == stats.raw_kmers, "sum(counts) != raw_kmers")
+    order = torch.argsort(got_k)
+    got_k, got_c = got_k[order], got_c[order]
+    check(bool((got_k[1:] != got_k[:-1]).all()), "a k-mer has two owners")
+    block = 1 << 20
+    for q in range(pieces):
+        parts = []
+        for lo in range(0, reads.shape[0], block):
+            win = reads[lo:lo + block].unfold(1, k, 1)   # a uint8 view
+            w = torch.zeros(win.shape[:2], dtype=torch.int64,
+                            device=reads.device)
+            for j in range(k):
+                w = w * 4 + win[..., j].to(torch.int64)
+            w = w.reshape(-1)
+            parts.append(w[(w % pieces) == q])
+            del win, w
+        ref_k, ref_c = torch.unique(torch.cat(parts), return_counts=True)
+        del parts
+        sel = (got_k % pieces) == q
+        check(torch.equal(ref_k, got_k[sel]), f"k-mer set differs (piece {q})")
+        check(torch.equal(ref_c, got_c[sel]), f"counts differ (piece {q})")
+    return int(got_k.numel())
+
+
+def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
+              genome_bases, chunk_reads=256, device="cuda"):
+    spec = genome.ReadSetSpec(genome_bases=genome_bases, n_reads=n_reads,
+                              read_len=150, seed=0)
+    t0 = time.perf_counter()
+    reads = genome.sample_reads_torch(spec, device)
+    torch.cuda.synchronize()
+    log(f"  reads {tuple(reads.shape)} built on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg = fabsp.DAKCConfig(k=k, chunk_reads=chunk_reads)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, stats = fabsp.count_kmers(reads, cfg, num_pes=num_pes,
+                                   device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  count_kmers wall {wall:.3f} s, max_memory_allocated "
+        f"{peak / 1e9:.2f} GB")
+    log(f"  stats {stats._asdict()}")
+    log(f"  store slots per PE {res.unique.numel() // num_pes}, retries: "
+        f"route-slack {stats.retry_route_slack}, store-rehash "
+        f"{stats.retry_store_rehash}")
+    log(f"  launches on this path {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} did not launch on the main path")
+    t0 = time.perf_counter()
+    distinct = reference_check(torch, reads, k, res, stats, num_pes, pieces)
+    log(f"  exact against torch.unique: {distinct} distinct k-mers, "
+        f"{stats.raw_kmers} instances ({time.perf_counter() - t0:.1f} s)")
+    return launches, wall, peak
+
+
+# --- phase 6: kernel times --------------------------------------------------
+
+def time_ms(torch, fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_times(torch, ops, ref, launches, errs):
+    from repro_torch import words as W
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    rows, n, b = NUM_PES, 30720, 257          # one radix pass of one step
+    ids = torch.randint(0, b, (rows, n), generator=gen,
+                        dtype=torch.int32).to(dev)
+    n_tiles = -(-n // ops.TILE)
+    hist = ops.bucket_hist(ids, b)
+    base = (torch.cumsum(hist, 1) - hist).to(torch.int32)
+    out = []
+
+    def entry(name, source, replaces, ms, plain_ms, nbytes, library_ms):
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": "bytes", "library_ms": library_ms,
+                    "shape": shape_of[name]})
+
+    shape_of = {
+        "bucket_hist": f"ids ({rows}, {n}) int32, B={b}",
+        "bucket_positions": f"ids ({rows}, {n}) int32, B={b}",
+        "segment_accumulate": f"keys ({rows}, {n}) int64",
+        "hash_insert": None,
+    }
+    entry("bucket_hist", "src/repro_torch/csrc/radix_partition.cu",
+          "src/repro/kernels/radix_partition.py:65",
+          time_ms(torch, lambda: ops.bucket_hist(ids, b)),
+          time_ms(torch, lambda: ref.bucket_hist(ids, b, ops.TILE)),
+          rows * n * 4 + rows * n_tiles * b * 4, None)
+    entry("bucket_positions", "src/repro_torch/csrc/radix_partition.cu",
+          "src/repro/kernels/radix_partition.py:93",
+          time_ms(torch, lambda: ops.bucket_positions(ids, base)),
+          time_ms(torch, lambda: ref.bucket_positions(ids, base, ops.TILE)),
+          rows * n * 4 * 2 + rows * n_tiles * b * 4,
+          time_ms(torch, lambda: torch.argsort(ids, dim=1, stable=True)))
+
+    keys, w = _sorted_runs(torch, torch.Generator(device=dev).manual_seed(1),
+                           rows, n, 15000, -1, 64, dev)
+    entry("segment_accumulate", "src/repro_torch/csrc/segment_count.cu",
+          "src/repro/kernels/segment_count.py:105",
+          time_ms(torch, lambda: ops.segment_accumulate(keys, w,
+                                                        sentinel_val=-1)),
+          time_ms(torch, lambda: ref.segment_accumulate(keys, w, -1)),
+          rows * n * (8 + 4) + rows * n * (1 + 1 + 4), None)
+
+    # The receiver's batch at full size: P * (cap_n + cap_h) decoded pairs
+    # per PE into that PE's 188,743,680-slot store.
+    cap, nb = 188_743_680, NUM_PES * (11520 + 5760)
+    shape_of["hash_insert"] = (f"table ({rows}, {cap}) int64+int32, batch "
+                               f"({rows}, {nb})")
+    # Every timed launch inserts a fresh batch of new keys at random slots,
+    # so no launch finds its slots in the L2 cache.
+    sent = W.sentinel(64)
+    reps = 20
+    bkeys = torch.randint(0, 1 << 62, (reps + 1, rows, nb), generator=gen)
+    bkeys[:, :, nb // 2:] = sent     # about half of each tile is padding
+    bw = torch.ones((rows, nb), dtype=torch.int32)
+    bslots = torch.randint(0, cap, (reps + 1, rows, nb), generator=gen,
+                           dtype=torch.int32)
+    tk = torch.full((rows, cap), sent, dtype=torch.int64, device=dev)
+    tc = torch.zeros((rows, cap), dtype=torch.int32, device=dev)
+    dd = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    dkeys, dw, dslots = bkeys.to(dev), bw.to(dev), bslots.to(dev)
+    batch = iter(range(reps + 1))
+
+    def insert_next():
+        i = next(batch)
+        ops.hash_insert(tk, tc, dkeys[i], dw, dslots[i], sentinel_val=sent,
+                        dropped=dd)
+
+    ins_ms = time_ms(torch, insert_next, reps)
+    del tk, tc, dkeys, dslots
+    bkeys, bslots = bkeys[0], bslots[0]
+    small = 1 << 20
+    pk = torch.full((rows, small), sent, dtype=torch.int64)
+    pc = torch.zeros((rows, small), dtype=torch.int32)
+    pd = torch.zeros((rows,), dtype=torch.int32)
+    t0 = time.perf_counter()
+    ops.hash_insert(pk, pc, bkeys, bw, bslots % small, sentinel_val=sent,
+                    dropped=pd)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    live = int((bkeys != sent).sum())
+    entry("hash_insert", "src/repro_torch/csrc/hash_table.cu",
+          "src/repro/kernels/hash_table.py:114", ins_ms, plain_ms,
+          rows * nb * (8 + 4 + 4) + live * (8 + 4) * 2, None)
+    log("  hash_insert plain_ms: the sequential CPU version, same batch, "
+        f"{small}-slot tables per PE")
+    for e in out:
+        log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, "
+            f"library {e['library_ms']}, bound {e['bound_ms']:.5f}) "
+            f"at {e['shape']}")
+    return out
+
+
+# --- phase 7 (on request): where the time of the main path goes -------------
+
+def profile_path(torch, fabsp, genome, n_reads):
+    """torch.profiler over one count of the main path at the full widths
+    and a cut read count: device time by kernel and the device's busy
+    share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=n_reads,
+                              read_len=150, seed=0)
+    reads = genome.sample_reads_torch(spec, "cuda")
+    cfg = fabsp.DAKCConfig(k=K, chunk_reads=256)
+    fabsp.count_kmers(reads[:NUM_PES * 256], cfg, num_pes=NUM_PES)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fabsp.count_kmers(reads, cfg, num_pes=NUM_PES)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    device_us = sum(r[2] for r in rows)
+    log(f"  {n_reads} reads: wall {wall_us / 1e3:.1f} ms under the profiler, "
+        f"device busy {device_us / 1e3:.1f} ms "
+        f"({100 * device_us / wall_us:.1f} %)")
+    for key, count, us in rows[:15]:
+        log(f"  {us / 1e3:10.2f} ms {count:8d}x  {key[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
+                    help="comma-separated; 7 (a profile) runs on request")
+    ap.add_argument("--reads", type=int, default=1 << 23,
+                    help="full-size read count (a cut is printed)")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.core import fabsp
+    from repro_torch.data import genome
+    from repro_torch.kernels import build, ops, ref
+
+    t_all = time.perf_counter()
+    log("[device]")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    log(smi[0])
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count "
+        f"{torch.cuda.device_count()}")
+
+    log("[build]")
+    t0 = time.perf_counter()
+    libs = build.build_all(verbose=True)
+    log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+
+    errs = {}
+    if 3 in phases:
+        t0 = time.perf_counter()
+        check_kernels(torch, ops, ref, errs)
+        log(f"[kernels] all bit-equal ({time.perf_counter() - t0:.1f} s)")
+
+    launches = None
+    if 4 in phases:
+        log("[full size] Synthetic 26, 150 bp reads, k=31, 8 PEs")
+        if args.reads != 1 << 23:
+            log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
+        launches, _, _ = run_count(torch, fabsp, ops, genome, args.reads, K,
+                                   NUM_PES, pieces=4, genome_bases=1 << 26)
+        torch.cuda.empty_cache()
+
+    if 5 in phases:
+        for k, p in ((13, 4), (21, 2)):
+            log(f"[small] k={k}, {p} PEs, 4096 reads")
+            run_count(torch, fabsp, ops, genome, 4096, k, p, pieces=1,
+                      genome_bases=1 << 16)
+
+    record = None
+    if 6 in phases:
+        check(launches is not None and errs, "phase 6 needs phases 3 and 4")
+        log("[times] CUDA events, 20 launches after a warm-up")
+        record = kernel_times(torch, ops, ref, launches, errs)
+
+    if 7 in phases:
+        log("[profile] the main path under torch.profiler")
+        profile_path(torch, fabsp, genome, min(args.reads, 1 << 20))
+
+    log(f"[done] {time.perf_counter() - t_all:.1f} s")
+    if record is not None:
+        log(json.dumps({"kernels": record}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""Dispatch for the kernels of the counting path.
+
+A tensor on the CPU goes to the kernel's plain version (`kernels.ref`); a
+CUDA tensor launches the CUDA kernel, and a failed build or launch raises.
+There is no fallback from the card to the plain version.
+
+Each wrapper counts its kernel launches in a plain int attribute,
+`<wrapper>.launches`, so a run can show that it went through the kernels
+(`reset_launches` / `launch_counts`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import hash_table, radix_partition, ref, segment_count
+from repro_torch.kernels.radix_partition import TILE, PartitionPlan
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def bucket_hist(buckets: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """(P, n) int32 ids -> (P, ceil(n / TILE), B) int32 per-tile counts."""
+    if _on_cpu(buckets):
+        return ref.bucket_hist(buckets, num_buckets, TILE)
+    out = radix_partition.bucket_hist_cuda(buckets, num_buckets)
+    bucket_hist.launches += 1
+    return out
+
+
+def bucket_positions(buckets: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """(P, n) int32 ids + (P, n_tiles, B) bases -> (P, n) int32 slots."""
+    if _on_cpu(buckets):
+        return ref.bucket_positions(buckets, base, TILE)
+    out = radix_partition.bucket_positions_cuda(buckets, base)
+    bucket_positions.launches += 1
+    return out
+
+
+def segment_accumulate(sorted_keys: torch.Tensor, weights: torch.Tensor, *,
+                       sentinel_val: int):
+    """Fused boundary + run-total sweep: (is_new, is_end, run_totals)."""
+    if _on_cpu(sorted_keys):
+        return ref.segment_accumulate(sorted_keys, weights, sentinel_val)
+    out = segment_count.segment_accumulate_cuda(sorted_keys, weights,
+                                                sentinel_val)
+    segment_accumulate.launches += 1
+    return out
+
+
+def hash_insert(table_keys: torch.Tensor, table_counts: torch.Tensor,
+                keys: torch.Tensor, weights: torch.Tensor,
+                slots: torch.Tensor, *, sentinel_val: int,
+                dropped: torch.Tensor) -> None:
+    """Insert-or-add a (P, n) batch into the (P, cap) table IN PLACE and add
+    each row's dropped items to `dropped` (P,) int32.
+
+    On the CPU the items fold in stream order (the slot layout of the
+    sequential reference); on the card they fold in parallel, which gives
+    the same (key, count) set and drops exactly when a row is full.
+    """
+    if _on_cpu(table_keys):
+        dropped += ref.hash_insert(table_keys, table_counts, keys,
+                                   weights.to(torch.int32),
+                                   slots.to(torch.int32), sentinel_val)
+        return
+    hash_table.hash_insert_cuda(table_keys, table_counts, keys, weights,
+                                slots, sentinel_val, dropped)
+    hash_insert.launches += 1
+
+
+KERNELS = (bucket_hist, bucket_positions, segment_accumulate, hash_insert)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def make_partition_plan(buckets: torch.Tensor,
+                        num_buckets: int) -> PartitionPlan:
+    """Stable partition plan of every row of (P, n) int32 bucket ids.
+
+    One histogram launch, the exclusive prefix (bucket-major, then
+    tile-major) in tensor code, one rank launch. Each row holds fewer than
+    2**31 elements, so the prefix fits int32.
+    """
+    b = buckets.to(torch.int32).contiguous()
+    p = b.shape[0]
+    hist = bucket_hist(b, num_buckets)                   # (P, T, B)
+    n_tiles = hist.shape[1]
+    totals = hist.sum(1, dtype=torch.int32)
+    # The base of (tile t, bucket k) is the count of every element of a
+    # smaller bucket plus those of bucket k in earlier tiles: one exclusive
+    # scan in bucket-major, tile-major order.
+    flat = hist.transpose(1, 2).reshape(p, num_buckets * n_tiles)
+    del hist
+    base = (torch.cumsum(flat, 1, dtype=torch.int32) - flat).view(
+        p, num_buckets, n_tiles)
+    starts = base[:, :, 0].clone() if n_tiles else torch.zeros_like(totals)
+    base = base.transpose(1, 2).contiguous()
+    pos = bucket_positions(b, base)
+    return PartitionPlan(positions=pos, totals=totals, starts=starts)

@@ -1,0 +1,103 @@
+"""Stable bucket partition: the routing and radix-sort engine.
+
+Counterpart of `repro.kernels.radix_partition`. A partition plan gives
+every element its slot in a stable partition by bucket id, from one
+per-tile histogram pass and one rank pass (CUDA kernels in
+`csrc/radix_partition.cu`); a plan is then applied to any number of
+payload lanes by scatters. Every tensor here is stacked: row p of a
+(P, n) tensor belongs to processing element p, and each row is
+partitioned on its own.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import build
+
+# Elements per block in both kernels; must equal kTile in the source. The
+# positions of a stable partition do not depend on it.
+TILE = 1024
+# The rank kernel keeps a (32 warps, B) int32 table in 48 KB of shared memory.
+MAX_BUCKETS = 384
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "bucket_hist_launch": (_P, _I64, _I64, ctypes.c_int, _P, _P),
+    "bucket_positions_launch": (_P, _P, _I64, _I64, ctypes.c_int, _P, _P),
+}
+
+
+class PartitionPlan(NamedTuple):
+    """A stable bucket partition of every row of a (P, n) id tensor."""
+    positions: torch.Tensor  # (P, n) int32 destination of every element
+    totals: torch.Tensor     # (P, B) int32 per-bucket counts
+    starts: torch.Tensor     # (P, B) int32 exclusive prefix of totals
+
+    def tile_slots(self, key: torch.Tensor, valid: torch.Tensor,
+                   capacity: int):
+        """Padded-tile destination of every element under this plan.
+
+        The plan was built over B bucket ids whose LAST bucket is the
+        invalid/trash bucket; payload rows are the first B - 1. Returns
+        (dst, fill, overflow): `dst` (P, n) int64 is the slot in a row's
+        ((B - 1) * capacity,) destination-major tile, every dropped element
+        (invalid, or past its bucket's capacity) pointing one past the end;
+        `fill` (P, B - 1) int32 is the per-bucket count clamped to capacity
+        and `overflow` (P,) int32 counts the clamped-off entries.
+        """
+        num_rows = self.totals.shape[1] - 1
+        hist = self.totals[:, :num_rows]
+        key64 = key.to(torch.int64)
+        within = (self.positions - self.starts.gather(1, key64)).to(torch.int64)
+        ok = valid & (key64 < num_rows) & (within < capacity)
+        dst = torch.where(ok, key64 * capacity + within, num_rows * capacity)
+        fill = torch.clamp(hist, max=capacity).to(torch.int32)
+        overflow = torch.clamp(hist - capacity, min=0).sum(1).to(torch.int32)
+        return dst, fill, overflow
+
+
+def _lib():
+    lib = build.load("radix_partition", _SIGNATURES)
+    if lib.partition_tile() != TILE:
+        raise RuntimeError("csrc/radix_partition.cu tile differs from TILE")
+    return lib
+
+
+def bucket_hist_cuda(buckets: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """(P, n) int32 ids -> (P, ceil(n / TILE), B) int32 histograms."""
+    build.check_arg(buckets, "buckets", torch.int32, 2)
+    rows, n = buckets.shape
+    n_tiles = -(-n // TILE)
+    hist = torch.empty((rows, n_tiles, num_buckets), dtype=torch.int32,
+                       device=buckets.device)
+    if hist.numel():
+        build.check_status(_lib().bucket_hist_launch(
+            buckets.data_ptr(), rows, n, num_buckets, hist.data_ptr(),
+            build.stream_ptr(buckets)), "bucket_hist")
+    return hist
+
+
+def bucket_positions_cuda(buckets: torch.Tensor,
+                          base: torch.Tensor) -> torch.Tensor:
+    """(P, n) int32 ids + (P, n_tiles, B) int32 bases -> (P, n) int32
+    stable destinations."""
+    build.check_arg(buckets, "buckets", torch.int32, 2)
+    build.check_arg(base, "base", torch.int32, 3, buckets.device)
+    rows, n = buckets.shape
+    num_buckets = base.shape[2]
+    if base.shape[:2] != (rows, -(-n // TILE)):
+        raise ValueError(f"base {tuple(base.shape)} does not match ids "
+                         f"{tuple(buckets.shape)} at tile {TILE}")
+    if num_buckets > MAX_BUCKETS:
+        raise ValueError(f"{num_buckets} buckets > {MAX_BUCKETS}")
+    pos = torch.empty((rows, n), dtype=torch.int32, device=buckets.device)
+    if pos.numel():
+        build.check_status(_lib().bucket_positions_launch(
+            buckets.data_ptr(), base.data_ptr(), rows, n, num_buckets,
+            pos.data_ptr(), build.stream_ptr(buckets)), "bucket_positions")
+    return pos

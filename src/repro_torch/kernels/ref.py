@@ -1,0 +1,138 @@
+"""Plain versions of the four kernels on the main counting path.
+
+Each function computes what its CUDA kernel computes, on the stacked
+(P, ...) layout: one row per processing element. `kernels.ops` runs these
+for tensors on the CPU; tests and `chip_smoke.py` hold the kernels to them.
+Counterparts of `repro.kernels.ref` (partition_plan_ref, bucket_hist_ref,
+bucket_positions_ref, segment_accumulate_ref, hash_insert_ref).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.radix_partition import PartitionPlan
+
+
+def _tile_keys(buckets: torch.Tensor, num_buckets: int, tile: int):
+    """Flat (row, tile, bucket) key of every element, and the tile count."""
+    p, n = buckets.shape
+    n_tiles = -(-n // tile)
+    dev = buckets.device
+    row = torch.arange(p, device=dev, dtype=torch.int64)[:, None]
+    t = torch.arange(n, device=dev, dtype=torch.int64)[None, :] // tile
+    key = (row * n_tiles + t) * num_buckets + buckets.to(torch.int64)
+    return key.reshape(-1), n_tiles
+
+
+def bucket_hist(buckets: torch.Tensor, num_buckets: int,
+                tile: int) -> torch.Tensor:
+    """(P, n) int32 ids in [0, B) -> (P, ceil(n / tile), B) int32 per-tile
+    histograms; a ragged last tile counts only its real elements."""
+    p = buckets.shape[0]
+    key, n_tiles = _tile_keys(buckets, num_buckets, tile)
+    hist = torch.bincount(key, minlength=p * n_tiles * num_buckets)
+    return hist.reshape(p, n_tiles, num_buckets).to(torch.int32)
+
+
+def bucket_positions(buckets: torch.Tensor, base: torch.Tensor,
+                     tile: int) -> torch.Tensor:
+    """Stable destination of every element: base[p, tile, bucket] plus its
+    rank among the equal-bucket elements of its tile, in input order."""
+    p, n = buckets.shape
+    num_buckets = base.shape[2]
+    key, n_tiles = _tile_keys(buckets, num_buckets, tile)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=p * n_tiles * num_buckets)
+    group_start = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(key)
+    rank[order] = (torch.arange(key.numel(), device=key.device)
+                   - group_start[key[order]])
+    pos = base.reshape(-1).to(torch.int64)[key] + rank
+    return pos.reshape(p, n).to(torch.int32)
+
+
+def partition_plan(buckets: torch.Tensor, num_buckets: int) -> PartitionPlan:
+    """Stable-argsort oracle of `ops.make_partition_plan`: the positions of
+    a stable bucket partition are each element's rank in the stable sort by
+    bucket id."""
+    p, n = buckets.shape
+    b = buckets.to(torch.int64)
+    order = torch.argsort(b, dim=1, stable=True)
+    positions = torch.empty_like(b)
+    positions.scatter_(1, order, torch.arange(n, device=b.device)
+                       .expand(p, n).contiguous())
+    row = torch.arange(p, device=b.device)[:, None] * num_buckets
+    totals = torch.bincount((row + b).reshape(-1),
+                            minlength=p * num_buckets).reshape(p, num_buckets)
+    starts = torch.cumsum(totals, 1) - totals
+    return PartitionPlan(positions=positions.to(torch.int32),
+                         totals=totals.to(torch.int32),
+                         starts=starts.to(torch.int32))
+
+
+def segment_accumulate(sorted_keys: torch.Tensor, weights: torch.Tensor,
+                       sentinel_val: int):
+    """(is_new, is_end, run_totals) of every row of sorted int64 words.
+
+    is_new / is_end flag the first / last element of each run of equal
+    valid keys; run_totals holds the run's int32 weight sum (wrapping) at
+    its last element and 0 elsewhere.
+    """
+    p, n = sorted_keys.shape
+    dev = sorted_keys.device
+    sent = torch.full((p, 1), sentinel_val, dtype=sorted_keys.dtype,
+                      device=dev)
+    valid = sorted_keys != sentinel_val
+    w = torch.where(valid, weights.to(torch.int64), 0)
+    prev = torch.cat([sent, sorted_keys[:, :-1]], 1)
+    nxt = torch.cat([sorted_keys[:, 1:], sent], 1)
+    is_new = valid & (sorted_keys != prev)
+    is_end = valid & (sorted_keys != nxt)
+    seg = torch.clamp(torch.cumsum(is_new.to(torch.int64), 1) - 1, min=0)
+    sums = torch.zeros((p, n), dtype=torch.int64, device=dev)
+    sums.scatter_add_(1, seg, w)
+    run_tot = torch.where(is_end, sums.gather(1, seg), 0)
+    return is_new, is_end, run_tot.to(torch.int32)
+
+
+def _wrap32(x: int) -> int:
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def hash_insert(table_keys: torch.Tensor, table_counts: torch.Tensor,
+                keys: torch.Tensor, weights: torch.Tensor,
+                slots: torch.Tensor, sentinel_val: int) -> torch.Tensor:
+    """Sequential insert-or-add of every row's batch into its row of the
+    open-addressing table, IN PLACE, folding items in stream order.
+
+    Linear probing from `slots` wrapping modulo capacity: the first empty
+    slot inserts, the first matching key adds; a sweep that visits every
+    slot drops the item and counts it. Sentinel keys and weights <= 0 are
+    skipped. The slot layout equals `repro.kernels.ref.hash_insert_ref`.
+    Returns the (P,) int32 drop counts of this batch.
+    """
+    if table_keys.device.type != "cpu":
+        raise ValueError("the sequential insert runs on CPU tensors")
+    p, cap = table_keys.shape
+    tk = table_keys.numpy()
+    tc = table_counts.numpy()
+    dropped = np.zeros(p, np.int32)
+    for r in range(p):
+        tkr, tcr = tk[r], tc[r]
+        for key, w, slot in zip(keys[r].tolist(), weights[r].tolist(),
+                                slots[r].tolist()):
+            if key == sentinel_val or w <= 0:
+                continue
+            for _ in range(cap):
+                cur = int(tkr[slot])
+                if cur == sentinel_val:
+                    tkr[slot] = key
+                if cur == sentinel_val or cur == key:
+                    tcr[slot] = _wrap32(int(tcr[slot]) + w)
+                    break
+                slot = 0 if slot + 1 == cap else slot + 1
+            else:
+                dropped[r] += 1
+    return torch.from_numpy(dropped)

@@ -1,0 +1,113 @@
+"""The port stands alone: it imports no JAX and nothing of `repro`, runs on
+the card unless the caller asks for the CPU, refuses what is outside its
+slice, and `chip_smoke.py` fails without a card or without the repo."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import fabsp
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+
+
+def _run(code, cwd=None, env_extra=None):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=cwd, timeout=300)
+
+
+def test_port_imports_no_jax_and_no_repro():
+    code = r"""
+import sys
+import numpy as np
+import repro_torch
+from repro_torch import words
+from repro_torch.core import (aggregation, countstore, encoding, fabsp,
+                              owner, resilience, serial, sort)
+from repro_torch.data import genome
+from repro_torch.kernels import build, hash_table, ops, radix_partition, ref
+from repro_torch.kernels import segment_count
+reads = genome.sample_reads(genome.ReadSetSpec(genome_bases=512, n_reads=64,
+                                               read_len=30, seed=1))
+res, st = fabsp.count_kmers(reads, fabsp.DAKCConfig(k=13, chunk_reads=8),
+                            num_pes=2, device="cpu")
+assert st.overflow == 0 and int(res.counts.sum()) == st.raw_kmers
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print("LEAKED", bad)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout
+
+
+def test_sources_name_no_jax_module():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                         re.M)
+    files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT /
+                                                         "chip_smoke.py"]
+    for f in files:
+        assert not pattern.search(f.read_text()), f
+
+
+def test_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs on it")
+    reads = torch.zeros((16, 30), dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fabsp.count_kmers(reads, fabsp.DAKCConfig(k=13, chunk_reads=8),
+                          num_pes=1)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(transport_impl="superkmer"),
+    dict(topology="2d"),
+    dict(receiver_impl="stacked"),
+    dict(spill="auto", spill_dir="unused"),
+    dict(faults=object()),
+    dict(compact_impl="prefix"),
+    dict(hop2_impl="compact"),
+], ids=lambda d: next(iter(d)))
+def test_settings_outside_the_slice_raise(knobs):
+    cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, **knobs)
+    reads = torch.zeros((16, 30), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fabsp.count_kmers(reads, cfg, num_pes=1, device="cpu")
+
+
+def test_config_validation_matches_jax():
+    from repro.core import fabsp as jfabsp
+
+    for bad in (dict(partition_impl="sort"), dict(store_capacity=0),
+                dict(store_slack=0), dict(spill="sometimes"),
+                dict(spill="auto"), dict(store_sizing="exact")):
+        with pytest.raises(ValueError):
+            jfabsp.DAKCConfig(k=13, **bad)
+        with pytest.raises(ValueError):
+            fabsp.DAKCConfig(k=13, **bad)
+    assert [f.name for f in fabsp.dataclasses.fields(fabsp.DAKCConfig)] == \
+        [f.name for f in fabsp.dataclasses.fields(jfabsp.DAKCConfig)]
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", alone / "chip_smoke.py")
+    for cwd in (ROOT, alone):
+        proc = subprocess.run(
+            [sys.executable, str(Path(cwd) / "chip_smoke.py")],
+            capture_output=True, text=True, cwd=cwd, timeout=300,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

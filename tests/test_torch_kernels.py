@@ -1,0 +1,294 @@
+"""The port's kernels: plain versions against the JAX package, bit-equal,
+and (on a card only) the CUDA kernels against the plain versions.
+
+The JAX partition and accumulate kernels run in interpret mode through
+`repro.kernels.ops`; the insert is held to `ref.hash_insert_ref`, which is
+what `ops.hash_insert` runs off the TPU. 64-bit words go through one x64
+subprocess.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import run_jax
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import words as W
+from repro_torch.kernels import ops, ref
+
+PLAN_FIELDS = ("positions", "totals", "starts")
+SENT32 = 0xFFFFFFFF
+
+
+def _sorted_runs(rng, n, n_distinct, sent, dtype, long_run=0):
+    vals = rng.integers(0, 1 << 30, size=n_distinct).astype(dtype)
+    keys = np.sort(rng.choice(vals, size=n))
+    if long_run:
+        keys[100:100 + long_run] = keys[100]
+        keys = np.sort(keys)
+    keys[n - n // 8:] = sent
+    w = rng.integers(1, 6, size=n).astype(np.int32)
+    return keys, w
+
+
+# Insert cases: (capacity, batch size, distinct keys, every home slot at
+# the last slot?) -- duplicates within a batch, a probe that wraps, a table
+# that fills until it drops.
+INSERT_CASES = {
+    "duplicates": (64, 300, 30, False),
+    "wraps": (37, 120, 30, True),
+    "full": (16, 200, 40, False),
+}
+
+
+def _insert_case(name, sent, dtype, seed):
+    cap, n, nd, wrap = INSERT_CASES[name]
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 1 << 30, size=nd).astype(dtype)
+    keys = rng.choice(vals, size=(2, n))
+    keys[:, ::11] = sent
+    w = rng.integers(0, 4, size=(2, n)).astype(np.int32)
+    slots = (np.full((2, n), cap - 1, np.int32) if wrap
+             else (keys % cap).astype(np.int32))
+    tk = np.full((2, cap), sent, dtype)
+    tk[:, 3] = vals[0]                 # a table that already holds a key
+    tc = np.zeros((2, cap), np.int32)
+    tc[:, 3] = 5
+    return tk, tc, keys, w, slots
+
+
+def _port_insert(tk, tc, keys, w, slots, sent):
+    tk_t = W.to_torch_words(tk)[0].clone()
+    tc_t = torch.from_numpy(tc.copy())
+    dropped = torch.zeros((tk.shape[0],), dtype=torch.int32)
+    ops.hash_insert(tk_t, tc_t, W.to_torch_words(keys)[0],
+                    torch.from_numpy(w), torch.from_numpy(slots),
+                    sentinel_val=sent, dropped=dropped)
+    return tk_t, tc_t, dropped
+
+
+# --- partition ----------------------------------------------------------------
+
+@pytest.mark.parametrize("b", [2, 9, 257])
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_partition_plan_matches_jax(b, n):
+    ids = np.random.default_rng(b * 7919 + n).integers(
+        0, b, size=(2, n), dtype=np.int32)
+    t = torch.from_numpy(ids)
+    got = ops.make_partition_plan(t, b)
+    oracle = ref.partition_plan(t, b)
+    for r in range(2):
+        jp = jops.make_partition_plan(jnp.asarray(ids[r]), b)
+        jr = jref.partition_plan_ref(jnp.asarray(ids[r]), b)
+        for f in PLAN_FIELDS:
+            np.testing.assert_array_equal(getattr(got, f)[r].numpy(),
+                                          np.asarray(getattr(jp, f)))
+            np.testing.assert_array_equal(getattr(oracle, f)[r].numpy(),
+                                          np.asarray(getattr(jr, f)))
+
+
+@pytest.mark.parametrize("b", [9, 257])
+def test_bucket_hist_and_positions_match_jax_refs(b):
+    ids = np.random.default_rng(b).integers(0, b, size=(2, 4096),
+                                            dtype=np.int32)
+    t = torch.from_numpy(ids)
+    hist = ops.bucket_hist(t, b)
+    base = (torch.cumsum(hist, 1) - hist).to(torch.int32)
+    pos = ops.bucket_positions(t, base)
+    for r in range(2):
+        np.testing.assert_array_equal(
+            hist[r].numpy(),
+            np.asarray(jref.bucket_hist_ref(jnp.asarray(ids[r]), b, 1024)))
+        np.testing.assert_array_equal(
+            pos[r].numpy(),
+            np.asarray(jref.bucket_positions_ref(
+                jnp.asarray(ids[r]), jnp.asarray(base[r].numpy()), 1024)))
+
+
+def test_partition_tile_slots_overflow():
+    """The tile slot math at a capacity that overflows: kept entries are
+    the first `capacity` of each bucket in stream order."""
+    key = torch.tensor([[0, 1, 0, 2, 0, 1, 0]], dtype=torch.int32)
+    valid = key < 2
+    plan = ops.make_partition_plan(key, 3)
+    dst, fill, ovf = plan.tile_slots(key, valid, 2)
+    assert dst.tolist() == [[0, 2, 1, 4, 4, 3, 4]]
+    assert fill.tolist() == [[2, 2]] and ovf.tolist() == [2]
+
+
+# --- accumulate ---------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["random", "long_run", "all_sentinel"])
+def test_segment_accumulate_matches_jax_k13(case):
+    rng = np.random.default_rng(3)
+    keys, w = _sorted_runs(rng, 4096, 3 if case == "long_run" else 700,
+                           SENT32, np.uint32,
+                           long_run=2500 if case == "long_run" else 0)
+    if case == "all_sentinel":
+        keys[:] = SENT32
+    got = ops.segment_accumulate(W.to_torch_words(keys[None])[0],
+                                 torch.from_numpy(w[None]),
+                                 sentinel_val=SENT32)
+    want = jops.segment_accumulate(jnp.asarray(keys), jnp.asarray(w),
+                                   sentinel_val=SENT32, tile=1024)
+    for g, r in zip(got, want):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(r))
+
+
+# --- insert -------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(INSERT_CASES))
+def test_hash_insert_matches_ref_k13(name):
+    """Slot layout and drop count equal the sequential JAX reference."""
+    tk, tc, keys, w, slots = _insert_case(name, SENT32, np.uint32, 11)
+    got_k, got_c, got_d = _port_insert(tk, tc, keys, w, slots, SENT32)
+    for r in range(2):
+        jk, jc, jd = jref.hash_insert_ref(
+            jnp.asarray(tk[r]), jnp.asarray(tc[r]), jnp.asarray(keys[r]),
+            jnp.asarray(w[r]), jnp.asarray(slots[r]), SENT32)
+        np.testing.assert_array_equal(W.to_numpy_words(got_k[r], 32),
+                                      np.asarray(jk))
+        np.testing.assert_array_equal(got_c[r].numpy(), np.asarray(jc))
+        assert int(got_d[r]) == int(jd)
+    assert (int(got_d.sum()) > 0) == (name == "full")
+
+
+# --- 64-bit words: JAX in an x64 subprocess ------------------------------------
+
+def _inputs64():
+    rng = np.random.default_rng(5)
+    sent = np.iinfo(np.uint64).max
+    keys, w = _sorted_runs(rng, 4096, 300, sent, np.uint64, long_run=1500)
+    keys[:4000] |= np.uint64(1 << 61)
+    keys[:4000] = np.sort(keys[:4000])
+    out = {"acc_keys": keys, "acc_w": w}
+    for name in INSERT_CASES:
+        for part, a in zip(("tk", "tc", "keys", "w", "slots"),
+                           _insert_case(name, sent, np.uint64, 13)):
+            out[f"{name}_{part}"] = a
+    return out
+
+
+INPUTS64 = _inputs64()
+
+_BODY64 = """
+from repro.kernels import ops, ref
+sent = int(np.iinfo(np.uint64).max)
+O["acc"] = np.stack([np.asarray(x, np.int64) for x in ops.segment_accumulate(
+    jnp.asarray(I["acc_keys"]), jnp.asarray(I["acc_w"]), sentinel_val=sent,
+    tile=1024)])
+for name in ("duplicates", "wraps", "full"):
+    g = lambda p: I[f"{name}_{p}"]
+    for r in range(2):
+        tk, tc, d = ref.hash_insert_ref(
+            jnp.asarray(g("tk")[r]), jnp.asarray(g("tc")[r]),
+            jnp.asarray(g("keys")[r]), jnp.asarray(g("w")[r]),
+            jnp.asarray(g("slots")[r]), sent)
+        O[f"{name}_{r}_tk"], O[f"{name}_{r}_tc"], O[f"{name}_{r}_d"] = tk, tc, d
+"""
+
+
+@pytest.fixture(scope="module")
+def jax64(tmp_path_factory):
+    return run_jax(tmp_path_factory.mktemp("kernels64"), _BODY64, INPUTS64,
+                   x64=True)
+
+
+def test_segment_accumulate_matches_jax_64bit(jax64):
+    got = ops.segment_accumulate(
+        W.to_torch_words(INPUTS64["acc_keys"][None])[0],
+        torch.from_numpy(INPUTS64["acc_w"][None]), sentinel_val=-1)
+    for g, r in zip(got, jax64["acc"]):
+        np.testing.assert_array_equal(g[0].numpy().astype(np.int64), r)
+
+
+@pytest.mark.parametrize("name", sorted(INSERT_CASES))
+def test_hash_insert_matches_ref_64bit(jax64, name):
+    args = [INPUTS64[f"{name}_{p}"] for p in ("tk", "tc", "keys", "w",
+                                              "slots")]
+    got_k, got_c, got_d = _port_insert(*args, -1)
+    for r in range(2):
+        np.testing.assert_array_equal(W.to_numpy_words(got_k[r], 64),
+                                      jax64[f"{name}_{r}_tk"])
+        np.testing.assert_array_equal(got_c[r].numpy(),
+                                      jax64[f"{name}_{r}_tc"])
+        assert int(got_d[r]) == int(jax64[f"{name}_{r}_d"])
+
+
+# --- dispatch -------------------------------------------------------------------
+
+def test_no_kernel_for_other_devices():
+    """A tensor that is neither on the CPU nor on a card raises: there is
+    no silent route to the plain version."""
+    ids = torch.zeros((1, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ops.bucket_hist(ids, 2)
+
+
+def test_cpu_path_counts_no_launches():
+    ops.reset_launches()
+    ops.make_partition_plan(torch.zeros((1, 8), dtype=torch.int32), 2)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+# --- on the card only ---------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run `python3 chip_smoke.py` there")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [2, 9, 257])
+def test_partition_kernels_match_plain_on_card(b):
+    dev = _cuda()
+    ids = torch.randint(0, b, (8, 30720), dtype=torch.int32, device=dev)
+    got = ops.make_partition_plan(ids, b)
+    torch.cuda.synchronize()
+    want = ref.partition_plan(ids, b)
+    for f in PLAN_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [32, 64])
+def test_segment_accumulate_kernel_matches_plain_on_card(bits):
+    dev = _cuda()
+    sent = W.sentinel(bits)
+    keys, w = _sorted_runs(np.random.default_rng(bits), 300_000, 40,
+                           np.uint32(SENT32) if bits == 32
+                           else np.iinfo(np.uint64).max,
+                           np.uint32 if bits == 32 else np.uint64,
+                           long_run=150_000)
+    kt = W.to_torch_words(keys[None])[0].to(dev)
+    wt = torch.from_numpy(w[None]).to(dev)
+    got = ops.segment_accumulate(kt, wt, sentinel_val=sent)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref.segment_accumulate(kt, wt, sent)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(INSERT_CASES))
+def test_hash_insert_kernel_matches_plain_on_card(name):
+    dev = _cuda()
+    tk, tc, keys, w, slots = _insert_case(name, SENT32, np.uint32, 17)
+    pk, pc, pd = _port_insert(tk, tc, keys, w, slots, SENT32)
+    dk = W.to_torch_words(tk)[0].to(dev)
+    dc = torch.from_numpy(tc).to(dev)
+    dd = torch.zeros((2,), dtype=torch.int32, device=dev)
+    ops.hash_insert(dk, dc, W.to_torch_words(keys)[0].to(dev),
+                    torch.from_numpy(w).to(dev),
+                    torch.from_numpy(slots).to(dev), sentinel_val=SENT32,
+                    dropped=dd)
+    torch.cuda.synchronize()
+    dk, dc, dd = dk.cpu(), dc.cpu(), dd.cpu()
+    for r in range(2):
+        assert (int(dd[r]) > 0) == (int(pd[r]) > 0)
+        if int(pd[r]) == 0:
+            occ, pocc = dk[r] != SENT32, pk[r] != SENT32
+            assert sorted(zip(dk[r][occ].tolist(), dc[r][occ].tolist())) == \
+                sorted(zip(pk[r][pocc].tolist(), pc[r][pocc].tolist()))
