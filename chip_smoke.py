@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # every phase, full size
-    python3 chip_smoke.py --phases 1,2,3 # device, build, kernel checks only
-    python3 chip_smoke.py --reads 4194304  # cut the full-size read count
+    python3 chip_smoke.py                  # every phase, full size
+    python3 chip_smoke.py --phases 1,2,3   # device, build, kernel checks only
+    python3 chip_smoke.py --phases 1,2,3,8 # ... and the incremental counter
+    python3 chip_smoke.py --reads 4194304  # cut phase 4's read count
 
 Phases:
   1. device: require CUDA; print the card's name and power limit;
@@ -14,10 +15,16 @@ Phases:
   4. the paper's workload at full size: "Synthetic 26" (2**26 uniform
      bases), 2**23 reads of 150 bp, k=31, chunk_reads=256, 8 PEs on the
      card, checked exactly against an independent torch.unique count;
-     every kernel must have launched on this path;
+     every kernel of count_kmers must have launched on this path;
   5. small runs at k=13 (32-bit words, 'dual') and k=21 ('packed');
-  6. each kernel's time at the main path's shapes beside its plain
-     version, one library call where one exists, and its bound;
+  8. the incremental counter and its queries at full size: the same read
+     set fed to KmerCounter (k=31, hashed super-k-mer transport, prefix
+     compaction, 8 PEs) in 8 updates, finalized exactly against
+     torch.unique, then 2**20 point queries answered exactly; plus small
+     runs of the k-mer transport (k=13), the 'plain' minimizer order and
+     a rehash round;
+  6. each kernel's time at its path's shapes beside its plain version, one
+     library call where one exists, and its bound (runs after phase 8);
   7. on request only: the main path under torch.profiler (device time by
      kernel, the device's busy share).
 
@@ -39,6 +46,10 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 K = 31
 NUM_PES = 8
+# The kernels of count_kmers' path (phase 4); the counter's path (phase 8)
+# adds the lookup and the sliding minimum.
+COUNT_KERNELS = ("bucket_hist", "bucket_positions", "segment_accumulate",
+                 "hash_insert")
 
 
 def log(msg: str) -> None:
@@ -172,14 +183,103 @@ def check_kernels(torch, ops, ref, errs):
                 f"same (key, count) sets, drops {dd.tolist()} vs plain "
                 f"{pd.tolist()}")
     errs["hash_insert"] = 0
+    check_lookup(torch, ops, ref, gen, dev)
+    errs["hash_lookup"] = 0
+    check_sliding_min(torch, ops, ref, gen, dev)
+    errs["sliding_min"] = errs["sliding_min_pair"] = 0
+
+
+def check_lookup(torch, ops, ref, gen, dev):
+    from repro_torch import words as W
+    from repro_torch.core import countstore
+
+    log("[kernels] hash_lookup")
+    for word_bits in (32, 64):
+        sent = W.sentinel(word_bits)
+        hi = (1 << 62) if word_bits == 64 else (1 << 30)
+        for rows, cap, n_keys, n_q, wrap, name in (
+                (4, 4096, 3000, 20000, False, "hits, misses, sentinels"),
+                (3, 257, 200, 600, True, "wraps past the last slot"),
+                (2, 257, 400, 1000, False, "full table, misses sweep it"),
+                (8, 1 << 20, 500_000, 1 << 20, False, "main-path batch")):
+            keys = torch.randint(0, hi, (rows, n_keys), generator=gen)
+            slot_of = ((lambda k: torch.full(k.shape, cap - 1,
+                                             dtype=torch.int32))
+                       if wrap else
+                       (lambda k: countstore.store_slots(k, cap, word_bits)))
+            tk = torch.full((rows, cap), sent, dtype=torch.int64, device=dev)
+            tc = torch.zeros((rows, cap), dtype=torch.int32, device=dev)
+            dd = torch.zeros((rows,), dtype=torch.int32, device=dev)
+            ops.hash_insert(tk, tc, keys.to(dev),
+                            torch.randint(1, 9, keys.shape, generator=gen,
+                                          dtype=torch.int32).to(dev),
+                            slot_of(keys).to(dev), sentinel_val=sent,
+                            dropped=dd)
+            pick = torch.randint(0, n_keys, (rows, n_q // 2), generator=gen)
+            q = torch.cat([keys.gather(1, pick),
+                           torch.randint(0, hi, (rows, n_q - n_q // 2),
+                                         generator=gen)], 1)
+            q[:, ::13] = sent
+            qd, sd = q.to(dev), slot_of(q).to(dev)
+            got = ops.hash_lookup(tk, tc, qd, sd, sentinel_val=sent)
+            torch.cuda.synchronize()
+            want = ref.hash_lookup(tk, tc, qd, sd, sent)
+            for g, w, what in zip(got, want, ("counts", "probes")):
+                check(torch.equal(g, w), f"hash_lookup {what} differ ({name})")
+            hits = int((got[0] > 0).sum())
+            log(f"  {word_bits}-bit rows={rows} cap={cap} n={n_q} ({name}): "
+                f"bit-equal, {hits} hits, longest walk {int(got[1].max())}")
+            del tk, tc, qd, sd, got, want
+
+
+def check_sliding_min(torch, ops, ref, gen, dev):
+    from repro_torch.core import encoding, owner
+    from repro_torch.data import genome
+
+    log("[kernels] sliding_min + sliding_min_pair")
+    spec = genome.ReadSetSpec(genome_bases=1 << 20, n_reads=2048,
+                              read_len=150, seed=3)
+    reads = genome.sample_reads_torch(spec, dev)
+    reads[:64] = 0                          # poly-A rows: every key ties
+    for m, w in ((7, 25), (20, 12), (7, 1), (20, 131)):
+        wb = encoding.word_bits(m)
+        mmers = encoding.pack_kmers(reads, m)
+        key = owner.order_key(mmers, wb)
+        for rows in (mmers, mmers[:1001]):   # 1001: not a multiple of a block
+            rows = rows.contiguous()
+            got = ops.sliding_min(rows, w)
+            keys = key[:rows.shape[0]].contiguous()
+            gk, gv = ops.sliding_min_pair(keys, rows, w)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref.sliding_min(rows, w)),
+                  f"sliding_min differs at m={m} w={w}")
+            pk, pv = ref.sliding_min_pair(keys, rows, w)
+            check(torch.equal(gk, pk) and torch.equal(gv, pv),
+                  f"sliding_min_pair differs at m={m} w={w}")
+        top = int((key < 0).sum())
+        log(f"  m={m} ({wb}-bit) w={w} rows={tuple(mmers.shape)}: bit-equal, "
+            f"{top} keys with the top bit set")
+    # the query path's shape: one window per query k-mer, w = n_pos
+    q = torch.randint(0, 1 << 62, (1 << 20, 25), generator=gen).to(dev)
+    q[::3] |= -(1 << 63)
+    check(torch.equal(ops.sliding_min(q, 25), ref.sliding_min(q, 25)),
+          "sliding_min differs at the query shape")
+    vals = torch.flip(q, [1]).contiguous()
+    gk, gv = ops.sliding_min_pair(q, vals, 25)
+    pk, pv = ref.sliding_min_pair(q, vals, 25)
+    check(torch.equal(gk, pk) and torch.equal(gv, pv),
+          "sliding_min_pair differs at the query shape")
+    log(f"  query shape {tuple(q.shape)} w=25: bit-equal")
 
 
 # --- phase 4/5: the main path and its independent reference ----------------
 
-def reference_check(torch, reads, k, res, stats, num_pes, pieces):
+def reference_check(torch, reads, k, res, stats, num_pes, pieces,
+                    keep=False):
     """Every k-mer extracted by a path of its own (unfold + multiply-add),
     counted with torch.unique in `pieces` slices of k-mer space, must equal
-    the port's concatenated per-PE histograms exactly."""
+    the port's concatenated per-PE histograms exactly. With `keep`, returns
+    the whole reference (ascending k-mers, counts) too."""
     L = res.unique.numel() // num_pes
     uniq = res.unique.view(num_pes, L)
     cnt = res.counts.view(num_pes, L)
@@ -191,6 +291,7 @@ def reference_check(torch, reads, k, res, stats, num_pes, pieces):
     got_k, got_c = got_k[order], got_c[order]
     check(bool((got_k[1:] != got_k[:-1]).all()), "a k-mer has two owners")
     block = 1 << 20
+    kept = []
     for q in range(pieces):
         parts = []
         for lo in range(0, reads.shape[0], block):
@@ -207,7 +308,14 @@ def reference_check(torch, reads, k, res, stats, num_pes, pieces):
         sel = (got_k % pieces) == q
         check(torch.equal(ref_k, got_k[sel]), f"k-mer set differs (piece {q})")
         check(torch.equal(ref_c, got_c[sel]), f"counts differ (piece {q})")
-    return int(got_k.numel())
+        if keep:
+            kept.append((ref_k, ref_c))
+    if not keep:
+        return int(got_k.numel())
+    ref_k = torch.cat([p[0] for p in kept])
+    order = torch.argsort(ref_k)
+    ref_c = torch.cat([p[1] for p in kept])[order]
+    return int(got_k.numel()), (ref_k[order], ref_c)
 
 
 def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
@@ -236,6 +344,7 @@ def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
     log(f"  store slots per PE {res.unique.numel() // num_pes}, retries: "
         f"route-slack {stats.retry_route_slack}, store-rehash "
         f"{stats.retry_store_rehash}")
+    launches = {name: launches[name] for name in COUNT_KERNELS}
     log(f"  launches on this path {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} did not launch on the main path")
@@ -244,6 +353,142 @@ def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
     log(f"  exact against torch.unique: {distinct} distinct k-mers, "
         f"{stats.raw_kmers} instances ({time.perf_counter() - t0:.1f} s)")
     return launches, wall, peak
+
+
+# --- phase 8: the incremental counter and its queries ----------------------
+
+def make_queries(torch, reads, k, n, seed):
+    """n packed k-mer words on the card: half read windows (hits), half
+    uniform random words (almost all misses)."""
+    dev = reads.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    half = n // 2
+    rows = torch.randint(0, reads.shape[0], (half,), generator=g, device=dev)
+    offs = torch.randint(0, reads.shape[1] - k + 1, (half,), generator=g,
+                         device=dev)
+    win = reads[rows[:, None], offs[:, None]
+                + torch.arange(k, device=dev)[None, :]]
+    hit = torch.zeros((half,), dtype=torch.int64, device=dev)
+    for j in range(k):
+        hit = hit * 4 + win[:, j].to(torch.int64)
+    rand = torch.randint(0, 1 << (2 * k), (n - half,), generator=g,
+                         device=dev)
+    return torch.cat([hit, rand])
+
+
+def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
+                n_queries, pieces, label):
+    """Feed `spec`'s reads to a KmerCounter in `n_updates` equal batches,
+    finalize it exactly against torch.unique, then answer `n_queries`
+    point queries exactly. Returns (counter, launches, numbers)."""
+    t0 = time.perf_counter()
+    reads = genome.sample_reads_torch(spec, "cuda")
+    torch.cuda.synchronize()
+    log(f"  reads {tuple(reads.shape)} built on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = spec.n_reads // n_updates
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    kc = fabsp.KmerCounter(cfg, num_pes=num_pes)
+    t_all = time.perf_counter()
+    walls = []
+    for i in range(n_updates):
+        t0 = time.perf_counter()
+        st = kc.update(reads[i * batch:(i + 1) * batch])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        log(f"  update {i}: wall {walls[-1]:.3f} s, "
+            f"{st.raw_kmers / walls[-1] / 1e6:.2f} M k-mer instances/s, "
+            f"retry route-slack {st.retry_route_slack} store-rehash "
+            f"{st.retry_store_rehash} hop2-fallback {st.retry_hop2_fallback}, "
+            f"store slots per PE {kc.store_capacity}")
+    t0 = time.perf_counter()
+    res, stats = kc.finalize()
+    torch.cuda.synchronize()
+    t_fin = time.perf_counter() - t0
+    update_wall = sum(walls)
+    log(f"  finalize wall {t_fin:.3f} s; {n_updates} updates "
+        f"{update_wall:.3f} s, {stats.raw_kmers / update_wall / 1e6:.2f} M "
+        f"k-mer instances/s; lifetime stats {stats._asdict()}")
+    queries = make_queries(torch, reads, cfg.k, n_queries, seed=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = kc.count(queries)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    qstats = kc.last_query_stats
+    got_in = kc.contains(queries)
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    log(f"  count() of {n_queries} queries: wall {t_q:.3f} s, "
+        f"{n_queries / t_q / 1e6:.3f} M queries/s; {qstats}")
+    log(f"  max_memory_allocated {peak / 1e9:.2f} GB "
+        f"(updates, finalize and queries)")
+    log(f"  launches on this path {launches}")
+    t0 = time.perf_counter()
+    distinct, (ref_k, ref_c) = reference_check(
+        torch, reads, cfg.k, res, stats, num_pes, pieces, keep=True)
+    del res, reads
+    idx = torch.clamp(torch.searchsorted(ref_k, queries),
+                      max=ref_k.numel() - 1)
+    want = torch.where(ref_k[idx] == queries, ref_c[idx], 0)
+    check(bool((torch.from_numpy(got).to(want.device) == want).all()),
+          "a query answer differs from torch.unique")
+    check(bool((torch.from_numpy(got_in).to(want.device) == (want > 0))
+               .all()), "a contains() answer differs")
+    check(qstats.n_hits == int((want > 0).sum()), "QueryStats.n_hits")
+    log(f"  [{label}] exact against torch.unique: {distinct} distinct "
+        f"k-mers, {stats.raw_kmers} instances; all {n_queries} answers "
+        f"exact, {qstats.n_hits} hits ({time.perf_counter() - t0:.1f} s)")
+    numbers = {"update_wall_s": update_wall, "updates": walls,
+               "instances_per_s": stats.raw_kmers / update_wall,
+               "finalize_s": t_fin, "query_wall_s": t_q,
+               "queries_per_s": n_queries / t_q, "peak_bytes": peak,
+               "query_stats": qstats._asdict(), "stats": stats}
+    return kc, launches, numbers
+
+
+def counter_phase(torch, fabsp, ops, genome):
+    """Phase 8: the full-size counter, then the small cases. Returns the
+    full-size counter (phase 6 times the lookup against its store), and
+    the launches and numbers of each run."""
+    log("[counter] Synthetic 26, 2**23 reads of 150 bp in 8 updates, k=31, "
+        "hashed super-k-mers, prefix compaction, 8 PEs")
+    cfg = fabsp.DAKCConfig(k=K, transport_impl="superkmer",
+                           minimizer_order="hashed", compact_impl="prefix")
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=1 << 23,
+                              read_len=150, seed=0)
+    kc, launches, numbers = run_counter(torch, fabsp, ops, genome, cfg, spec,
+                                        NUM_PES, 8, 1 << 20, 4, "full size")
+    for name in ("hash_lookup", "sliding_min_pair", "hash_insert",
+                 "bucket_hist", "bucket_positions", "segment_accumulate"):
+        check(launches[name] > 0, f"kernel {name} did not launch on the "
+              f"counter's path")
+    out = {"full": (launches, numbers)}
+    small = (
+        ("k-mer transport, k=13, 4 PEs", "kmer13",
+         fabsp.DAKCConfig(k=13), 4, 1 << 16),
+        ("'plain' minimizer order, k=31, 8 PEs", "plain",
+         fabsp.DAKCConfig(k=K, transport_impl="superkmer"), NUM_PES, 1 << 20),
+        ("a rehash round: 256-slot stores, k=31, 8 PEs", "rehash",
+         fabsp.DAKCConfig(k=K, transport_impl="superkmer",
+                          minimizer_order="hashed", store_capacity=256),
+         NUM_PES, 1 << 16),
+    )
+    for title, tag, scfg, p, genome_bases in small:
+        log(f"[counter small] {title}")
+        sspec = genome.ReadSetSpec(genome_bases=genome_bases, n_reads=1 << 15,
+                                   read_len=150, seed=2)
+        skc, sl, sn = run_counter(torch, fabsp, ops, genome, scfg, sspec, p,
+                                  2, 1 << 14, 1, tag)
+        del skc
+        out[tag] = (sl, sn)
+    check(out["plain"][0]["sliding_min"] > 0,
+          "sliding_min did not launch under the 'plain' order")
+    check(out["rehash"][1]["stats"].retry_store_rehash > 0,
+          "the rehash case ran no rehash round")
+    return kc, out
 
 
 # --- phase 6: kernel times --------------------------------------------------
@@ -261,7 +506,7 @@ def time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def kernel_times(torch, ops, ref, launches, errs):
+def kernel_times(torch, ops, ref, launches, errs, counter):
     from repro_torch import words as W
 
     dev = torch.device("cuda")
@@ -289,11 +534,14 @@ def kernel_times(torch, ops, ref, launches, errs):
         "segment_accumulate": f"keys ({rows}, {n}) int64",
         "hash_insert": None,
     }
+    tile_key = ref._tile_keys(ids, b, ops.TILE)[0]
     entry("bucket_hist", "src/repro_torch/csrc/radix_partition.cu",
           "src/repro/kernels/radix_partition.py:65",
           time_ms(torch, lambda: ops.bucket_hist(ids, b)),
           time_ms(torch, lambda: ref.bucket_hist(ids, b, ops.TILE)),
-          rows * n * 4 + rows * n_tiles * b * 4, None)
+          rows * n * 4 + rows * n_tiles * b * 4,
+          time_ms(torch, lambda: torch.bincount(
+              tile_key, minlength=rows * n_tiles * b)))
     entry("bucket_positions", "src/repro_torch/csrc/radix_partition.cu",
           "src/repro/kernels/radix_partition.py:93",
           time_ms(torch, lambda: ops.bucket_positions(ids, base)),
@@ -352,11 +600,90 @@ def kernel_times(torch, ops, ref, launches, errs):
           rows * nb * (8 + 4 + 4) + live * (8 + 4) * 2, None)
     log("  hash_insert plain_ms: the sequential CPU version, same batch, "
         f"{small}-slot tables per PE")
+    del pk, pc
+    new_kernel_times(torch, ops, ref, counter, entry, shape_of)
     for e in out:
         log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, "
             f"library {e['library_ms']}, bound {e['bound_ms']:.5f}) "
             f"at {e['shape']}")
     return out
+
+
+def new_kernel_times(torch, ops, ref, counter, entry, shape_of):
+    """The lookup and sliding-minimum rows, at the shapes of the counter's
+    path (phase 8): one scan step's m-mers, and one query batch's probes
+    of the full-size store."""
+    from repro_torch import words as W
+    from repro_torch.core import countstore, encoding, owner
+    from repro_torch.data import genome
+
+    dev = torch.device("cuda")
+    kc, runs = counter
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=NUM_PES * 256,
+                              read_len=150, seed=4)
+    mmers = encoding.pack_kmers(genome.sample_reads_torch(spec, dev), 7)
+    keys = owner.order_key(mmers, 32)
+    w = K - 7 + 1
+    rows, n_pos = mmers.shape
+    n_out = n_pos - w + 1
+    shape_of["sliding_min"] = shape_of["sliding_min_pair"] = (
+        f"m-mers ({rows}, {n_pos}) int64, w={w}")
+    entry("sliding_min", "src/repro_torch/csrc/minimizer.cu",
+          "src/repro/kernels/minimizer.py:55",
+          time_ms(torch, lambda: ops.sliding_min(mmers, w)),
+          time_ms(torch, lambda: ref.sliding_min(mmers, w)),
+          rows * (n_pos + n_out) * 8,
+          time_ms(torch, lambda: mmers.unfold(1, w, 1).amin(2)))
+
+    def library_pair():
+        i = keys.unfold(1, w, 1).argmin(2, keepdim=True)
+        return (keys.unfold(1, w, 1).gather(2, i),
+                mmers.unfold(1, w, 1).gather(2, i))
+
+    entry("sliding_min_pair", "src/repro_torch/csrc/minimizer.cu",
+          "src/repro/kernels/minimizer.py:111",
+          time_ms(torch, lambda: ops.sliding_min_pair(keys, mmers, w)),
+          time_ms(torch, lambda: ref.sliding_min_pair(keys, mmers, w)),
+          rows * (n_pos + n_out) * 8 * 2, time_ms(torch, library_pair))
+
+    # One query batch of the full-size path as each PE probes it: 2**20
+    # queries spread over 8 PEs, so each PE's received tile has
+    # 8 * 131072 slots of which about 131072 are live (half hits).
+    snap = kc._committed
+    sent = W.sentinel(snap.word_bits)
+    n_local = (1 << 20) // NUM_PES
+    n = NUM_PES * n_local
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.full((NUM_PES, n), sent, dtype=torch.int64, device=dev)
+    for r in range(NUM_PES):
+        stored = snap.keys[r][snap.keys[r] != sent]
+        pick = torch.randint(0, stored.numel(), (n_local // 2,),
+                             generator=g, device=dev)
+        q[r, :n_local // 2] = stored[pick]
+        q[r, n_local // 2:n_local] = torch.randint(
+            0, 1 << (2 * K), (n_local - n_local // 2,), generator=g,
+            device=dev)
+        q[r] = q[r][torch.randperm(n, generator=g, device=dev)]
+    slots = countstore.store_slots(q, snap.store_cap, snap.word_bits)
+    counts, probes = ops.hash_lookup(snap.keys, snap.counts, q, slots,
+                                     sentinel_val=sent)
+    live = int((q != sent).sum())
+    steps, hits = int(probes.sum()), int((counts > 0).sum())
+    log(f"  hash_lookup batch: {live} live queries, {hits} hits, mean walk "
+        f"{steps / live:.4f} slots (the full-size path's queries: "
+        f"{runs['full'][1]['query_stats']['probe_sum'] / (1 << 20):.4f})")
+    shape_of["hash_lookup"] = (
+        f"table ({NUM_PES}, {snap.store_cap}) int64+int32, queries "
+        f"({NUM_PES}, {n}), {live} live")
+    entry("hash_lookup", "src/repro_torch/csrc/hash_table.cu",
+          "src/repro/kernels/hash_table.py:195",
+          time_ms(torch, lambda: ops.hash_lookup(snap.keys, snap.counts, q,
+                                                 slots, sentinel_val=sent)),
+          time_ms(torch, lambda: ref.hash_lookup(snap.keys, snap.counts, q,
+                                                 slots, sent), reps=5),
+          NUM_PES * n * (8 + 4 + 4 + 4) + steps * (8 + 4), None)
+    log("  hash_lookup library_ms: none, no PyTorch call walks a probe "
+        "sequence")
 
 
 # --- phase 7 (on request): where the time of the main path goes -------------
@@ -394,10 +721,11 @@ def profile_path(torch, fabsp, genome, n_reads):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
-                    help="full-size read count (a cut is printed)")
+                    help="phase 4's read count (a cut is printed); phase 8 "
+                         "always reads 2**23")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -435,7 +763,7 @@ def main(argv=None) -> int:
         check_kernels(torch, ops, ref, errs)
         log(f"[kernels] all bit-equal ({time.perf_counter() - t0:.1f} s)")
 
-    launches = None
+    launches = {}
     if 4 in phases:
         log("[full size] Synthetic 26, 150 bp reads, k=31, 8 PEs")
         if args.reads != 1 << 23:
@@ -450,11 +778,24 @@ def main(argv=None) -> int:
             run_count(torch, fabsp, ops, genome, 4096, k, p, pieces=1,
                       genome_bases=1 << 16)
 
+    counter = None
+    if 8 in phases:
+        t0 = time.perf_counter()
+        counter = counter_phase(torch, fabsp, ops, genome)
+        runs = counter[1]
+        launches["hash_lookup"] = runs["full"][0]["hash_lookup"]
+        launches["sliding_min_pair"] = runs["full"][0]["sliding_min_pair"]
+        launches["sliding_min"] = runs["plain"][0]["sliding_min"]
+        log(f"[counter] done ({time.perf_counter() - t0:.1f} s)")
+
     record = None
     if 6 in phases:
-        check(launches is not None and errs, "phase 6 needs phases 3 and 4")
+        check(len(launches) == len(ops.KERNELS) and errs
+              and counter is not None, "phase 6 needs phases 3, 4 and 8")
         log("[times] CUDA events, 20 launches after a warm-up")
-        record = kernel_times(torch, ops, ref, launches, errs)
+        record = kernel_times(torch, ops, ref, launches, errs, counter)
+        counter = None
+        torch.cuda.empty_cache()
 
     if 7 in phases:
         log("[profile] the main path under torch.profiler")

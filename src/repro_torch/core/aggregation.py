@@ -108,6 +108,49 @@ def route_lanes(lanes, kinds, owners, valid, *, num_pes: int, capacity: int,
         hop2_dropped=torch.zeros_like(ovf), fill=fill)
 
 
+def compact_lanes(lanes, kinds, valid, capacity: int, *, word_bits: int,
+                  impl: str = "radix"):
+    """Pre-route prefix compaction: shrink every row's lanes to its valid
+    entries, in stream order, kept in the first `capacity` slots.
+
+    A stable 2-bucket partition (valid first, invalid in the trash bucket)
+    through the same `PartitionPlan.tile_slots` the router uses. Owners are
+    computed before compaction and ride as an 'i32' lane. Valid entries past
+    `capacity` are dropped and counted in the returned overflow, which the
+    caller's retry round absorbs.
+
+    lanes: tuple of (P, n) tensors; kinds: 'word' (sentinel padding) or
+    'i32' (zero padding). Returns (lanes each (P, capacity), new_valid
+    (P, capacity) bool, overflow (P,) int32).
+    """
+    if len(lanes) != len(kinds) or not lanes:
+        raise ValueError("lanes/kinds must be equal-length and non-empty")
+    key = torch.where(valid, 0, 1).to(torch.int32)
+    if impl == "radix":
+        plan = ops.make_partition_plan(key, 2)
+    elif impl == "argsort":
+        plan = ref.partition_plan(key, 2)
+    else:
+        raise ValueError(f"unknown compact impl {impl!r}")
+    dst, fill, overflow = plan.tile_slots(key, valid, capacity)
+    sent = W.sentinel(word_bits)
+    out = []
+    for lane, kind in zip(lanes, kinds):
+        if kind == "word":
+            src, pad = torch.where(valid, lane, sent), sent
+        elif kind == "i32":
+            src, pad = torch.where(valid, lane.to(torch.int32), 0), 0
+        else:
+            raise ValueError(f"unknown lane kind {kind!r}")
+        buf = torch.full((src.shape[0], capacity + 1), pad, dtype=src.dtype,
+                         device=src.device)
+        buf.scatter_(1, dst, src)
+        out.append(buf[:, :capacity])
+    new_valid = (torch.arange(capacity, device=valid.device)[None, :]
+                 < fill[:, :1])
+    return tuple(out), new_valid, overflow
+
+
 def plan_capacity(num_items: int, num_pes: int, slack: float = 1.5,
                   align: int = 8) -> int:
     """Per-destination tile capacity for ~uniform (hashed) traffic."""

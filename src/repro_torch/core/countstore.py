@@ -5,7 +5,9 @@ slots hold the sentinel) and int32 counts, plus a (P,) int32 count of
 dropped inserts. `store_insert` folds a batch in place (the insert kernel
 on the card, the sequential plain version on the CPU); `store_histogram`
 sorts the table into the usual `AccumResult`, so the slot layout, which
-differs between the two, never reaches a result.
+differs between the two, never reaches a result. `store_lookup` is the
+read-only probe the query path serves from; it reads a committed
+`StoreSnapshot`, whose tensors no later call writes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,21 @@ class CountStore(NamedTuple):
     keys: torch.Tensor     # (P, capacity) int64 words; sentinel == empty
     counts: torch.Tensor   # (P, capacity) int32
     dropped: torch.Tensor  # (P,) int32 live entries dropped (table full)
+    word_bits: int
+
+
+class StoreSnapshot(NamedTuple):
+    """One committed store generation, as `KmerCounter.count` serves it.
+
+    The JAX package's snapshot relies on its arrays being immutable. Here
+    the store updates in place, so the counter publishes tensors that it
+    never writes again: each update inserts into a copy of the committed
+    store, and a rehash builds new tensors.
+    """
+    gen: int                 # commit counter
+    keys: torch.Tensor       # (P, store_cap) int64 words
+    counts: torch.Tensor     # (P, store_cap) int32
+    store_cap: int
     word_bits: int
 
 
@@ -61,6 +78,25 @@ def store_insert(store: CountStore, words: torch.Tensor,
                     store_slots(words, store.keys.shape[1], store.word_bits),
                     sentinel_val=sent, dropped=store.dropped)
     return store
+
+
+def store_lookup(store, words: torch.Tensor):
+    """Read-only probe of (P, n) words against every PE's table (a
+    `CountStore` or a `StoreSnapshot`): ((P, n) int32 counts, 0 = miss
+    or sentinel padding; (P, n) int32 probe-walk lengths)."""
+    words = words.contiguous()
+    return ops.hash_lookup(store.keys, store.counts, words,
+                           store_slots(words, store.keys.shape[1],
+                                       store.word_bits),
+                           sentinel_val=W.sentinel(store.word_bits))
+
+
+def store_copy(store: CountStore) -> CountStore:
+    """A copy of the table with `dropped` at 0: what an update inserts into
+    while the committed store stays as it was."""
+    return store._replace(keys=store.keys.clone(),
+                          counts=store.counts.clone(),
+                          dropped=torch.zeros_like(store.dropped))
 
 
 def store_grow(store: CountStore, new_capacity: int) -> CountStore:
@@ -112,3 +148,12 @@ def store_from_numpy(keys: np.ndarray, counts: np.ndarray, num_pes: int,
         d += torch.as_tensor(np.asarray(dropped, dtype=np.int32),
                              device=device)
     return CountStore(keys=k, counts=c, dropped=d, word_bits=bits)
+
+
+def snapshot_from_numpy(keys: np.ndarray, counts: np.ndarray, num_pes: int,
+                        device=None, gen: int = 0) -> StoreSnapshot:
+    """A committed store of the JAX package (flat sharded key and count
+    arrays) as a port snapshot, for serving it with `query.query_counts`."""
+    st = store_from_numpy(keys, counts, num_pes, device=device)
+    return StoreSnapshot(gen=gen, keys=st.keys, counts=st.counts,
+                         store_cap=st.keys.shape[1], word_bits=st.word_bits)

@@ -1,26 +1,28 @@
 """DAKC: the asynchronous k-mer counter (counterpart of `repro.core.fabsp`).
 
-`count_kmers` runs the JAX package's main path with the P processing
-elements (PEs) held as the leading dimension of every tensor on one
-device, in place of one device per PE under `shard_map`:
+`count_kmers` and the incremental `KmerCounter` run the JAX package's
+pipeline with the P processing elements (PEs) held as the leading
+dimension of every tensor on one device, in place of one device per PE
+under `shard_map`:
 
 - the reads are split into P contiguous shards, (P, n_local, m), and each
   shard into chunks of `chunk_reads`;
-- each scan step takes chunk i of every PE: extract k-mers, L3-compress
-  ('dual', 'packed' or 'none'), route by owner PE (the 1d all_to_all is a
-  transpose of the stacked tiles), decode the received pairs and fold them
-  into the per-PE count store;
-- after the scan each store is sorted into the per-PE histogram.
+- each scan step takes chunk i of every PE and routes it by owner PE (the
+  1d all_to_all is a transpose of the stacked tiles): either its k-mers,
+  L3-compressed ('dual', 'packed' or 'none'), or its super-k-mers
+  (`transport_impl='superkmer'`), optionally compacted to their valid
+  prefix first (`compact_impl='prefix'`);
+- the streaming receiver folds the decoded pairs into the per-PE count
+  store; the 'stacked' oracle keeps every step's tiles and sorts them once.
 
 Running statistics stay on the device through the scan and are read once
 per round by the retry loop, which doubles the routing slack or rehashes
 the store exactly as the JAX package does. The per-PE results and every
 `DAKCStats` field equal the JAX package's.
 
-Settings outside this slice (super-k-mer transport, 2d topology, the
-stacked receiver, spill, fault injection, pre-route compaction, compact
-hop 2) raise NotImplementedError naming the ROADMAP.md item that brings
-them.
+Settings outside the port so far (2d topology, compact hop 2, spill, fault
+injection, checkpoints) raise NotImplementedError naming the ROADMAP.md
+item that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, countstore, encoding, resilience
+from repro_torch.core import (aggregation, countstore, encoding, minimizer,
+                              resilience)
 from repro_torch.core.aggregation import plan_capacity
 from repro_torch.core.owner import owner_pe
 from repro_torch.core.sort import (AccumResult, accumulate, radix_sort,
@@ -172,12 +175,10 @@ class DAKCStats(NamedTuple):
 # Settings this package does not run yet, with the ROADMAP.md section 1
 # item that brings each.
 _NOT_PORTED = (
-    ("transport_impl", "superkmer", "item 8 (super-k-mer transport)"),
     ("topology", "2d", "item 9 (2d topology)"),
-    ("receiver_impl", "stacked", "item 6 (the 'stacked' receiver oracle)"),
-    ("compact_impl", "prefix", "item 8 (pre-route compaction)"),
     ("hop2_impl", "compact", "item 9 (compact hop 2)"),
 )
+_ITEM10 = "ROADMAP.md section 1, item 10 (durability, spill and serving)"
 
 
 def _refuse_out_of_slice(cfg: DAKCConfig) -> None:
@@ -188,12 +189,10 @@ def _refuse_out_of_slice(cfg: DAKCConfig) -> None:
                 f"{item}")
     if cfg.spill != "off":
         raise NotImplementedError(
-            f"spill={cfg.spill!r} is not ported yet: ROADMAP.md section 1, "
-            "item 10 (durability, spill and serving)")
+            f"spill={cfg.spill!r} is not ported yet: {_ITEM10}")
     if cfg.faults is not None:
         raise NotImplementedError(
-            "fault injection (faults=) is not ported yet: ROADMAP.md "
-            "section 1, item 10 (durability, spill and serving)")
+            f"fault injection (faults=) is not ported yet: {_ITEM10}")
 
 
 def _imbalance(fill) -> Tuple[float, int]:
@@ -254,9 +253,15 @@ def _l3_split_dual(words: torch.Tensor, valid: torch.Tensor, k: int,
 
 
 def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
-                 cap_n: int, cap_h: int, mode: str):
-    """One scan step for every PE: (P, chunk_reads, m) codes -> k-mers ->
-    L3 -> one `route_lanes` exchange per lane set.
+                 cap_n: int, cap_h: int, mode: str, compact_caps=None):
+    """One scan step for every PE: (P, chunk_reads, m) codes -> k-mers or
+    super-k-mers -> one `route_lanes` exchange per lane set.
+
+    `compact_caps` is the pre-route compaction plan of `_resolve_compact`,
+    (compact_n, compact_h, route_cap_n, route_cap_h), or None: each lane
+    set, with its owners riding as an 'i32' lane, shrinks to its valid
+    prefix and routes at the re-derived capacity; valid entries past the
+    prefix count as routing overflow.
 
     Returns (recv, (raw, sent_valid, wire_bytes, overflow, hop2_dropped,
     fill)): `raw` and `wire_bytes` are per-PE ints (the same on every PE),
@@ -264,23 +269,53 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
     """
     k, bps = cfg.k, cfg.bits_per_symbol
     wb = encoding.word_bits(k, bps)
+    cc_n, cc_h, rc_n, rc_h = ((None,) * 4 if compact_caps is None
+                              else compact_caps)
+
+    def route(lanes, kinds, owners, valid, capacity, ccap, rcap):
+        covf = 0
+        if ccap is not None and ccap < valid.shape[1]:
+            out, valid, covf = aggregation.compact_lanes(
+                lanes + (owners,), kinds + ("i32",), valid, ccap,
+                word_bits=wb, impl=cfg.partition_impl)
+            lanes, owners, capacity = out[:-1], out[-1], rcap
+        rr = aggregation.route_lanes(
+            lanes, kinds, owners, valid, num_pes=num_pes, capacity=capacity,
+            word_bits=wb, impl=cfg.partition_impl)
+        return rr._replace(overflow=rr.overflow + covf)
+
+    if mode == "superkmer":
+        # Route packed super-k-mers to the owner of their minimizer; the
+        # receiver re-extracts the k-mers (`_recv_pairs`).
+        m = cfg.minimizer_len
+        sk = minimizer.segment_superkmers(
+            chunk, k, m, bps, canonical=cfg.canonical,
+            canonical_impl=cfg.canonical_impl, order=cfg.minimizer_order)
+        raw = sk.lengths.shape[1]           # one slot per k-mer instance
+        lanes = tuple(sk.words[..., s] for s in range(sk.words.shape[-1]))
+        kinds = ("word",) * len(lanes) + ("i32",)
+        owners = owner_pe(sk.minimizers, num_pes, encoding.word_bits(m, bps))
+        rr = route(lanes + (sk.lengths,), kinds, owners, sk.lengths > 0,
+                   cap_n, cc_n, rc_n)
+        return (torch.stack(rr.lanes[:-1], -1), rr.lanes[-1], None), \
+            (raw, rr.sent_valid, rr.wire_bytes, rr.overflow, rr.hop2_dropped,
+             rr.fill)
+
     words = encoding.extract_kmers(chunk, k, bps, canonical=cfg.canonical,
                                    canonical_impl=cfg.canonical_impl)
     raw = words.shape[1]
     mask = encoding.kmer_mask(k, bps)
 
-    def route(payload, counts, pvalid, capacity):
+    def route_kmers(payload, counts, pvalid, capacity, ccap, rcap):
         lanes = (payload,) if counts is None else (payload, counts)
         kinds = ("word",) if counts is None else ("word", "i32")
-        return aggregation.route_lanes(
-            lanes, kinds, owner_pe(payload & mask, num_pes, wb), pvalid,
-            num_pes=num_pes, capacity=capacity, word_bits=wb,
-            impl=cfg.partition_impl)
+        return route(lanes, kinds, owner_pe(payload & mask, num_pes, wb),
+                     pvalid, capacity, ccap, rcap)
 
     if mode == "packed":
         payload, pvalid = aggregation.l3_compress(words, k, bps,
                                                   impl=cfg.phase2_impl)
-        rr = route(payload, None, pvalid, cap_n)
+        rr = route_kmers(payload, None, pvalid, cap_n, cc_n, rc_n)
         return (rr.lanes[0], None, None), (raw, rr.sent_valid, rr.wire_bytes,
                                            rr.overflow, rr.hop2_dropped,
                                            rr.fill)
@@ -288,8 +323,8 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
         valid = torch.ones(words.shape, dtype=torch.bool, device=words.device)
         nw, nv, hw, hc, hv = _l3_split_dual(words, valid, k, bps,
                                             impl=cfg.phase2_impl)
-        rn = route(nw, None, nv, cap_n)
-        rh = route(hw, hc, hv, cap_h)
+        rn = route_kmers(nw, None, nv, cap_n, cc_n, rc_n)
+        rh = route_kmers(hw, hc, hv, cap_h, cc_h, rc_h)
         return (rn.lanes[0], rh.lanes[0], rh.lanes[1]), \
             (raw, rn.sent_valid + rh.sent_valid,
              rn.wire_bytes + rh.wire_bytes, rn.overflow + rh.overflow,
@@ -297,17 +332,22 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
     if mode != "none":
         raise ValueError(f"unknown l3_mode {mode!r}")
     valid = torch.ones(words.shape, dtype=torch.bool, device=words.device)
-    rr = route(words, None, valid, cap_n)
+    rr = route_kmers(words, None, valid, cap_n, cc_n, rc_n)
     return (rr.lanes[0], None, None), (raw, rr.sent_valid, rr.wire_bytes,
                                        rr.overflow, rr.hop2_dropped, rr.fill)
 
 
 def _recv_pairs(recv, *, cfg: DAKCConfig, mode: str):
-    """Decode one step's received tiles into (P, N) (kmer, count) lanes;
-    sentinel entries carry count 0, HEAVY pairs their counts."""
+    """Decode received tiles into (P, N) (kmer, count) lanes; sentinel
+    entries carry count 0, HEAVY pairs their counts, and super-k-mer slots
+    ((P, N, S) payloads, (P, N) lengths) expand to their unit k-mers."""
     k, bps = cfg.k, cfg.bits_per_symbol
     rn, rh, rhc = recv
     sent = encoding.sentinel(k, bps)
+    if mode == "superkmer":
+        return minimizer.superkmer_to_kmers(
+            rn, rh, k, cfg.minimizer_len, bps, canonical=cfg.canonical,
+            canonical_impl=cfg.canonical_impl)
     if mode == "packed":
         return aggregation.l3_decompress(rn, k, bps)
     if mode == "dual":
@@ -319,16 +359,40 @@ def _recv_pairs(recv, *, cfg: DAKCConfig, mode: str):
     return rn, (rn != sent).to(torch.int32)
 
 
-def _stream_fold(chunks: torch.Tensor, store: countstore.CountStore, *,
-                 cfg: DAKCConfig, num_pes: int, cap_n: int, cap_h: int,
-                 mode: str):
-    """The Phase-1 scan with the streaming receiver: route chunk i of every
-    PE, then fold the decoded receive tiles into the count store.
+def _phase2(recvs, *, cfg: DAKCConfig, mode: str) -> AccumResult:
+    """The 'stacked' receiver oracle: decode every step's received tiles
+    (each PE's stream in step order), then one sort and accumulate."""
+    k, bps = cfg.k, cfg.bits_per_symbol
+    impl = cfg.phase2_impl
+    total_bits = encoding.kmer_bits(k, bps)
+    accum_impl = "fused" if impl == "radix" else "segment_sum"
+    sent = encoding.sentinel(k, bps)
+    stacked = tuple(None if r[0] is None else torch.cat(r, 1)
+                    for r in zip(*recvs))
+    if mode == "none":
+        keys = stacked[0]
+        skeys = (radix_sort(keys, total_bits, sentinel_val=sent)
+                 if impl == "radix" else
+                 sort_with_weights(keys, torch.zeros_like(keys))[0])
+        return accumulate(skeys, sentinel_val=sent, impl=accum_impl)
+    kmers, weights = _recv_pairs(stacked, cfg=cfg, mode=mode)
+    keys, w = sort_with_weights(kmers, weights, impl=impl,
+                                total_bits=total_bits, sentinel_val=sent)
+    return accumulate(keys, w, sentinel_val=sent, impl=accum_impl)
+
+
+def _stream_fold(chunks: torch.Tensor, store: Optional[countstore.CountStore],
+                 *, cfg: DAKCConfig, num_pes: int, cap_n: int, cap_h: int,
+                 mode: str, compact_caps=None):
+    """The Phase-1 scan: route chunk i of every PE, then fold the decoded
+    receive tiles into the count store (the streaming receiver), or keep
+    them for `_phase2` when `store` is None (the stacked oracle).
 
     chunks: (P, n_chunks, chunk_reads, m). No host sync happens here: the
-    running stats stay on the device. Returns (store, (raw, sent_words,
-    wire_bytes, route_overflow, hop2_dropped, fill)), raw and wire_bytes as
-    per-PE ints, the rest per-PE device tensors.
+    running stats stay on the device. Returns (store or the list of receive
+    tiles, (raw, sent_words, wire_bytes, route_overflow, hop2_dropped,
+    fill)), raw and wire_bytes as per-PE ints, the rest per-PE device
+    tensors.
     """
     p, n_chunks = chunks.shape[:2]
     dev = chunks.device
@@ -337,20 +401,25 @@ def _stream_fold(chunks: torch.Tensor, store: countstore.CountStore, *,
     h2_t = torch.zeros_like(sent_t)
     fill_t = torch.zeros((p, num_pes), dtype=torch.int32, device=dev)
     raw_t = wire_t = 0
+    recvs = []
     for i in range(n_chunks):
         recv, (raw, sent_w, wire, ovf, h2, fl) = _phase1_step(
             chunks[:, i], cfg=cfg, num_pes=num_pes, cap_n=cap_n,
-            cap_h=cap_h, mode=mode)
-        kmers, cnts = _recv_pairs(recv, cfg=cfg, mode=mode)
-        del recv
-        countstore.store_insert(store, kmers, cnts)
+            cap_h=cap_h, mode=mode, compact_caps=compact_caps)
+        if store is None:
+            recvs.append(recv)
+        else:
+            kmers, cnts = _recv_pairs(recv, cfg=cfg, mode=mode)
+            del recv
+            countstore.store_insert(store, kmers, cnts)
         raw_t += raw
         wire_t += wire
         sent_t += sent_w
         ovf_t += ovf
         h2_t += h2
         fill_t += fl
-    return store, (raw_t, sent_t, wire_t, ovf_t, h2_t, fill_t)
+    return (recvs if store is None else store), \
+        (raw_t, sent_t, wire_t, ovf_t, h2_t, fill_t)
 
 
 def _chunked(reads_local: torch.Tensor, chunk_reads: int) -> torch.Tensor:
@@ -363,27 +432,45 @@ def _chunked(reads_local: torch.Tensor, chunk_reads: int) -> torch.Tensor:
     return reads_local.reshape(p, n_local // chunk_reads, chunk_reads, m)
 
 
+def _round_stats(num_pes: int, store_ovf, fold_stats):
+    """The stats tuple `_host_stats` reads, summed over PEs (device
+    tensors, except the static raw and wire totals)."""
+    raw, sent_w, wire, ovf, h2, fill = fold_stats
+    return (ovf.sum(), store_ovf.sum(), sent_w.sum(), num_pes * wire,
+            num_pes * raw, h2.sum(), fill.sum(0))
+
+
+def _flat(result: AccumResult) -> AccumResult:
+    return AccumResult(unique=result.unique.reshape(-1),
+                       counts=result.counts.reshape(-1),
+                       num_unique=result.num_unique)
+
+
 def _local_count(reads_local: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
-                 cap_n: int, cap_h: int, store_cap: int, mode: str):
-    """One round: every PE's scan, then its store histogram. Returns the
-    flat per-PE AccumResult and the stats summed over PEs (device tensors,
-    except the static raw and wire totals)."""
+                 cap_n: int, cap_h: int, store_cap: int, mode: str,
+                 compact_caps=None):
+    """One round: every PE's scan, then its histogram (of the store, or of
+    the stacked receive tiles). Returns the flat per-PE AccumResult and the
+    round's stats (`_round_stats`)."""
     chunks = _chunked(reads_local, cfg.chunk_reads)
+    kw = dict(cfg=cfg, num_pes=num_pes, cap_n=cap_n, cap_h=cap_h, mode=mode,
+              compact_caps=compact_caps)
+    if cfg.receiver_impl == "stacked":
+        recvs, fold_stats = _stream_fold(chunks, None, **kw)
+        result = _phase2(recvs, cfg=cfg, mode=mode)
+        del recvs
+        return _flat(result), _round_stats(
+            num_pes, torch.zeros((num_pes,), dtype=torch.int32,
+                                 device=chunks.device), fold_stats)
     wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
     store = countstore.empty_store(num_pes, store_cap, wb, chunks.device)
-    store, (raw, sent_w, wire, ovf, h2, fill) = _stream_fold(
-        chunks, store, cfg=cfg, num_pes=num_pes, cap_n=cap_n, cap_h=cap_h,
-        mode=mode)
+    store, fold_stats = _stream_fold(chunks, store, **kw)
     result = countstore.store_histogram(
         store, total_bits=encoding.kmer_bits(cfg.k, cfg.bits_per_symbol),
         impl=cfg.phase2_impl)
     store_ovf = store.dropped
     del store
-    stats = (ovf.sum(), store_ovf.sum(), sent_w.sum(), num_pes * wire,
-             num_pes * raw, h2.sum(), fill.sum(0))
-    return AccumResult(unique=result.unique.reshape(-1),
-                       counts=result.counts.reshape(-1),
-                       num_unique=result.num_unique), stats
+    return _flat(result), _round_stats(num_pes, store_ovf, fold_stats)
 
 
 def _default_store_capacity(cfg: DAKCConfig, shape, num_pes: int) -> int:
@@ -458,15 +545,177 @@ def _resolve_store_capacity(reads: torch.Tensor, cfg: DAKCConfig,
 
 
 def _plan_caps(cfg: DAKCConfig, num_pes: int, shape, slack: float):
-    """(mode, cap_n, cap_h) for one reads shape."""
+    """(mode, cap_n, cap_h) for one reads shape. Under the super-k-mer
+    transport cap_n is the per-destination super-k-mer slot capacity,
+    planned from the expected run density, and cap_h is 0."""
     n_reads, m = shape
     chunk_kmers = cfg.chunk_reads * (m - cfg.k + 1)
+    if cfg.transport_impl == "superkmer":
+        est = minimizer.expected_superkmers(cfg.chunk_reads, m, cfg.k,
+                                            cfg.minimizer_len)
+        return "superkmer", plan_capacity(est, num_pes, slack), 0
     mode = _resolve_l3_mode(cfg, chunk_kmers)
     # the 'dual' NORMAL lane can carry up to 2x duplicated entries
     n_items = chunk_kmers * (2 if mode == "dual" else 1)
     cap_n = plan_capacity(n_items, num_pes, slack)
     cap_h = max(8, int(cap_n * cfg.heavy_frac))
     return mode, cap_n, cap_h
+
+
+def _pow2ceil(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+# Evenly spaced chunks that `_chunk_valid_estimate` samples.
+_SAMPLE_CHUNKS = 4
+
+
+def _ownership_word_bits(cfg: DAKCConfig) -> int:
+    """Width of the word `owner_pe` hashes: the k-mer's, or under the
+    super-k-mer transport its minimizer's."""
+    k = cfg.minimizer_len if cfg.transport_impl == "superkmer" else cfg.k
+    return encoding.word_bits(k, cfg.bits_per_symbol)
+
+
+def _owner_peak(words: torch.Tensor, cfg: DAKCConfig, num_pes: int,
+                weights: Optional[torch.Tensor] = None) -> int:
+    """Valid slots of the busiest destination under the real owner hash."""
+    if words.numel() == 0:
+        return 0
+    own = owner_pe(words, num_pes, _ownership_word_bits(cfg)).to(torch.int64)
+    return int(torch.bincount(own, weights=weights, minlength=num_pes).max())
+
+
+def _chunk_valid_estimate(reads: torch.Tensor, cfg: DAKCConfig, mode: str,
+                          shape, num_pes: int = 1
+                          ) -> Tuple[int, int, int, int]:
+    """Measured per-chunk (normal, heavy, peak_normal, peak_heavy) valid
+    slot counts: the max over up to `_SAMPLE_CHUNKS` evenly spaced chunks
+    of the read set, pushed through the mode's own compression, and the
+    valid slots of the busiest single owner. 'none' ships every instance,
+    so the shape bound is exact. A sample shorter than a chunk is scaled
+    up. The JAX package's function of the same name, on the host here too.
+    """
+    n_reads, m = shape
+    chunk_kmers = cfg.chunk_reads * (m - cfg.k + 1)
+    if mode == "none" or n_reads == 0:
+        est_n = (minimizer.expected_superkmers(cfg.chunk_reads, m, cfg.k,
+                                               cfg.minimizer_len)
+                 if mode == "superkmer"
+                 else chunk_kmers * (2 if mode == "dual" else 1))
+        est_h = 0 if mode == "superkmer" else chunk_kmers
+        return est_n, est_h, -(-est_n // num_pes), -(-est_h // num_pes)
+    k, bps = cfg.k, cfg.bits_per_symbol
+    n_chunks = max(1, n_reads // cfg.chunk_reads)
+    est_n = est_h = peak_n = peak_h = 0
+    for c in sorted({(i * n_chunks) // _SAMPLE_CHUNKS
+                     for i in range(min(_SAMPLE_CHUNKS, n_chunks))}):
+        lo = c * cfg.chunk_reads
+        sample = reads[lo:lo + min(cfg.chunk_reads, n_reads)]
+        scale = -(-cfg.chunk_reads // sample.shape[0])
+        if mode == "superkmer":
+            sk = minimizer.segment_superkmers(
+                sample, k, cfg.minimizer_len, bps, canonical=cfg.canonical,
+                canonical_impl=cfg.canonical_impl, order=cfg.minimizer_order)
+            valid = sk.lengths > 0
+            est_n = max(est_n, scale * int(valid.sum()))
+            peak_n = max(peak_n, scale * _owner_peak(sk.minimizers[valid],
+                                                     cfg, num_pes))
+            continue
+        words = encoding.extract_kmers(sample, k, bps,
+                                       canonical=cfg.canonical,
+                                       canonical_impl=cfg.canonical_impl)
+        uniq, counts = torch.unique(words, return_counts=True)
+        if mode == "packed":
+            est_n = max(est_n, scale * int(counts.numel()))
+            peak_n = max(peak_n, scale * _owner_peak(uniq, cfg, num_pes))
+            continue
+        # 'dual': NORMAL ships `count` copies for count <= 2, HEAVY a pair.
+        normal = counts <= 2
+        est_n = max(est_n, scale * int((counts == 1).sum()
+                                       + 2 * (counts == 2).sum()))
+        est_h = max(est_h, scale * int((~normal).sum()))
+        peak_n = max(peak_n, scale * _owner_peak(
+            uniq[normal], cfg, num_pes, counts[normal].to(torch.float64)))
+        peak_h = max(peak_h, scale * _owner_peak(uniq[~normal], cfg,
+                                                 num_pes))
+    return est_n, est_h, peak_n, peak_h
+
+
+def _compact_engaged(cfg: DAKCConfig) -> bool:
+    """Whether the pre-route prefix compaction applies to this config."""
+    return cfg.compact_impl == "prefix"
+
+
+def _resolve_compact(cfg: DAKCConfig, num_pes: int, shape, slack: float,
+                     est: Tuple[int, int, int, int]
+                     ) -> Optional[Tuple[int, int, int, int]]:
+    """(compact_n, compact_h, route_cap_n, route_cap_h) of the pre-route
+    prefix compaction, or None where it cannot pay ('off', the 'none' wire
+    format, or lanes the measured density shows are already dense).
+
+    compact_* is the kept prefix: the measured valid estimate `est`
+    (`_chunk_valid_estimate`) with the routing slack, a power of two of at
+    least 64. route_cap_* is the capacity the compacted lanes route at: the
+    larger of the mean-density plan and the measured busiest owner, with
+    the slack as headroom, a power of two of at least 64, at most the
+    positional capacity unless the busiest owner overflows it (then the
+    prefix length, which routes any skew without overflow). Both grow with
+    the controller's slack on a retry round.
+    """
+    if not _compact_engaged(cfg):
+        return None
+    mode, cap_n, cap_h = _plan_caps(cfg, num_pes, shape, slack)
+    if mode == "none":
+        return None
+    est_n, est_h, peak_n, peak_h = est
+    n_reads, m = shape
+    chunk_kmers = cfg.chunk_reads * (m - cfg.k + 1)
+    n_n = chunk_kmers * (2 if mode == "dual" else 1)
+
+    def caps(n_slots, est_lane, peak_lane, cap_lane):
+        cc = max(64, _pow2ceil(int(math.ceil(max(est_lane, 1) * slack))))
+        if cc >= n_slots:
+            return n_slots, cap_lane     # already dense: nothing to compact
+        peak_need = int(math.ceil(max(peak_lane, 1) * slack))
+        target = max(plan_capacity(max(est_lane, 1), num_pes, slack),
+                     peak_need)
+        ceiling = cap_lane if peak_need <= cap_lane else cc
+        return cc, min(ceiling, max(64, _pow2ceil(target)))
+
+    cc_n, rc_n = caps(n_n, est_n, peak_n, cap_n)
+    cc_h, rc_h = (caps(chunk_kmers, est_h, peak_h, cap_h) if mode == "dual"
+                  else (0, 0))
+    if cc_n >= n_n and (mode != "dual" or cc_h >= chunk_kmers):
+        return None
+    return cc_n, cc_h, rc_n, rc_h
+
+
+def _compact_estimate(reads: torch.Tensor, cfg: DAKCConfig, num_pes: int,
+                      shape, slack: float):
+    """The sample `_resolve_compact` plans from (once per call or batch;
+    retry rounds re-plan on it), or None when compaction is off."""
+    if not _compact_engaged(cfg):
+        return None
+    mode = _plan_caps(cfg, num_pes, shape, slack)[0]
+    return _chunk_valid_estimate(reads, cfg, mode, shape, num_pes)
+
+
+def _ownership_keys(words: torch.Tensor, cfg: DAKCConfig) -> torch.Tensor:
+    """The word `owner_pe` hashes for stored k-mer words (any shape): the
+    masked word itself, or under the super-k-mer transport the k-mer's
+    minimizer, recomputed from its bases (base j at bit bps*(k-1-j)) by the
+    sliding minimum the sender ran. Its width is `_ownership_word_bits`."""
+    k, bps = cfg.k, cfg.bits_per_symbol
+    w = words & encoding.kmer_mask(k, bps)
+    if cfg.transport_impl != "superkmer":
+        return w
+    shifts = torch.arange(k - 1, -1, -1, device=words.device) * bps
+    codes = (w[..., None] >> shifts) & ((1 << bps) - 1)
+    return minimizer.window_minimizers(
+        codes[..., None, :], k, cfg.minimizer_len, bps,
+        canonical=cfg.canonical, canonical_impl=cfg.canonical_impl,
+        order=cfg.minimizer_order)[..., 0, 0]
 
 
 def _host_stats(raw_stats) -> DAKCStats:
@@ -489,9 +738,22 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: count_kmers runs on the card unless the caller "
+            "no CUDA device: the port runs on the card unless the caller "
             "passes device='cpu'")
     return dev
+
+
+def _as_device_reads(reads, dev: torch.device) -> torch.Tensor:
+    if not isinstance(reads, torch.Tensor):
+        reads = torch.from_numpy(np.ascontiguousarray(reads))
+    return reads.to(dev)
+
+
+def _split(reads: torch.Tensor, num_pes: int) -> torch.Tensor:
+    n_reads, m = reads.shape
+    if n_reads % num_pes != 0:
+        raise ValueError(f"{n_reads} reads do not split over {num_pes} PEs")
+    return reads.reshape(num_pes, n_reads // num_pes, m)
 
 
 def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, device=None
@@ -512,26 +774,207 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, device=None
     rehash round); the per-cause round counts come back in `retry_*`.
     """
     _refuse_out_of_slice(cfg)
-    dev = resolve_device(device)
-    if not isinstance(reads, torch.Tensor):
-        reads = torch.from_numpy(np.ascontiguousarray(reads))
-    reads = reads.to(dev)
-    n_reads, m = reads.shape
-    if n_reads % num_pes != 0:
-        raise ValueError(f"{n_reads} reads do not split over {num_pes} PEs")
-    shape = (n_reads, m)
+    reads = _as_device_reads(reads, resolve_device(device))
+    local = _split(reads, num_pes)
+    shape = tuple(reads.shape)
     store_cap = _resolve_store_capacity(reads, cfg, num_pes)
-    local = reads.reshape(num_pes, n_reads // num_pes, m)
+    est = _compact_estimate(reads, cfg, num_pes, shape, cfg.slack)
     ctrl = resilience.RetryController(cfg.retry, slack=cfg.slack,
                                       store_cap=store_cap, hop2_padded=True)
     while True:
         mode, cap_n, cap_h = _plan_caps(cfg, num_pes, shape, ctrl.slack)
+        compact_caps = (None if est is None else _resolve_compact(
+            cfg, num_pes, shape, ctrl.slack, est))
         result, raw_stats = _local_count(
             local, cfg=cfg, num_pes=num_pes, cap_n=cap_n, cap_h=cap_h,
-            store_cap=ctrl.store_cap, mode=mode)
+            store_cap=ctrl.store_cap, mode=mode, compact_caps=compact_caps)
         stats = _host_stats(raw_stats)
         if not ctrl.observe(route_dropped=stats.overflow,
                             store_dropped=stats.store_overflow,
                             hop2_dropped=stats.hop2_dropped):
             return result, _stamp_retries(stats, ctrl.counts)
         del result
+
+
+class KmerCounter:
+    """Incremental DAKC: fold batches of reads into one persistent store
+    (counterpart of `repro.core.fabsp.KmerCounter`, in core).
+
+    `update(reads)` runs the counting pipeline for one batch and folds it
+    into the per-PE count store; `finalize()` sorts the store into the
+    per-PE histogram; `count` / `contains` serve point queries from the
+    last committed store (`core.query`). Two updates give exactly the
+    histogram of one `count_kmers` call over both batches.
+
+    Each update runs through `cfg.retry`: a routing overflow doubles the
+    slack for this and later batches, a full store rehashes into doubled
+    capacity and the batch replays. The JAX package replays from its
+    immutable committed arrays; this store updates in place, so every
+    attempt inserts into a copy of the committed store (`store_copy`),
+    which becomes the committed store when the batch folds cleanly. The
+    committed tensors are then never written again, so the snapshot that
+    `count()` serves (`StoreSnapshot`) stays exact through later updates,
+    rehashes and failed rounds, at the cost of one more store in memory
+    while an update runs.
+
+    Store capacity starts from `cfg.store_capacity`, else from the first
+    batch's sample estimate ('sample') or its instance bound ('bound').
+    `save`/`restore`, spill and fault injection are not ported yet.
+    """
+
+    def __init__(self, cfg: DAKCConfig, *, num_pes: int, device=None):
+        if cfg.receiver_impl != "stream":
+            raise ValueError("KmerCounter requires receiver_impl='stream'")
+        _refuse_out_of_slice(cfg)
+        self._cfg = cfg
+        self._num_pes = num_pes
+        self._dev = resolve_device(device)
+        self._wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
+        self._slack = cfg.slack
+        self._store_cap: Optional[int] = cfg.store_capacity
+        self._store: Optional[countstore.CountStore] = None
+        self._distinct_est: Optional[int] = None
+        # lifetime totals across updates (host ints)
+        self._raw = 0
+        self._sent = 0
+        self._wire_bytes = 0
+        self._fill: Optional[np.ndarray] = None
+        self._retries = {c: 0 for c in resilience.CAUSES}
+        self._n_updates = 0
+        self._rounds: list = []
+        self.last_query_stats = None
+        self._gen = 0
+        self._committed: Optional[countstore.StoreSnapshot] = None
+
+    @property
+    def store_capacity(self) -> Optional[int]:
+        return self._store_cap
+
+    def _alloc(self, reads: torch.Tensor) -> None:
+        cfg = self._cfg
+        if self._distinct_est is None and cfg.store_sizing == "sample":
+            self._distinct_est = _sampled_distinct_estimate(reads, cfg,
+                                                            self._num_pes)
+        if self._store_cap is None:
+            if self._distinct_est is not None:
+                cap = plan_capacity(self._distinct_est, self._num_pes,
+                                    cfg.store_slack)
+                self._store_cap = 1 << (cap - 1).bit_length()
+            else:
+                self._store_cap = _resolve_store_capacity(reads, cfg,
+                                                          self._num_pes)
+        self._alloc_store()
+
+    def _alloc_store(self) -> None:
+        self._store = countstore.empty_store(self._num_pes, self._store_cap,
+                                             self._wb, self._dev)
+
+    def _grow(self, new_cap: int) -> None:
+        """Rehash the committed store into `new_cap` slots per PE, into new
+        tensors (a published snapshot keeps the old ones)."""
+        grown = countstore.store_grow(self._store, new_cap)
+        dropped = int(grown.dropped.sum())
+        if dropped:   # unreachable unless the store state is corrupt
+            raise resilience.RehashInvariantBroken(
+                f"rehash into {new_cap} slots/PE dropped {dropped} live "
+                f"entries", self._rounds, dict(self._retries),
+                dropped=dropped)
+        self._store = grown
+        self._store_cap = new_cap
+
+    def _publish(self) -> None:
+        """Publish the committed store as the generation `count()` serves:
+        one reference assignment, of tensors no later call writes."""
+        self._gen += 1
+        self._committed = countstore.StoreSnapshot(
+            gen=self._gen, keys=self._store.keys, counts=self._store.counts,
+            store_cap=self._store_cap, word_bits=self._wb)
+
+    def update(self, reads) -> DAKCStats:
+        """Fold one (n_reads, m) batch into the store; returns this batch's
+        stats (the clean round's, with its replay counts in retry_*)."""
+        cfg, p = self._cfg, self._num_pes
+        reads = _as_device_reads(reads, self._dev)
+        chunks = _chunked(_split(reads, p), cfg.chunk_reads)
+        if self._store is None:
+            self._alloc(reads)
+        shape = tuple(reads.shape)
+        est = _compact_estimate(reads, cfg, p, shape, self._slack)
+        ctrl = resilience.RetryController(
+            cfg.retry, slack=self._slack, store_cap=self._store_cap,
+            hop2_padded=True, history=self._rounds)
+        while True:
+            if ctrl.store_cap != self._store_cap:
+                self._grow(ctrl.store_cap)   # rehash round; then replay
+            mode, cap_n, cap_h = _plan_caps(cfg, p, shape, ctrl.slack)
+            compact_caps = (None if est is None else _resolve_compact(
+                cfg, p, shape, ctrl.slack, est))
+            work, fold_stats = _stream_fold(
+                chunks, countstore.store_copy(self._store), cfg=cfg,
+                num_pes=p, cap_n=cap_n, cap_h=cap_h, mode=mode,
+                compact_caps=compact_caps)
+            raw_stats = _round_stats(p, work.dropped, fold_stats)
+            stats = _host_stats(raw_stats)
+            if not ctrl.observe(route_dropped=stats.overflow,
+                                store_dropped=stats.store_overflow,
+                                hop2_dropped=stats.hop2_dropped):
+                break
+            del work
+        self._store = work
+        self._slack = ctrl.slack
+        self._rounds = ctrl.rounds
+        for cause, n in ctrl.counts.items():
+            self._retries[cause] += n
+        self._n_updates += 1
+        self._raw += stats.raw_kmers
+        self._sent += stats.sent_words
+        self._wire_bytes += int(stats.wire_bytes)
+        fill = raw_stats[6].to(torch.int64).cpu().numpy()
+        self._fill = fill if self._fill is None else self._fill + fill
+        self._publish()
+        return _stamp_retries(stats, ctrl.counts)
+
+    def finalize(self) -> Tuple[AccumResult, DAKCStats]:
+        """Sort the store into the per-PE histogram (callable more than
+        once; updates may follow). The stats are the lifetime totals."""
+        if self._store is None:
+            raise RuntimeError("KmerCounter.finalize before any update")
+        result = countstore.store_histogram(
+            self._store,
+            total_bits=encoding.kmer_bits(self._cfg.k,
+                                          self._cfg.bits_per_symbol),
+            impl=self._cfg.phase2_impl)
+        lmm, p99 = _imbalance(self._fill)
+        stats = DAKCStats(
+            overflow=0, sent_words=self._sent,
+            wire_bytes=np.int64(self._wire_bytes), raw_kmers=self._raw,
+            num_global_syncs=3, store_overflow=0, load_max_over_mean=lmm,
+            owner_fill_p99=p99)
+        return _flat(result), _stamp_retries(stats, self._retries)
+
+    def count(self, kmers) -> np.ndarray:
+        """Per-query occurrence counts from the last committed store, in
+        request order (0 = never counted): (n,) packed words or (n, k) base
+        codes (`query.pack_queries`). Read only; the batch's
+        `query.QueryStats` lands in `last_query_stats`."""
+        from repro_torch.core import query
+        snap = self._committed
+        if snap is None:
+            raise RuntimeError("KmerCounter.count before any update")
+        counts, stats = query.query_counts(kmers, self._cfg, snap,
+                                           num_pes=self._num_pes)
+        self.last_query_stats = stats
+        return counts
+
+    def contains(self, kmers) -> np.ndarray:
+        """Batched membership: `count(kmers) > 0`, request order."""
+        return self.count(kmers) > 0
+
+    def save(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"KmerCounter.save is not ported yet: {_ITEM10}")
+
+    @classmethod
+    def restore(cls, *args, **kwargs):
+        raise NotImplementedError(
+            f"KmerCounter.restore is not ported yet: {_ITEM10}")

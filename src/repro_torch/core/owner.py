@@ -24,6 +24,8 @@ _C64_1 = _signed64(0xBF58476D1CE4E5B9)
 _C64_2 = _signed64(0x94D049BB133111EB)
 _SLOT_SALT32 = 0x9E3779B9
 _SLOT_SALT64 = _signed64(0x9E3779B97F4A7C15)
+_ORDER_SALT32 = 0x165667B1
+_ORDER_SALT64 = _signed64(0x165667B19E3779F9)
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
@@ -53,6 +55,15 @@ def slot_hash(kmers: torch.Tensor, word_bits: int) -> torch.Tensor:
     if word_bits == 64:
         return _mix64(_mix64(kmers) ^ _SLOT_SALT64)
     return _mix32(_mix32(kmers) ^ _SLOT_SALT32)
+
+
+def order_key(mmers: torch.Tensor, word_bits: int) -> torch.Tensor:
+    """Fourth hash family: the comparison key of the hashed minimizer order.
+    Bijective, so equal keys mean equal m-mers. A 64-bit key may have its
+    top bit set (negative as int64): compare keys unsigned."""
+    if word_bits == 64:
+        return _mix64(_mix64(mmers) ^ _ORDER_SALT64)
+    return _mix32(_mix32(mmers) ^ _ORDER_SALT32)
 
 
 def owner_pe(kmers: torch.Tensor, num_pes: int,

@@ -1,9 +1,10 @@
-"""Open-addressing insert-or-add: the streaming receiver's count store.
+"""Open-addressing insert-or-add and read-only lookup: the streaming
+receiver's count store and the query path's probe of it.
 
-Counterpart of `repro.kernels.hash_table.hash_insert_pallas`; the CUDA
-kernel is `csrc/hash_table.cu`. Row p of the (P, cap) table is PE p's
-store. The kernel updates the table in place: a copy of the store per
-chunk would cost its whole size on every scan step.
+Counterparts of `repro.kernels.hash_table.hash_insert_pallas` and
+`hash_lookup_pallas`; the CUDA kernels are in `csrc/hash_table.cu`. Row p of
+the (P, cap) table is PE p's store. The insert updates the table in place:
+a copy of the store per chunk would cost its whole size on every scan step.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "hash_insert_launch": (_P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _P,
+                           _P),
+    "hash_lookup_launch": (_P, _P, _I64, _I64, _P, _P, _I64, _I64, _P, _P,
                            _P),
 }
 
@@ -48,3 +51,30 @@ def hash_insert_cuda(table_keys: torch.Tensor, table_counts: torch.Tensor,
             keys.data_ptr(), weights.data_ptr(), slots.data_ptr(), n,
             sentinel_val, dropped.data_ptr(), build.stream_ptr(keys)),
             "hash_insert")
+
+
+def hash_lookup_cuda(table_keys: torch.Tensor, table_counts: torch.Tensor,
+                     keys: torch.Tensor, slots: torch.Tensor,
+                     sentinel_val: int):
+    """Probe a (P, n) batch against the (P, cap) table, read only; returns
+    ((P, n) int32 counts, (P, n) int32 probe lengths)."""
+    build.check_arg(table_keys, "table_keys", torch.int64, 2)
+    dev = table_keys.device
+    build.check_arg(table_counts, "table_counts", torch.int32, 2, dev)
+    build.check_arg(keys, "keys", torch.int64, 2, dev)
+    build.check_arg(slots, "slots", torch.int32, 2, dev)
+    rows, cap = table_keys.shape
+    if (table_counts.shape != table_keys.shape or slots.shape != keys.shape
+            or keys.shape[0] != rows):
+        raise ValueError("table and batch shapes disagree")
+    n = keys.shape[1]
+    counts = torch.empty(keys.shape, dtype=torch.int32, device=dev)
+    probes = torch.empty_like(counts)
+    if rows and n:
+        lib = build.load("hash_table", _SIGNATURES)
+        build.check_status(lib.hash_lookup_launch(
+            table_keys.data_ptr(), table_counts.data_ptr(), rows, cap,
+            keys.data_ptr(), slots.data_ptr(), n, sentinel_val,
+            counts.data_ptr(), probes.data_ptr(), build.stream_ptr(keys)),
+            "hash_lookup")
+    return counts, probes

@@ -1,4 +1,4 @@
-"""Dispatch for the kernels of the counting path.
+"""Dispatch for the kernels of the port.
 
 A tensor on the CPU goes to the kernel's plain version (`kernels.ref`); a
 CUDA tensor launches the CUDA kernel, and a failed build or launch raises.
@@ -15,7 +15,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import hash_table, radix_partition, ref, segment_count
+from repro_torch.kernels import (hash_table, minimizer, radix_partition, ref,
+                                 segment_count)
 from repro_torch.kernels.radix_partition import TILE, PartitionPlan
 
 
@@ -77,7 +78,51 @@ def hash_insert(table_keys: torch.Tensor, table_counts: torch.Tensor,
     hash_insert.launches += 1
 
 
-KERNELS = (bucket_hist, bucket_positions, segment_accumulate, hash_insert)
+def hash_lookup(table_keys: torch.Tensor, table_counts: torch.Tensor,
+                keys: torch.Tensor, slots: torch.Tensor, *,
+                sentinel_val: int):
+    """Read-only probe of a (P, n) batch against the (P, cap) table:
+    ((P, n) int32 counts, 0 = miss; (P, n) int32 probe-walk lengths)."""
+    if _on_cpu(table_keys):
+        return ref.hash_lookup(table_keys, table_counts, keys, slots,
+                               sentinel_val)
+    out = hash_table.hash_lookup_cuda(table_keys, table_counts, keys,
+                                      slots.to(torch.int32).contiguous(),
+                                      sentinel_val)
+    hash_lookup.launches += 1
+    return out
+
+
+def _check_window(n_pos: int, window: int) -> None:
+    if not 1 <= window <= n_pos:
+        raise ValueError(f"window {window} outside [1, {n_pos}]")
+
+
+def sliding_min(vals: torch.Tensor, window: int) -> torch.Tensor:
+    """(rows, n_pos) words -> (rows, n_pos - window + 1) windowed minima,
+    unsigned (minimizer selection, 'plain' order)."""
+    _check_window(vals.shape[-1], window)
+    if _on_cpu(vals):
+        return ref.sliding_min(vals, window)
+    out = minimizer.sliding_min_cuda(vals.contiguous(), window)
+    sliding_min.launches += 1
+    return out
+
+
+def sliding_min_pair(keys: torch.Tensor, vals: torch.Tensor, window: int):
+    """Minimum by unsigned KEY over each window, carrying the value lane
+    ('hashed' order): ((rows, n_out) keys, (rows, n_out) vals)."""
+    _check_window(keys.shape[-1], window)
+    if _on_cpu(keys):
+        return ref.sliding_min_pair(keys, vals, window)
+    out = minimizer.sliding_min_pair_cuda(keys.contiguous(), vals.contiguous(),
+                                          window)
+    sliding_min_pair.launches += 1
+    return out
+
+
+KERNELS = (bucket_hist, bucket_positions, segment_accumulate, hash_insert,
+           hash_lookup, sliding_min, sliding_min_pair)
 for _k in KERNELS:
     _k.launches = 0
 

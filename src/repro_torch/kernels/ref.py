@@ -1,10 +1,12 @@
-"""Plain versions of the four kernels on the main counting path.
+"""Plain versions of the kernels of the port.
 
 Each function computes what its CUDA kernel computes, on the stacked
-(P, ...) layout: one row per processing element. `kernels.ops` runs these
-for tensors on the CPU; tests and `chip_smoke.py` hold the kernels to them.
-Counterparts of `repro.kernels.ref` (partition_plan_ref, bucket_hist_ref,
-bucket_positions_ref, segment_accumulate_ref, hash_insert_ref).
+(P, ...) layout: one row per processing element (the sliding minimum: one
+row per read). `kernels.ops` runs these for tensors on the CPU; tests and
+`chip_smoke.py` hold the kernels to them. Counterparts of
+`repro.kernels.ref` (partition_plan_ref, bucket_hist_ref,
+bucket_positions_ref, segment_accumulate_ref, hash_insert_ref,
+hash_lookup_ref, sliding_min_ref, sliding_min_pair_ref).
 """
 
 from __future__ import annotations
@@ -13,6 +15,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.radix_partition import PartitionPlan
+
+# XOR with the sign bit maps the unsigned order of int64-carried words onto
+# the signed order.
+_SIGN = -(1 << 63)
 
 
 def _tile_keys(buckets: torch.Tensor, num_buckets: int, tile: int):
@@ -136,3 +142,59 @@ def hash_insert(table_keys: torch.Tensor, table_counts: torch.Tensor,
             else:
                 dropped[r] += 1
     return torch.from_numpy(dropped)
+
+
+def hash_lookup(table_keys: torch.Tensor, table_counts: torch.Tensor,
+                keys: torch.Tensor, slots: torch.Tensor, sentinel_val: int):
+    """Read-only probe of every row's batch against its row of the table.
+
+    The insert's walk (linear from `slots`, wrapping modulo capacity) that
+    stops at an empty slot (a miss, count 0), at the key (its count), or
+    after `cap` steps (a miss). Sentinel keys skip with count 0 and 0
+    probes. Returns (counts, probes), both (P, n) int32: probes is the
+    number of slots the walk read. All keys walk together, one step at a
+    time; equal to `repro.kernels.ref.hash_lookup_ref` row by row.
+    """
+    cap = table_keys.shape[1]
+    active = keys != sentinel_val
+    slot = slots.to(torch.int64)
+    counts = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    probes = torch.zeros_like(counts)
+    for _ in range(cap):
+        if not bool(active.any()):
+            break
+        cur = table_keys.gather(1, slot)
+        probes += active.to(torch.int32)
+        hit = active & (cur == keys)
+        counts = torch.where(hit, table_counts.gather(1, slot), counts)
+        active = active & (cur != sentinel_val) & ~hit
+        slot = torch.where(slot + 1 == cap, 0, slot + 1)
+    return counts, probes
+
+
+def sliding_min(vals: torch.Tensor, window: int) -> torch.Tensor:
+    """(rows, n_pos) int64-carried words -> (rows, n_pos - window + 1)
+    windowed minima in the UNSIGNED order of the words:
+    out[r, p] = min(vals[r, p : p + window])."""
+    n_out = vals.shape[-1] - window + 1
+    flipped = vals ^ _SIGN
+    acc = flipped[..., :n_out]
+    for j in range(1, window):
+        acc = torch.minimum(acc, flipped[..., j:j + n_out])
+    return acc ^ _SIGN
+
+
+def sliding_min_pair(keys: torch.Tensor, vals: torch.Tensor, window: int):
+    """Minimum by KEY (unsigned) over every window, carrying the value:
+    ((rows, n_out) keys, (rows, n_out) vals). The earliest position wins a
+    key tie (strict `<`), as in `repro.kernels.ref.sliding_min_pair_ref`."""
+    n_out = keys.shape[-1] - window + 1
+    flipped = keys ^ _SIGN
+    ak = flipped[..., :n_out]
+    av = vals[..., :n_out]
+    for j in range(1, window):
+        nk = flipped[..., j:j + n_out]
+        take = nk < ak
+        ak = torch.where(take, nk, ak)
+        av = torch.where(take, vals[..., j:j + n_out], av)
+    return ak ^ _SIGN, av

@@ -33,15 +33,24 @@ import numpy as np
 import repro_torch
 from repro_torch import words
 from repro_torch.core import (aggregation, countstore, encoding, fabsp,
-                              owner, resilience, serial, sort)
+                              minimizer, owner, query, resilience, serial,
+                              sort)
 from repro_torch.data import genome
 from repro_torch.kernels import build, hash_table, ops, radix_partition, ref
+from repro_torch.kernels import minimizer as kminimizer
 from repro_torch.kernels import segment_count
 reads = genome.sample_reads(genome.ReadSetSpec(genome_bases=512, n_reads=64,
                                                read_len=30, seed=1))
 res, st = fabsp.count_kmers(reads, fabsp.DAKCConfig(k=13, chunk_reads=8),
                             num_pes=2, device="cpu")
 assert st.overflow == 0 and int(res.counts.sum()) == st.raw_kmers
+kc = fabsp.KmerCounter(fabsp.DAKCConfig(k=13, chunk_reads=8,
+                                        transport_impl="superkmer",
+                                        minimizer_order="hashed"),
+                       num_pes=2, device="cpu")
+kc.update(reads)
+assert int(kc.finalize()[0].counts.sum()) == st.raw_kmers
+assert int(kc.count(reads[:4, :13]).min()) > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -68,15 +77,14 @@ def test_default_device_needs_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fabsp.count_kmers(reads, fabsp.DAKCConfig(k=13, chunk_reads=8),
                           num_pes=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fabsp.KmerCounter(fabsp.DAKCConfig(k=13), num_pes=1)
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(transport_impl="superkmer"),
     dict(topology="2d"),
-    dict(receiver_impl="stacked"),
     dict(spill="auto", spill_dir="unused"),
     dict(faults=object()),
-    dict(compact_impl="prefix"),
     dict(hop2_impl="compact"),
 ], ids=lambda d: next(iter(d)))
 def test_settings_outside_the_slice_raise(knobs):
@@ -84,6 +92,17 @@ def test_settings_outside_the_slice_raise(knobs):
     reads = torch.zeros((16, 30), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fabsp.count_kmers(reads, cfg, num_pes=1, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["spill", "faults", "save"])
+def test_counter_durability_and_spill_raise_item_10(case):
+    knobs = {"spill": dict(spill="always", spill_dir="unused"),
+             "faults": dict(faults=object()), "save": {}}[case]
+    cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, **knobs)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        kc = fabsp.KmerCounter(cfg, num_pes=1, device="cpu")
+        kc.update(torch.zeros((16, 30), dtype=torch.uint8))
+        kc.save("unused")
 
 
 def test_config_validation_matches_jax():

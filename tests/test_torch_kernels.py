@@ -292,3 +292,72 @@ def test_hash_insert_kernel_matches_plain_on_card(name):
             occ, pocc = dk[r] != SENT32, pk[r] != SENT32
             assert sorted(zip(dk[r][occ].tolist(), dc[r][occ].tolist())) == \
                 sorted(zip(pk[r][pocc].tolist(), pc[r][pocc].tolist()))
+
+
+def _lookup_case(name, seed):
+    """(table keys, counts, queries, home slots) of one lookup case, on
+    the CPU: a table built by the plain insert, then probed with its own
+    keys, keys it lacks, and sentinels."""
+    cap, n_keys, wrap = {"sparse": (64, 30, False), "wraps": (37, 30, True),
+                         "full": (16, 40, False)}[name]
+    rng = np.random.default_rng(seed)
+    keys = W.to_torch_words(rng.integers(0, 1 << 30, size=(2, n_keys))
+                            .astype(np.uint32))[0]
+    slot_of = ((lambda k: torch.full_like(k, cap - 1, dtype=torch.int32))
+               if wrap else (lambda k: (k % cap).to(torch.int32)))
+    tk = torch.full((2, cap), SENT32, dtype=torch.int64)
+    tc = torch.zeros((2, cap), dtype=torch.int32)
+    ops.hash_insert(tk, tc, keys, torch.ones_like(keys, dtype=torch.int32),
+                    slot_of(keys), sentinel_val=SENT32,
+                    dropped=torch.zeros((2,), dtype=torch.int32))
+    miss = keys + (1 << 30)
+    q = torch.cat([keys, miss, torch.full((2, 5), SENT32)], 1)
+    return tk, tc, q, slot_of(q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sparse", "wraps", "full"])
+def test_hash_lookup_kernel_matches_plain_on_card(name):
+    dev = _cuda()
+    tk, tc, q, slots = _lookup_case(name, 23)
+    pc, pp = ops.hash_lookup(tk, tc, q, slots, sentinel_val=SENT32)
+    dc, dp = ops.hash_lookup(tk.to(dev), tc.to(dev), q.to(dev),
+                             slots.to(dev), sentinel_val=SENT32)
+    torch.cuda.synchronize()
+    assert torch.equal(dc.cpu(), pc) and torch.equal(dp.cpu(), pp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 7, 25, 144])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_sliding_min_kernels_match_plain_on_card(window, bits):
+    dev = _cuda()
+    hi = 1 << 62 if bits == 64 else 1 << 32
+    keys = torch.randint(0, hi, (1001, 144), dtype=torch.int64)
+    if bits == 64:
+        keys[:, ::3] |= -(1 << 63)          # top bit set: compared unsigned
+    keys[::2] %= 5                          # ties
+    vals = torch.randint(0, 1 << 40, (1001, 144), dtype=torch.int64)
+    got = ops.sliding_min(keys.to(dev), window)
+    gk, gv = ops.sliding_min_pair(keys.to(dev), vals.to(dev), window)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref.sliding_min(keys, window))
+    pk, pv = ref.sliding_min_pair(keys, vals, window)
+    assert torch.equal(gk.cpu(), pk) and torch.equal(gv.cpu(), pv)
+
+
+def test_hash_lookup_plain_matches_jax_ref():
+    for name in ("sparse", "wraps", "full"):
+        tk, tc, q, slots = _lookup_case(name, 29)
+        counts, probes = ops.hash_lookup(tk, tc, q, slots,
+                                         sentinel_val=SENT32)
+        for r in range(2):
+            jc, jp = jref.hash_lookup_ref(
+                jnp.asarray(W.to_numpy_words(tk[r], 32)),
+                jnp.asarray(tc[r].numpy()),
+                jnp.asarray(W.to_numpy_words(q[r], 32)),
+                jnp.asarray(slots[r].numpy()), SENT32)
+            np.testing.assert_array_equal(counts[r].numpy(), np.asarray(jc))
+            np.testing.assert_array_equal(probes[r].numpy(), np.asarray(jp))
+        if name == "full":
+            assert int(probes.max()) == 16   # a miss sweeps the whole table
