@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, full size
     python3 chip_smoke.py --phases 1,2,3   # device, build, kernel checks only
     python3 chip_smoke.py --phases 1,2,3,8 # ... and the incremental counter
+    python3 chip_smoke.py --phases 1,2,3,9 # ... and the LM training path
     python3 chip_smoke.py --reads 4194304  # cut phase 4's read count
 
 Phases:
@@ -11,7 +12,8 @@ Phases:
   2. build: compile every kernel in src/repro_torch/csrc with nvcc;
   3. each kernel against its plain version on the card, bit-equal (the
      insert: equal (key, count) sets and drops exactly when the plain
-     version drops);
+     version drops; the flash attention kernels within stated tolerances,
+     f32 and bf16, head dims 16 to 256, up to the training path's shape);
   4. the paper's workload at full size: "Synthetic 26" (2**26 uniform
      bases), 2**23 reads of 150 bp, k=31, chunk_reads=256, 8 PEs on the
      card, checked exactly against an independent torch.unique count;
@@ -23,10 +25,18 @@ Phases:
      torch.unique, then 2**20 point queries answered exactly; plus small
      runs of the k-mer transport (k=13), the 'plain' minimizer order and
      a rehash round;
+  9. the LM training path: qwen1.5-0.5b at full width and depth trains 10
+     steps of 4 x 4096 tokens under attn_impl='flash_train' (bf16 compute,
+     the flash forward and backward kernels in every layer); then, from
+     one set of weights, a step under 'flash_train' against one under
+     'ref' at seq 1024, and the forward-only 'flash' logits against
+     'flash_train''s at seq 4096;
   6. each kernel's time at its path's shapes beside its plain version, one
-     library call where one exists, and its bound (runs after phase 8);
-  7. on request only: the main path under torch.profiler (device time by
-     kernel, the device's busy share).
+     library call where one exists, and its bound (runs after phases 8
+     and 9);
+  7. on request only: the main path and one step of phase 9's training
+     under torch.profiler (device time by kernel, the device's busy
+     share).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -36,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,12 +55,27 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores (data sheet)
 K = 31
 NUM_PES = 8
 # The kernels of count_kmers' path (phase 4); the counter's path (phase 8)
 # adds the lookup and the sliding minimum.
 COUNT_KERNELS = ("bucket_hist", "bucket_positions", "segment_accumulate",
                  "hash_insert")
+DEV = "cuda"
+# Phase 9: the LM training path, and the flash kernels' shape on it. The
+# 'flash_train' / 'ref' check runs at LM_CHECK_SEQ, where mha_ref's (S, S)
+# scores fit.
+LM_ARCH, LM_STEPS, LM_BATCH, LM_SEQ = "qwen1.5-0.5b", 10, 4, 4096
+LM_CHECK_SEQ = 1024
+FLASH_PATH = (4, 16, 4096, 64)   # (batch, heads, seq, head_dim), bf16
+# Flash tolerances. f32: 1e-5 on o and lse, 5e-5 on dq, dk, dv (the JAX
+# package's gradient bound). bf16: kernel and plain version round nearly
+# equal f32 values, so they may differ by one bf16 step at the value
+# (2**-7 of it), plus 1e-4 of the tensor's largest magnitude for values
+# that f32 sums of thousands of terms leave near zero.
+FLASH_F32_TOL = {"o": 1e-5, "lse": 1e-5, "grad": 5e-5}
+BF16_STEP, BF16_SLACK = 2.0 ** -7, 1e-4
 
 
 def log(msg: str) -> None:
@@ -187,6 +213,7 @@ def check_kernels(torch, ops, ref, errs):
     errs["hash_lookup"] = 0
     check_sliding_min(torch, ops, ref, gen, dev)
     errs["sliding_min"] = errs["sliding_min_pair"] = 0
+    check_flash(torch, ops, ref, errs)
 
 
 def check_lookup(torch, ops, ref, gen, dev):
@@ -270,6 +297,85 @@ def check_sliding_min(torch, ops, ref, gen, dev):
     check(torch.equal(gk, pk) and torch.equal(gv, pv),
           "sliding_min_pair differs at the query shape")
     log(f"  query shape {tuple(q.shape)} w=25: bit-equal")
+
+
+def _held(torch, got, want, tol_f32, what):
+    """Max |got - want|; raises unless within the f32 tolerance, or for
+    bf16 within one bf16 step of each value plus the slack."""
+    g, w = got.float(), want.float()
+    if not g.numel():
+        return 0.0
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if got.dtype == torch.bfloat16:
+        bound = BF16_STEP * w.abs() + BF16_SLACK * float(w.abs().max())
+        ok = bool((diff <= bound).all())
+    else:
+        ok = err <= tol_f32
+    check(ok and math.isfinite(err), f"{what}: max abs err {err:.3e}")
+    return err
+
+
+def check_flash(torch, ops, ref, errs):
+    """Rows 11-13 against ref.flash_fwd / ref.flash_bwd on the same inputs:
+    GQA by index, window, softcaps, causal=False, q_offset > 0, lengths
+    that are not multiples of a tile, fully masked rows, head dims 16, 64,
+    120 and 256, f32 and bf16; then the training path's shape in bf16.
+    errs gets each kernel's largest f32 error."""
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    log("[kernels] flash attention forward (rows 11, 12) and backward "
+        "(row 13)")
+    # (b, hq, hkv, sq, skv, causal, window, softcap, q_offset)
+    cases = [
+        ("GQA 4/2, causal, 200 rows",
+         (2, 4, 2, 200, 200, True, None, None, 0)),
+        ("window 48, softcap 20", (1, 2, 2, 130, 130, True, 48, 20.0, 0)),
+        ("causal=False, 70 x 150", (1, 2, 1, 70, 150, False, None, None, 0)),
+        ("q_offset 100, window 64", (1, 4, 2, 37, 160, True, 64, None, 100)),
+        ("fully masked rows", (1, 2, 2, 16, 32, False, 8, 5.0, 30)),
+    ]
+    worst = {"flash_attention": 0.0, "flash_attention_fwd_lse": 0.0,
+             "flash_attention_bwd": 0.0}
+    runs = [(name, c, d, dt) for name, c in cases for d in (16, 64, 120, 256)
+            for dt in (torch.float32, torch.bfloat16)]
+    b, h, s, d = FLASH_PATH
+    runs.append(("training path shape", (b, h, h, s, s, True, None, None, 0),
+                 d, torch.bfloat16))
+    for name, (b, hq, hkv, sq, skv, causal, window, softcap, q_offset), d, \
+            dt in runs:
+        q, do = (torch.randn((b, hq, sq, d), generator=gen, device=dev)
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=dev)
+                .to(dt) for _ in range(2))
+        band = dict(causal=causal, window=window, softcap=softcap,
+                    q_offset=q_offset, scale=d ** -0.5)
+        o = ops.flash_attention(q, k, v, **band)
+        o2, lse = ops.flash_attention_fwd_lse(q, k, v, **band)
+        torch.cuda.synchronize()
+        wo, wlse = ref.flash_fwd(q, k, v, with_lse=True, **band)
+        tag = f"{name}, d={d}, {str(dt)[6:]}"
+        e11 = _held(torch, o, wo, FLASH_F32_TOL["o"], f"row 11 o ({tag})")
+        e12 = max(_held(torch, o2, wo, FLASH_F32_TOL["o"],
+                        f"row 12 o ({tag})"),
+                  _held(torch, lse, wlse, FLASH_F32_TOL["lse"],
+                        f"row 12 lse ({tag})"))
+        kq = k.repeat_interleave(hq // hkv, 1)
+        vq = v.repeat_interleave(hq // hkv, 1)
+        got = ops.flash_attention_bwd(q, kq, vq, wo, wlse, do, **band)
+        torch.cuda.synchronize()
+        want = ref.flash_bwd(q, kq, vq, wo, wlse, do, **band)
+        e13 = max(_held(torch, g, w, FLASH_F32_TOL["grad"],
+                        f"row 13 {n} ({tag})")
+                  for g, w, n in zip(got, want, ("dq", "dk", "dv")))
+        if dt == torch.float32:
+            for key, e in zip(worst, (e11, e12, e13)):
+                worst[key] = max(worst[key], e)
+        log(f"  {tag}: max abs err o {e11:.2e}, o+lse {e12:.2e}, "
+            f"dq/dk/dv {e13:.2e}")
+        del q, k, v, do, o, o2, lse, wo, wlse, got, want, kq, vq
+    errs.update(worst)
+    torch.cuda.empty_cache()
 
 
 # --- phase 4/5: the main path and its independent reference ----------------
@@ -491,6 +597,125 @@ def counter_phase(torch, fabsp, ops, genome):
     return kc, out
 
 
+# --- phase 9: the LM training path -----------------------------------------
+
+def lm_phase(torch, ops):
+    """Train LM_ARCH at full width and depth for LM_STEPS steps through
+    `launch.train.train`, then the two same-weights checks. Returns the
+    flash launch counts of the path's runs and the phase's numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_for_step
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts_lib
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash_train")
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    log(f"[lm] {LM_ARCH} at full width and depth: {L} layers, d_model "
+        f"{cfg.d_model}, {H} heads (kv {cfg.num_kv_heads}), head_dim {hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {LM_STEPS} steps of "
+        f"{LM_BATCH} x {LM_SEQ} tokens, attn_impl 'flash_train', "
+        f"{cfg.compute_dtype} compute, f32 params and AdamW, remat "
+        f"'{cfg.remat}'")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    out = train_lib.train(LM_ARCH, reduced=False, steps=LM_STEPS,
+                          batch=LM_BATCH, seq=LM_SEQ, log_every=1,
+                          device=DEV, attn_impl="flash_train")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms = out["losses"], out["grad_norms"]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          "a loss or grad norm is not finite")
+    check(losses[-1] < losses[0], f"the last loss {losses[-1]} is not below "
+          f"the first {losses[0]}")
+    want = {"flash_attention_fwd_lse": 2 * L * LM_STEPS,
+            "flash_attention_bwd": L * LM_STEPS, "flash_attention": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times "
+              f"in {LM_STEPS} steps, expected {n}")
+    tokens = LM_BATCH * LM_SEQ
+    steady = out["step_seconds"][1:]
+    step_s = sum(steady) / len(steady)
+    # Model FLOPs per step: 6 N T for the parameter products (the tied
+    # embedding counted once, as the LM head), and the causal attention
+    # products forward (4 hd per kept (row, col) pair) and backward (twice
+    # that): 3 * 4 * hd * B * H * S (S + 1) / 2 per layer.
+    flops = (6 * out["n_params"] * tokens
+             + 6 * L * hd * LM_BATCH * H * LM_SEQ * (LM_SEQ + 1))
+    numbers = {"losses": losses, "grad_norms": gnorms,
+               "step_seconds": out["step_seconds"], "step_s": step_s,
+               "tokens_per_s": tokens / step_s, "peak_bytes": peak,
+               "n_params": out["n_params"], "model_flops_per_step": flops,
+               "mfu": flops / step_s / BF16_FLOP_PER_S}
+    log(f"  {out['n_params']} parameters; first step "
+        f"{out['step_seconds'][0]:.3f} s; steps 2-{LM_STEPS}: {step_s:.3f} s "
+        f"each, "
+        f"{numbers['tokens_per_s']:.0f} tokens/s, model-FLOP share "
+        f"{100 * numbers['mfu']:.2f} % of {BF16_FLOP_PER_S:.3g} FLOP/s "
+        f"({flops:.4g} FLOP per step)")
+    log(f"  max_memory_allocated {peak / 1e9:.2f} GB; flash launches "
+        f"{ {k: launches[k] for k in want} }")
+    out_launches = {k: launches[k] for k in want}
+
+    # The same weights and batch through 'flash_train' and 'ref' at a length
+    # where mha_ref's (S, S) scores fit.
+    params = model.init_params(cfg, seed=1, device=DEV)
+    tok = torch.from_numpy(batch_for_step(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, batch_size=LM_BATCH, seq_len=LM_CHECK_SEQ,
+        seed=1), 0)).to(DEV)
+    res = {}
+    for impl in ("flash_train", "ref"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        leaves = [p.requires_grad_(True)
+                  for _, p in model.named_leaves(params)]
+        loss, m = ts_lib.loss_fn(params, {"tokens": tok}, c)
+        grads = torch.autograd.grad(loss, leaves)
+        res[impl] = (float(m["loss"]), float(opt_lib.global_norm(grads)))
+        del loss, grads
+    (lf, gf), (lr_, gr) = res["flash_train"], res["ref"]
+    log(f"  seq {LM_CHECK_SEQ}, one step's loss and grad norm: flash_train "
+        f"{lf:.6f} {gf:.6f}, ref {lr_:.6f} {gr:.6f}")
+    # mha_ref rounds P to bf16 before P.V where the flash kernels keep it
+    # f32; over 24 layers that moves the loss by well under 1e-3 and the
+    # gradient norm by under 1e-2 (relative).
+    check(abs(lf - lr_) <= 1e-3 * abs(lr_), "flash_train and ref losses "
+          "differ by more than 1e-3 relative")
+    check(abs(gf - gr) <= 1e-2 * abs(gr), "flash_train and ref grad norms "
+          "differ by more than 1e-2 relative")
+    numbers["ref_check"] = res
+
+    # Kernel 11 (forward only) against kernel 12 in the model, no grad.
+    tok = torch.from_numpy(batch_for_step(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, batch_size=1, seq_len=LM_SEQ, seed=2),
+        0)).to(DEV)
+    ops.reset_launches()
+    with torch.no_grad():
+        lg_flash = model.forward(params, {"tokens": tok}, dataclasses.replace(
+            cfg, attn_impl="flash"))[0]
+        out_launches["flash_attention"] = ops.launch_counts()[
+            "flash_attention"]
+        lg_train = model.forward(params, {"tokens": tok}, cfg)[0]
+    check(out_launches["flash_attention"] == L,
+          "the 'flash' forward did not launch kernel 11 in every layer")
+    err = float((lg_flash - lg_train).abs().max())
+    scale = float(lg_train.abs().max())
+    log(f"  seq {LM_SEQ} no-grad forward: 'flash' against 'flash_train' "
+        f"logits, max abs err {err:.3e} (largest logit {scale:.3f}); "
+        f"{out_launches['flash_attention']} launches of row 11")
+    # The same forward kernel in both, with and without its lse output.
+    check(err <= 1e-6 * scale, "'flash' and 'flash_train' logits differ")
+    numbers["flash_logits_err"] = err
+    del params, lg_flash, lg_train
+    torch.cuda.empty_cache()
+    return out_launches, numbers
+
+
 # --- phase 6: kernel times --------------------------------------------------
 
 def time_ms(torch, fn, reps=20):
@@ -519,13 +744,16 @@ def kernel_times(torch, ops, ref, launches, errs, counter):
     base = (torch.cumsum(hist, 1) - hist).to(torch.int32)
     out = []
 
-    def entry(name, source, replaces, ms, plain_ms, nbytes, library_ms):
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+    def entry(name, source, replaces, ms, plain_ms, nbytes, library_ms,
+              flops=0):
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / BF16_FLOP_PER_S * 1e3
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": "bytes", "library_ms": library_ms,
+                    "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+                    "bound_by": "operations" if by_ops > by_bytes
+                    else "bytes", "library_ms": library_ms,
                     "shape": shape_of[name]})
 
     shape_of = {
@@ -602,6 +830,7 @@ def kernel_times(torch, ops, ref, launches, errs, counter):
         f"{small}-slot tables per PE")
     del pk, pc
     new_kernel_times(torch, ops, ref, counter, entry, shape_of)
+    flash_times(torch, ops, ref, entry, shape_of)
     for e in out:
         log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, "
             f"library {e['library_ms']}, bound {e['bound_ms']:.5f}) "
@@ -686,6 +915,63 @@ def new_kernel_times(torch, ops, ref, counter, entry, shape_of):
         "sequence")
 
 
+def flash_times(torch, ops, ref, entry, shape_of):
+    """Rows 11-13 at the training path's shape, (4, 16, 4096, 64) bf16
+    causal. The bound is the causal products' FLOPs at the bf16 tensor-core
+    peak (each kept (row, col) pair costs 2 hd per product: 2 products
+    forward, 5 backward), against the bytes read and written once."""
+    import torch.nn.functional as F
+
+    b, h, s, d = FLASH_PATH
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    band = dict(causal=True, window=None, softcap=None, scale=d ** -0.5)
+    pairs = b * h * s * (s + 1) // 2
+    elem = b * h * s * d * 2                 # one (b, h, s, d) bf16 tensor
+    lse_bytes = b * h * s * 4
+    o, lse = ops.flash_attention_fwd_lse(q, k, v, **band)
+    for name in ("flash_attention", "flash_attention_fwd_lse",
+                 "flash_attention_bwd"):
+        shape_of[name] = f"q/k/v ({b}, {h}, {s}, {d}) bf16, causal"
+    reps = 5
+    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps)
+    entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+          "src/repro/kernels/flash_attention.py:84",
+          time_ms(torch, lambda: ops.flash_attention(q, k, v, **band), reps),
+          time_ms(torch, lambda: ref.flash_fwd(q, k, v, **band), reps),
+          4 * elem, sdpa_fwd, flops=4 * d * pairs)
+    entry("flash_attention_fwd_lse", "src/repro_torch/csrc/flash_attention.cu",
+          "src/repro/kernels/flash_attention.py:167",
+          time_ms(torch, lambda: ops.flash_attention_fwd_lse(q, k, v, **band),
+                  reps),
+          time_ms(torch, lambda: ref.flash_fwd(q, k, v, with_lse=True,
+                                               **band), reps),
+          4 * elem + lse_bytes, sdpa_fwd, flops=4 * d * pairs)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        og, (qg, kg, vg), do, retain_graph=True), reps)
+    entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+          "src/repro/kernels/flash_attention_bwd.py:138",
+          time_ms(torch, lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                         **band), reps),
+          time_ms(torch, lambda: ref.flash_bwd(q, k, v, o, lse, do, **band),
+                  reps),
+          8 * elem + lse_bytes, sdpa_bwd, flops=10 * d * pairs)
+    sdpa_both = time_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+        (qg, kg, vg), do), reps)
+    log(f"  flash library_ms: scaled_dot_product_attention(is_causal=True) "
+        f"forward {sdpa_fwd:.4f} ms, its backward alone (autograd.grad on a "
+        f"kept graph) {sdpa_bwd:.4f} ms, forward + backward "
+        f"{sdpa_both:.4f} ms")
+    del q, k, v, do, o, lse, qg, kg, vg, og
+    torch.cuda.empty_cache()
+
+
 # --- phase 7 (on request): where the time of the main path goes -------------
 
 def profile_path(torch, fabsp, genome, n_reads):
@@ -706,22 +992,63 @@ def profile_path(torch, fabsp, genome, n_reads):
         fabsp.count_kmers(reads, cfg, num_pes=NUM_PES)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    _log_profile(torch, prof, wall_us, f"{n_reads} reads")
+
+
+def _log_profile(torch, prof, wall_us, what):
+    """Device time by kernel and the device's busy share of `wall_us`."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = [(e.key, e.count, e.self_device_time_total)
             for e in prof.key_averages()
             if e.device_type == cuda and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     device_us = sum(r[2] for r in rows)
-    log(f"  {n_reads} reads: wall {wall_us / 1e3:.1f} ms under the profiler, "
+    log(f"  {what}: wall {wall_us / 1e3:.1f} ms under the profiler, "
         f"device busy {device_us / 1e3:.1f} ms "
         f"({100 * device_us / wall_us:.1f} %)")
     for key, count, us in rows[:15]:
         log(f"  {us / 1e3:10.2f} ms {count:8d}x  {key[:90]}")
 
 
+def profile_lm_step(torch):
+    """torch.profiler over one training step of phase 9's configuration,
+    after one step of warm-up."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_for_step
+    from repro_torch.models import model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts_lib
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash_train")
+    params = model.init_params(cfg, seed=0, device=DEV)
+    state = opt_lib.init(params)
+    step = ts_lib.make_train_step(cfg, ts_lib.TrainConfig(
+        optimizer=opt_lib.OptimizerConfig(warmup_steps=2,
+                                          total_steps=LM_STEPS)))
+    batch = {"tokens": torch.from_numpy(batch_for_step(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, batch_size=LM_BATCH, seq_len=LM_SEQ,
+        seed=0), 0)).to(DEV)}
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _log_profile(torch, prof, wall_us,
+                 f"one {LM_ARCH} step of {LM_BATCH} x {LM_SEQ} tokens")
+    del params, state
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
                     help="phase 4's read count (a cut is printed); phase 8 "
@@ -733,6 +1060,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # Full f32 products in every plain version (TF32 keeps ~3 digits).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -761,7 +1091,8 @@ def main(argv=None) -> int:
     if 3 in phases:
         t0 = time.perf_counter()
         check_kernels(torch, ops, ref, errs)
-        log(f"[kernels] all bit-equal ({time.perf_counter() - t0:.1f} s)")
+        log(f"[kernels] all match their plain versions "
+            f"({time.perf_counter() - t0:.1f} s)")
 
     launches = {}
     if 4 in phases:
@@ -788,10 +1119,16 @@ def main(argv=None) -> int:
         launches["sliding_min"] = runs["plain"][0]["sliding_min"]
         log(f"[counter] done ({time.perf_counter() - t0:.1f} s)")
 
+    if 9 in phases:
+        t0 = time.perf_counter()
+        lm_launches, _ = lm_phase(torch, ops)
+        launches.update(lm_launches)
+        log(f"[lm] done ({time.perf_counter() - t0:.1f} s)")
+
     record = None
     if 6 in phases:
         check(len(launches) == len(ops.KERNELS) and errs
-              and counter is not None, "phase 6 needs phases 3, 4 and 8")
+              and counter is not None, "phase 6 needs phases 3, 4, 8 and 9")
         log("[times] CUDA events, 20 launches after a warm-up")
         record = kernel_times(torch, ops, ref, launches, errs, counter)
         counter = None
@@ -800,6 +1137,8 @@ def main(argv=None) -> int:
     if 7 in phases:
         log("[profile] the main path under torch.profiler")
         profile_path(torch, fabsp, genome, min(args.reads, 1 << 20))
+        log("[profile] one LM training step under torch.profiler")
+        profile_lm_step(torch)
 
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     if record is not None:

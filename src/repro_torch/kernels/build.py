@@ -3,9 +3,10 @@
 Each `csrc/*.cu` file has a plain C interface and becomes a shared library
 of its own, compiled by `nvcc` for `sm_90a` at first CUDA use and loaded
 with ctypes. All sources compile at once, one `nvcc` process each. A
-library's file name carries a hash of its source and flags, so an edited
-source rebuilds; the libraries live in `build/repro_torch_kernels/` at the
-root of the checkout.
+library's file name carries a hash of its source, the shared `csrc/*.cuh`
+headers and the flags, so an edited source or header rebuilds; the
+libraries live in `build/repro_torch_kernels/` at the root of the
+checkout.
 
 Nothing here runs at import: the CPU path never builds anything.
 """
@@ -47,7 +48,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # Every source may include the shared headers, so they enter each hash.
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -11,10 +11,11 @@ Each wrapper counts its kernel launches in a plain int attribute,
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as flash_kernels
 from repro_torch.kernels import (hash_table, minimizer, radix_partition, ref,
                                  segment_count)
 from repro_torch.kernels.radix_partition import TILE, PartitionPlan
@@ -121,8 +122,112 @@ def sliding_min_pair(keys: torch.Tensor, vals: torch.Tensor, window: int):
     return out
 
 
+def _resolved_scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Flash attention forward (kernel 11): q (B, Hq, Sq, D), k and v
+    (B, Hkv, Skv, D), GQA by index -> (B, Hq, Sq, D) in q's dtype.
+
+    Forward only, as a `pallas_call` has no VJP: it raises when autograd
+    would need its gradient (`flash_attention_trainable` trains)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention is forward only: train with "
+                           "flash_attention_trainable (attn_impl="
+                           "'flash_train')")
+    band = dict(causal=causal, window=window, softcap=softcap,
+                scale=_resolved_scale(q, scale), q_offset=q_offset)
+    if _on_cpu(q):
+        return ref.flash_fwd(q, k, v, **band)
+    out = flash_kernels.flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), with_lse=False, **band)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool,
+                            window: Optional[int], softcap: Optional[float],
+                            scale: float, q_offset: int = 0):
+    """The flash forward with the per-row logsumexp (kernel 12): (o,
+    (B, Hq, Sq) f32 lse), the residual of the backward."""
+    band = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset)
+    if _on_cpu(q):
+        return ref.flash_fwd(q, k, v, with_lse=True, **band)
+    out = flash_kernels.flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), with_lse=True, **band)
+    flash_attention_fwd_lse.launches += 1
+    return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool, window: Optional[int],
+                        softcap: Optional[float], scale: float,
+                        q_offset: int = 0):
+    """The flash backward (kernel 13: one dq launch and one dk/dv launch)
+    at the full head count -> (dq, dk, dv) like q, k, v."""
+    band = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset)
+    if _on_cpu(q):
+        return ref.flash_bwd(q, k, v, o, lse, do, **band)
+    out = flash_kernels.flash_bwd_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), o.contiguous(),
+        lse.contiguous(), do.contiguous(), **band)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+class _FlashTrainable(torch.autograd.Function):
+    """Forward through kernel 12, saving only o and the logsumexp; backward
+    through kernel 13, with kv expanded to the query heads and dk, dv
+    summed back over each GQA group."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        band = dict(causal=causal, window=window, softcap=softcap,
+                    scale=scale)
+        o, lse = flash_attention_fwd_lse(q, k, v, **band)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.band = band
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        b, hq = q.shape[:2]
+        hkv, skv, d = k.shape[1:]
+        group = hq // hkv
+        kq = k.repeat_interleave(group, 1) if group > 1 else k
+        vq = v.repeat_interleave(group, 1) if group > 1 else v
+        dq, dk, dv = flash_attention_bwd(q, kq, vq, o, lse, do, **ctx.band)
+        if group > 1:
+            dk = dk.view(b, hkv, group, skv, d).sum(2)
+            dv = dv.view(b, hkv, group, skv, d).sum(2)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention with the backward kernels (the training path):
+    q (B, Hq, S, D), k and v (B, Hkv, S, D) -> (B, Hq, S, D)."""
+    return _FlashTrainable.apply(q, k, v, causal, window, softcap,
+                                 _resolved_scale(q, scale))
+
+
 KERNELS = (bucket_hist, bucket_positions, segment_accumulate, hash_insert,
-           hash_lookup, sliding_min, sliding_min_pair)
+           hash_lookup, sliding_min, sliding_min_pair, flash_attention,
+           flash_attention_fwd_lse, flash_attention_bwd)
 for _k in KERNELS:
     _k.launches = 0
 

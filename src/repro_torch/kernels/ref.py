@@ -2,14 +2,19 @@
 
 Each function computes what its CUDA kernel computes, on the stacked
 (P, ...) layout: one row per processing element (the sliding minimum: one
-row per read). `kernels.ops` runs these for tensors on the CPU; tests and
-`chip_smoke.py` hold the kernels to them. Counterparts of
-`repro.kernels.ref` (partition_plan_ref, bucket_hist_ref,
+row per read; attention: (B, H, S, D)). `kernels.ops` runs these for
+tensors on the CPU; tests and `chip_smoke.py` hold the kernels to them.
+Counterparts of `repro.kernels.ref` (partition_plan_ref, bucket_hist_ref,
 bucket_positions_ref, segment_accumulate_ref, hash_insert_ref,
-hash_lookup_ref, sliding_min_ref, sliding_min_pair_ref).
+hash_lookup_ref, sliding_min_ref, sliding_min_pair_ref, mha_ref,
+flash_ref). `flash_fwd` and `flash_bwd` are the plain versions of the flash
+attention kernels (`repro.kernels.flash_attention` and
+`flash_attention_bwd`), which have no counterpart in the JAX `ref.py`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -198,3 +203,169 @@ def sliding_min_pair(keys: torch.Tensor, vals: torch.Tensor, window: int):
         ak = torch.where(take, nk, ak)
         av = torch.where(take, vals[..., j:j + n_out], av)
     return ak ^ _SIGN, av
+
+
+# --- attention --------------------------------------------------------------
+
+# The flash kernels mask with this finite constant, not -inf: a fully masked
+# row then gives output 0 and logsumexp -1e30 without NaN guards.
+NEG_INF = -1e30
+
+
+def _band(rows: torch.Tensor, cols: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """(len(rows), len(cols)) bool: the query at absolute position rows[i]
+    sees the key at cols[j]. The window is one-sided, (row - col) < window,
+    with or without `causal`."""
+    mask = torch.ones((rows.numel(), cols.numel()), dtype=torch.bool,
+                      device=rows.device)
+    if causal:
+        mask &= rows[:, None] >= cols[None, :]
+    if window is not None:
+        mask &= (rows[:, None] - cols[None, :]) < window
+    return mask
+
+
+def _full_band(q: torch.Tensor, k: torch.Tensor, q_offset: int,
+               causal: bool, window: Optional[int]) -> torch.Tensor:
+    """_band over all of q's rows (from q_offset) and all of k's columns."""
+    return _band(q_offset + torch.arange(q.shape[2], device=q.device),
+                 torch.arange(k.shape[2], device=q.device), causal, window)
+
+
+def _expand_kv(k: torch.Tensor, hq: int) -> torch.Tensor:
+    """GQA: query head h reads kv head h // (hq // hkv)."""
+    group = hq // k.shape[1]
+    return k if group == 1 else k.repeat_interleave(group, dim=1)
+
+
+def _scores(q, k, scale: float, softcap: Optional[float]) -> torch.Tensor:
+    """f32 scores q.k * scale, capped as cap * tanh(s / cap)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None, scale: Optional[float] = None,
+              q_offset: int = 0, with_lse: bool = False):
+    """Plain version of the flash forward kernel (rows 11 and 12).
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> o (B, Hq, Sq, D) in q's
+    dtype, and with `with_lse` the per-row logsumexp (B, Hq, Sq) f32. All
+    arithmetic is f32, P included (the TPU kernel multiplies P by V in
+    f32); masked scores are NEG_INF, so a fully masked row gives o = 0 and
+    lse = NEG_INF. The kernel's online softmax reaches the same values up
+    to f32 rounding.
+    """
+    hq, d = q.shape[1], q.shape[3]
+    scale = d ** -0.5 if scale is None else scale
+    mask = _full_band(q, k, q_offset, causal, window)
+    s = torch.where(mask, _scores(q, _expand_kv(k, hq), scale, softcap),
+                    NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = (torch.matmul(p, _expand_kv(v, hq).float()) / l_safe).to(q.dtype)
+    if not with_lse:
+        return o
+    return o, (m + torch.log(l_safe))[..., 0]
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+              causal: bool, window: Optional[int], softcap: Optional[float],
+              scale: float, q_offset: int = 0):
+    """Plain version of the flash backward kernels (row 13).
+
+    Full head count: q, o, do (B, H, Sq, D); k, v (B, H, Skv, D); lse
+    (B, H, Sq) f32 from the forward. Recomputes p = exp(s - lse) on the
+    band and returns (dq, dk, dv) in the dtypes of q, k and v:
+      dv = p^T dO;  ds = p (dO v^T - rowsum(dO * O));  softcap: ds *= 1 -
+      (s / cap)^2;  dq = ds k * scale;  dk = ds^T q * scale.
+    """
+    mask = _full_band(q, k, q_offset, causal, window)
+    s = _scores(q, k, scale, softcap)
+    p = torch.where(mask, torch.exp(torch.where(mask, s, NEG_INF)
+                                    - lse[..., None]), 0.0)
+    do32 = do.float()
+    dsum = (do32 * o.float()).sum(-1, keepdim=True)
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    ds = p * (torch.matmul(do32, v.float().transpose(-1, -2)) - dsum)
+    if softcap is not None:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, window: Optional[int] = None,
+            softcap: Optional[float] = None, scale: Optional[float] = None,
+            q_offset: int = 0) -> torch.Tensor:
+    """Reference attention (differentiable), as `repro.kernels.ref.mha_ref`.
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D). Scores accumulate in f32 from
+    the inputs' products (exact for bf16 inputs); masked scores are -inf
+    and a fully masked row's NaN probabilities become 0. The probabilities
+    are rounded to v's dtype before the product with v, as in the JAX
+    reference, so in bf16 this differs from `flash_fwd` by that rounding.
+    """
+    hq, d = q.shape[1], q.shape[3]
+    scale = d ** -0.5 if scale is None else scale
+    vq = _expand_kv(v, hq)
+    logits = _scores(q, _expand_kv(k, hq), scale, softcap)
+    mask = _full_band(q, k, q_offset, causal, window)
+    logits = torch.where(mask, logits, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)
+    return torch.matmul(probs.to(vq.dtype).float(), vq.float()).to(q.dtype)
+
+
+def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None, scale: Optional[float] = None,
+              q_offset: int = 0, block_q: int = 1024,
+              block_k: int = 1024) -> torch.Tensor:
+    """Blockwise online-softmax attention in plain torch (differentiable),
+    as `repro.kernels.ref.flash_ref`: only (block_q, block_k) scores are
+    live at a time, and blocks wholly outside the causal or window band are
+    skipped. The attention path takes it for kv longer than 8192."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    kq, vq = _expand_kv(k, hq), _expand_kv(v, hq)
+    bq, bk = min(block_q, sq), min(block_k, skv)
+    outs = []
+    for q0 in range(0, sq, bq):
+        q32 = q[:, :, q0:q0 + bq].float()
+        n = q32.shape[2]
+        rows = q_offset + q0 + torch.arange(n, device=q.device)
+        first, last = q_offset + q0, q_offset + q0 + bq - 1
+        m = torch.full((b, hq, n), float("-inf"), device=q.device)
+        l = torch.zeros((b, hq, n), device=q.device)
+        acc = torch.zeros((b, hq, n, d), device=q.device)
+        for k0 in range(0, skv, bk):
+            if causal and k0 > last:
+                continue
+            if window is not None and k0 + bk - 1 < first - window + 1:
+                continue
+            kb = kq[:, :, k0:k0 + bk]
+            cols = k0 + torch.arange(kb.shape[2], device=q.device)
+            s = torch.where(_band(rows, cols, causal, window),
+                            _scores(q32, kb, scale, softcap), float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            p = torch.where(torch.isnan(p), 0.0, p)
+            alpha = torch.exp(m - m_new)
+            alpha = torch.where(torch.isnan(alpha), 0.0, alpha)
+            l = alpha * l + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.matmul(
+                p, vq[:, :, k0:k0 + bk].float())
+            m = m_new
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        outs.append((acc / l_safe[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=2)

@@ -38,7 +38,15 @@ from repro_torch.core import (aggregation, countstore, encoding, fabsp,
 from repro_torch.data import genome
 from repro_torch.kernels import build, hash_table, ops, radix_partition, ref
 from repro_torch.kernels import minimizer as kminimizer
-from repro_torch.kernels import segment_count
+from repro_torch.kernels import flash_attention, segment_count
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.data import tokens
+from repro_torch.launch import train
+from repro_torch.models import attention, convert, layers, model
+from repro_torch.train import optimizer, train_step
+out = train.train("qwen1.5-0.5b", reduced=True, steps=2, batch=2, seq=16,
+                  device="cpu", attn_impl="flash_train")
+assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
 reads = genome.sample_reads(genome.ReadSetSpec(genome_bases=512, n_reads=64,
                                                read_len=30, seed=1))
 res, st = fabsp.count_kmers(reads, fabsp.DAKCConfig(k=13, chunk_reads=8),
@@ -79,6 +87,45 @@ def test_default_device_needs_a_card():
                           num_pes=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fabsp.KmerCounter(fabsp.DAKCConfig(k=13), num_pes=1)
+
+
+def test_lm_training_needs_a_card():
+    from repro_torch.launch import train
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train("qwen1.5-0.5b", reduced=True, steps=1, batch=2, seq=16)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "moonshot-v1-16b-a3b",
+                                  "mamba2-370m", "zamba2-1.2b",
+                                  "llava-next-mistral-7b", "hubert-xlarge"])
+def test_lm_families_outside_the_slice_raise(arch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import train
+    from repro_torch.models import model
+
+    cfg = reduced_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        model.init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train.train(arch, reduced=True, steps=1, batch=2, seq=16,
+                    device="cpu")
+
+
+def test_attention_with_a_kv_cache_raises():
+    """Prefill and decode (LM serving) are not in this slice."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import attention
+
+    cfg = reduced_config("qwen1.5-0.5b", compute_dtype="float32")
+    p = attention.init_attention(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        attention.attention(p, x, cfg=cfg, window=None,
+                            positions=torch.arange(4), cache=object())
 
 
 @pytest.mark.parametrize("knobs", [
