@@ -5,7 +5,8 @@
     python3 chip_smoke.py --phases 1,2,3   # device, build, kernel checks only
     python3 chip_smoke.py --phases 1,2,3,8 # ... and the incremental counter
     python3 chip_smoke.py --phases 1,2,3,9 # ... and the LM training path
-    python3 chip_smoke.py --reads 4194304  # cut phase 4's read count
+    python3 chip_smoke.py --phases 1,2,3,10  # ... and the sweep kernels
+    python3 chip_smoke.py --reads 4194304  # cut phases 4 and 10's read count
 
 Phases:
   1. device: require CUDA; print the card's name and power limit;
@@ -13,7 +14,9 @@ Phases:
   3. each kernel against its plain version on the card, bit-equal (the
      insert: equal (key, count) sets and drops exactly when the plain
      version drops; the flash attention kernels within stated tolerances,
-     f32 and bf16, head dims 16 to 256, up to the training path's shape);
+     f32 and bf16, head dims 16 to 256, up to the training path's shape;
+     the k-mer extraction, digit histogram and run-boundary kernels at
+     small shapes and edge cases);
   4. the paper's workload at full size: "Synthetic 26" (2**26 uniform
      bases), 2**23 reads of 150 bp, k=31, chunk_reads=256, 8 PEs on the
      card, checked exactly against an independent torch.unique count;
@@ -31,9 +34,17 @@ Phases:
      one set of weights, a step under 'flash_train' against one under
      'ref' at seq 1024, and the forward-only 'flash' logits against
      'flash_train''s at seq 4096;
+  10. the sweep kernels through their entry points on the same read set:
+     ops.kmer_extract over all 2**23 reads (forward and canonical, each
+     piece bit-equal to its plain version); the canonical k-mers of the
+     first 2**22 reads as 8 rows, ops.radix_hist on every 4-bit digit
+     (bit-equal, and its tiles summing to a bincount of the digit);
+     sort.radix_sort of each row, then sort.accumulate with
+     boundaries_impl='kernel', bit-equal to 'inline' and to impl='fused'
+     and exact against torch.unique of the same words;
   6. each kernel's time at its path's shapes beside its plain version, one
-     library call where one exists, and its bound (runs after phases 8
-     and 9);
+     library call where one exists, and its bound (runs after phases 8,
+     9 and 10);
   7. on request only: the main path and one step of phase 9's training
      under torch.profiler (device time by kernel, the device's busy
      share).
@@ -62,7 +73,14 @@ NUM_PES = 8
 # adds the lookup and the sliding minimum.
 COUNT_KERNELS = ("bucket_hist", "bucket_positions", "segment_accumulate",
                  "hash_insert")
+# The kernels reached only through their entry points (phase 10).
+SWEEP_KERNELS = ("kmer_extract", "radix_hist", "segment_boundaries")
 DEV = "cuda"
+# Phase 10: the extraction runs over every read, the radix-histogram,
+# sort and accumulate chain over the k-mers of the first SWEEP_SORT_READS.
+SWEEP_SORT_READS = 1 << 22
+SWEEP_DIGIT_BITS, SWEEP_TILE = 4, 1024
+SWEEP_TIMED_SHIFT = 28         # the digit phase 6 times
 # Phase 9: the LM training path, and the flash kernels' shape on it. The
 # 'flash_train' / 'ref' check runs at LM_CHECK_SEQ, where mha_ref's (S, S)
 # scores fit.
@@ -214,6 +232,89 @@ def check_kernels(torch, ops, ref, errs):
     check_sliding_min(torch, ops, ref, gen, dev)
     errs["sliding_min"] = errs["sliding_min_pair"] = 0
     check_flash(torch, ops, ref, errs)
+    check_sweeps(torch, ops, ref, errs)
+
+
+def check_sweeps(torch, ops, ref, errs):
+    """Rows 8-10 against their plain versions, bit-equal: the extraction at
+    k 1 to 31, canonical and not, 3 bits per symbol, and rows longer than
+    a position tile; the digit histogram at 2 to 13 bits and shifts up to
+    and past the top digit, on 32- and 64-bit words with the sentinel; the
+    run-start flags on runs that span blocks and an all-sentinel row."""
+    from repro_torch import words as W
+    from repro_torch.data import genome
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    log("[kernels] kmer_extract")
+    spec = genome.ReadSetSpec(genome_bases=1 << 20, n_reads=4096,
+                              read_len=150, seed=5)
+    reads = genome.sample_reads_torch(spec, dev)
+    reads[:8] = 0                                  # poly-A rows
+    cases = [(k, 2, c, reads) for k in (1, 13, 15, 21, 31)
+             for c in (False, True)]
+    cases += [(10, 3, False, torch.randint(0, 8, (4096, 150), generator=gen,
+                                           device=dev, dtype=torch.uint8)),
+              (31, 2, True, reads.view(-1)[:3 * 9000].view(3, 9000)),
+              (7, 8, False, torch.randint(0, 256, (100, 64), generator=gen,
+                                          device=dev, dtype=torch.uint8)),
+              (62, 1, False, reads[:40] & 1)]
+    for k, bits, canonical, codes in cases:
+        got = ops.kmer_extract(codes, k, bits, canonical=canonical)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref.kmer_extract(codes, k, bits, canonical)),
+              f"kmer_extract differs at k={k} bits={bits} "
+              f"canonical={canonical} shape={tuple(codes.shape)}")
+        log(f"  k={k} bits={bits} canonical={canonical} "
+            f"{tuple(codes.shape)}: bit-equal")
+    errs["kmer_extract"] = 0
+
+    log("[kernels] radix_hist")
+    for word_bits in (32, 64):
+        sent = W.sentinel(word_bits)
+        hi = 1 << 62 if word_bits == 64 else 1 << 32
+        keys = torch.randint(0, hi, (8, 1 << 16), generator=gen, device=dev)
+        if word_bits == 64:
+            keys[:, ::3] |= -(1 << 63)             # the top bit set
+        keys[:, ::5] = sent
+        for digit_bits, shift, tile in (
+                (2, 0, 1024), (4, 24, 1024), (8, 60, 512), (4, 60, 1024),
+                (2, 24, 512), (8, 0, 1024), (12, 52, 1024), (13, 51, 1024),
+                (4, 32, 1024), (4, 64, 1024), (8, 8, 1 << 16)):
+            for rows in (keys, keys[0]):
+                got = ops.radix_hist(rows, shift, digit_bits, tile)
+                torch.cuda.synchronize()
+                want = ref.radix_hist(rows.reshape(-1, rows.shape[-1]),
+                                      shift, digit_bits, tile)
+                check(torch.equal(got.view(want.shape), want),
+                      f"radix_hist differs at {word_bits}-bit "
+                      f"digit_bits={digit_bits} shift={shift} tile={tile}")
+            log(f"  {word_bits}-bit digit_bits={digit_bits} shift={shift} "
+                f"tile={tile}: bit-equal, top bin "
+                f"{int(got.sum(0).argmax())}")
+    errs["radix_hist"] = 0
+
+    log("[kernels] segment_boundaries")
+    for word_bits in (32, 64):
+        sent = W.sentinel(word_bits)
+        for rows, n, nd, long_run, all_s in (
+                (8, 30720, 3000, 0, False), (2, 300_000, 5, 150_000, False),
+                (3, 5000, 10, 0, True), (1, 4099, 7, 0, False)):
+            keys, _ = _sorted_runs(torch, gen, rows, n, nd, sent, word_bits,
+                                   dev, long_run, all_s)
+            got = ops.segment_boundaries(keys, sentinel_val=sent)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref.segment_boundaries(keys, sent)),
+                  f"segment_boundaries differs at "
+                  f"{(word_bits, rows, n, nd)}")
+            check(torch.equal(got, ops.segment_accumulate(
+                keys, torch.ones_like(keys, dtype=torch.int32),
+                sentinel_val=sent)[0]), "segment_boundaries differs from "
+                "segment_accumulate's run starts")
+            log(f"  {word_bits}-bit rows={rows} n={n} distinct<={nd} "
+                f"long_run={long_run} all_sentinel={all_s}: bit-equal, "
+                f"{int(got.sum())} run starts")
+    errs["segment_boundaries"] = 0
 
 
 def check_lookup(torch, ops, ref, gen, dev):
@@ -597,6 +698,179 @@ def counter_phase(torch, fabsp, ops, genome):
     return kc, out
 
 
+# --- phase 10: the sweep kernels through their entry points ----------------
+
+def sweeps_phase(torch, ops, ref, genome, n_reads, timed):
+    """Drive ops.kmer_extract, ops.radix_hist and sort.accumulate(
+    boundaries_impl='kernel') over the Synthetic-26 read set, each result
+    held bit-equal to its plain version and the chain exact against
+    torch.unique. Returns the launches of the run and, with `timed`, the
+    numbers of rows 8-10 for phase 6."""
+    from repro_torch import words as W
+    from repro_torch.core import sort
+
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=n_reads,
+                              read_len=150, seed=0)
+    reads = genome.sample_reads_torch(spec, DEV)
+    n_pos = spec.read_len - K + 1
+    n_sort = min(n_reads, SWEEP_SORT_READS)
+    if n_sort != SWEEP_SORT_READS:
+        log(f"  CUT: the sort chain takes {n_sort} reads instead of "
+            f"{SWEEP_SORT_READS}")
+    words = torch.empty((n_sort, n_pos), dtype=torch.int64, device=DEV)
+    block = 1 << 20
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for lo in range(0, n_reads, block):
+        piece = reads[lo:lo + block]
+        for canonical in (False, True):
+            got = ops.kmer_extract(piece, K, canonical=canonical)
+            want = ref.kmer_extract(piece, K, 2, canonical)
+            check(torch.equal(got, want), f"kmer_extract differs from its "
+                  f"plain version on reads {lo}+ (canonical={canonical})")
+            if canonical and lo < n_sort:
+                words[lo:lo + block] = got[:n_sort - lo]
+            del got, want
+    torch.cuda.synchronize()
+    log(f"  kmer_extract: {n_reads} reads x {n_pos} positions, forward and "
+        f"canonical, in pieces of {block}: bit-equal to the plain version "
+        f"({time.perf_counter() - t0:.1f} s with the checks)")
+
+    keys = words.view(NUM_PES, -1)
+    n = keys.shape[1]
+    t0 = time.perf_counter()
+    row_id = torch.arange(NUM_PES, device=DEV)[:, None] << SWEEP_DIGIT_BITS
+    radix = 1 << SWEEP_DIGIT_BITS
+    shifts = range(0, 2 * K, SWEEP_DIGIT_BITS)
+    for shift in shifts:
+        hist = ops.radix_hist(keys, shift, SWEEP_DIGIT_BITS, SWEEP_TILE)
+        want = ref.radix_hist(keys, shift, SWEEP_DIGIT_BITS, SWEEP_TILE)
+        check(torch.equal(hist, want), f"radix_hist differs at shift {shift}")
+        digit = W.srl(keys, shift) & (radix - 1)
+        whole = torch.bincount((row_id + digit).view(-1),
+                               minlength=NUM_PES * radix).view(NUM_PES, radix)
+        check(torch.equal(hist.sum(1, dtype=torch.int64), whole),
+              f"radix_hist tiles do not sum to the digit's bincount at "
+              f"shift {shift}")
+        del hist, want, digit, whole
+    torch.cuda.synchronize()
+    log(f"  radix_hist: keys {tuple(keys.shape)}, {len(shifts)} digits of "
+        f"{SWEEP_DIGIT_BITS} bits, tile {SWEEP_TILE}: bit-equal, "
+        f"tiles sum to each digit's bincount "
+        f"({time.perf_counter() - t0:.1f} s with the checks)")
+
+    t0 = time.perf_counter()
+    srt = sort.radix_sort(keys, 2 * K)
+    torch.cuda.synchronize()
+    t_sort = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = sort.accumulate(srt, sentinel_val=W.sentinel(64),
+                          boundaries_impl="kernel")
+    torch.cuda.synchronize()
+    t_acc = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for other in ({"boundaries_impl": "inline"}, {"impl": "fused"}):
+        want = sort.accumulate(srt, sentinel_val=W.sentinel(64), **other)
+        for field in got._fields:
+            check(torch.equal(getattr(got, field), getattr(want, field)),
+                  f"accumulate {field} differs from {other}")
+        del want
+    log(f"  radix_sort of {NUM_PES} rows of {n}: {t_sort:.3f} s; accumulate "
+        f"(boundaries_impl='kernel'): {t_acc:.3f} s; bit-equal to "
+        f"boundaries_impl='inline' and to impl='fused'")
+    nu = got.num_unique.tolist()
+    distinct = 0
+    for r in range(NUM_PES):
+        ref_k, ref_c = torch.unique(keys[r], return_counts=True)
+        check(torch.equal(got.unique[r, :nu[r]], ref_k)
+              and torch.equal(got.counts[r, :nu[r]].to(torch.int64), ref_c),
+              f"row {r}: accumulate differs from torch.unique")
+        check(int(got.counts[r].sum()) == n, f"row {r}: counts do not sum "
+              f"to the instance count")
+        distinct += nu[r]
+        del ref_k, ref_c
+    log(f"  exact against torch.unique: {n_sort * n_pos} canonical k-mer "
+        f"instances, {distinct} distinct within their rows "
+        f"({NUM_PES} rows, {nu})")
+    launches = {name: launches[name] for name in SWEEP_KERNELS}
+    log(f"  launches on this path {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} did not launch on phase 10's path")
+    del got
+    rows = []
+    if timed:
+        rows = sweep_times(torch, ops, ref, reads, keys, srt)
+    del reads, words, keys, srt
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def sweep_times(torch, ops, ref, reads, keys, srt):
+    """Rows 8-10 at phase 10's shapes, CUDA events after a warm-up: the
+    extraction over the whole read set in one launch (the plain version in
+    pieces of 2**20 reads, the same work), the digit histogram and the
+    run-start flags over the (8, n) k-mer rows."""
+    from repro_torch import words as W
+
+    n_reads, m = reads.shape
+    n_pos = m - K + 1
+    block = 1 << 20
+
+    def plain_extract():
+        for lo in range(0, n_reads, block):
+            ref.kmer_extract(reads[lo:lo + block], K, 2, True)
+
+    rows = [dict(
+        name="kmer_extract", source="src/repro_torch/csrc/kmer_extract.cu",
+        replaces="src/repro/kernels/kmer_extract.py:53",
+        ms=time_ms(torch, lambda: ops.kmer_extract(reads, K, canonical=True),
+                   5),
+        plain_ms=time_ms(torch, plain_extract, 2),
+        nbytes=n_reads * m + n_reads * n_pos * 8, library_ms=None,
+        shape=f"codes ({n_reads}, {m}) uint8 -> ({n_reads}, {n_pos}) int64, "
+              f"k={K}, canonical, one launch")]
+    log("  kmer_extract library_ms: none, no PyTorch call packs a k-window "
+        "into a word")
+
+    p, n = keys.shape
+    radix, n_tiles = 1 << SWEEP_DIGIT_BITS, n // SWEEP_TILE
+    digit = W.srl(keys, SWEEP_TIMED_SHIFT) & (radix - 1)
+    tile_key = (torch.arange(p * n_tiles, device=keys.device)
+                .repeat_interleave(SWEEP_TILE).view(p, n) * radix + digit)
+    del digit
+    rows.append(dict(
+        name="radix_hist", source="src/repro_torch/csrc/radix_hist.cu",
+        replaces="src/repro/kernels/radix_hist.py:30",
+        ms=time_ms(torch, lambda: ops.radix_hist(
+            keys, SWEEP_TIMED_SHIFT, SWEEP_DIGIT_BITS, SWEEP_TILE)),
+        plain_ms=time_ms(torch, lambda: ref.radix_hist(
+            keys, SWEEP_TIMED_SHIFT, SWEEP_DIGIT_BITS, SWEEP_TILE), 5),
+        nbytes=p * n * 8 + p * n_tiles * radix * 4,
+        library_ms=time_ms(torch, lambda: torch.bincount(
+            tile_key.view(-1), minlength=p * n_tiles * radix), 5),
+        shape=f"keys ({p}, {n}) int64, shift {SWEEP_TIMED_SHIFT}, "
+              f"digit_bits {SWEEP_DIGIT_BITS}, tile {SWEEP_TILE}"))
+    del tile_key
+    log("  radix_hist library_ms: torch.bincount of tile * radix + digit, "
+        "the digit's extraction left out")
+
+    sent = -1
+    rows.append(dict(
+        name="segment_boundaries",
+        source="src/repro_torch/csrc/segment_count.cu",
+        replaces="src/repro/kernels/segment_count.py:43",
+        ms=time_ms(torch, lambda: ops.segment_boundaries(
+            srt, sentinel_val=sent)),
+        plain_ms=time_ms(torch, lambda: ref.segment_boundaries(srt, sent), 5),
+        nbytes=p * n * (8 + 1), library_ms=None,
+        shape=f"sorted keys ({p}, {n}) int64 -> bool"))
+    log("  segment_boundaries library_ms: none, no PyTorch call gives "
+        "sentinel-aware run-start flags")
+    torch.cuda.empty_cache()
+    return rows
+
+
 # --- phase 9: the LM training path -----------------------------------------
 
 def lm_phase(torch, ops):
@@ -731,7 +1005,7 @@ def time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def kernel_times(torch, ops, ref, launches, errs, counter):
+def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
     from repro_torch import words as W
 
     dev = torch.device("cuda")
@@ -831,6 +1105,10 @@ def kernel_times(torch, ops, ref, launches, errs, counter):
     del pk, pc
     new_kernel_times(torch, ops, ref, counter, entry, shape_of)
     flash_times(torch, ops, ref, entry, shape_of)
+    for row in sweep_rows:
+        shape_of[row["name"]] = row["shape"]
+        entry(row["name"], row["source"], row["replaces"], row["ms"],
+              row["plain_ms"], row["nbytes"], row["library_ms"])
     for e in out:
         log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, "
             f"library {e['library_ms']}, bound {e['bound_ms']:.5f}) "
@@ -1048,11 +1326,11 @@ def profile_lm_step(torch):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
-                    help="phase 4's read count (a cut is printed); phase 8 "
-                         "always reads 2**23")
+                    help="phases 4 and 10's read count (a cut is printed); "
+                         "phase 8 always reads 2**23")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1109,6 +1387,18 @@ def main(argv=None) -> int:
             run_count(torch, fabsp, ops, genome, 4096, k, p, pieces=1,
                       genome_bases=1 << 16)
 
+    sweep_rows = []
+    if 10 in phases:
+        t0 = time.perf_counter()
+        log("[sweeps] Synthetic 26, 150 bp reads, k=31: kmer_extract, "
+            "radix_hist, radix_sort + accumulate(boundaries_impl='kernel')")
+        if args.reads != 1 << 23:
+            log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
+        sweep_launches, sweep_rows = sweeps_phase(
+            torch, ops, ref, genome, args.reads, timed=6 in phases)
+        launches.update(sweep_launches)
+        log(f"[sweeps] done ({time.perf_counter() - t0:.1f} s)")
+
     counter = None
     if 8 in phases:
         t0 = time.perf_counter()
@@ -1128,9 +1418,11 @@ def main(argv=None) -> int:
     record = None
     if 6 in phases:
         check(len(launches) == len(ops.KERNELS) and errs
-              and counter is not None, "phase 6 needs phases 3, 4, 8 and 9")
+              and counter is not None and sweep_rows,
+              "phase 6 needs phases 3, 4, 8, 9 and 10")
         log("[times] CUDA events, 20 launches after a warm-up")
-        record = kernel_times(torch, ops, ref, launches, errs, counter)
+        record = kernel_times(torch, ops, ref, launches, errs, counter,
+                              sweep_rows)
         counter = None
         torch.cuda.empty_cache()
 

@@ -8,7 +8,8 @@ stream, sorted and accumulated on its own.
   sentinel goes to a tail bucket of its own on every pass.
 - `sort_with_weights(impl='argsort')`: the comparison-sort oracle.
 - `accumulate`: the sorted-run sweep. 'fused' runs the boundary and
-  run-total kernel once; 'segment_sum' is the two-pass oracle.
+  run-total kernel once; 'segment_sum' is the two-pass oracle, whose
+  run-start flags come from a tensor expression or the boundary kernel.
 
 Words are int64 (see `repro_torch.words`). The radix passes read logical
 digits and the oracle sorts in unsigned order, so both see the same order
@@ -22,7 +23,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch import words as W
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 _SIGN = -(1 << 63)
 
@@ -107,6 +108,7 @@ def sort_with_weights(keys: torch.Tensor, weights: torch.Tensor, *,
 def accumulate(sorted_keys: torch.Tensor,
                weights: Optional[torch.Tensor] = None, *,
                sentinel_val: int,
+               boundaries_impl: str = "inline",
                impl: str = "segment_sum") -> AccumResult:
     """Sweep sorted rows into (unique keys, counts), the paper's Accumulate.
 
@@ -114,6 +116,10 @@ def accumulate(sorted_keys: torch.Tensor,
     weights: optional int32 multiplicities; 1 per valid entry by default.
     impl: 'fused' runs the boundary + run-total kernel and one compaction
     scatter; 'segment_sum' is the two-pass oracle. Bit-identical results.
+    boundaries_impl ('segment_sum' only; 'fused' ignores it): 'inline'
+    takes the run-start flags from their plain tensor expression, 'kernel'
+    from the `segment_boundaries` kernel -- the JAX package's 'jnp' and
+    'pallas'.
     """
     p, n = sorted_keys.shape
     valid = sorted_keys != sentinel_val
@@ -135,10 +141,13 @@ def accumulate(sorted_keys: torch.Tensor,
                            num_unique=num_unique)
     if impl != "segment_sum":
         raise ValueError(f"unknown accumulate impl {impl!r}")
-    prev = torch.cat([torch.full((p, 1), sentinel_val, dtype=torch.int64,
-                                 device=sorted_keys.device),
-                      sorted_keys[:, :-1]], 1)
-    is_new = valid & (sorted_keys != prev)
+    if boundaries_impl == "kernel":
+        is_new = ops.segment_boundaries(sorted_keys.contiguous(),
+                                        sentinel_val=sentinel_val)
+    elif boundaries_impl == "inline":
+        is_new = ref.segment_boundaries(sorted_keys, sentinel_val)
+    else:
+        raise ValueError(f"unknown boundaries impl {boundaries_impl!r}")
     seg = torch.clamp(torch.cumsum(is_new, 1, dtype=torch.int64) - 1, min=0)
     counts = torch.zeros((p, n), dtype=torch.int64, device=sorted_keys.device)
     counts.scatter_add_(1, seg, w.to(torch.int64))

@@ -1,11 +1,20 @@
-// Fused run-boundary and run-total sweep over sorted k-mer words.
+// Sorted-run sweeps over sorted k-mer words: run-start flags alone, and
+// the fused run-boundary and run-total sweep.
 //
-// Replaces the TPU kernel in src/repro/kernels/segment_count.py:
-//   segment_accumulate_pallas (_segment_accum_kernel)
-// used by every accumulate on the counting path (the L3 compressors and
-// the final store histogram).
+// Replaces the TPU kernels in src/repro/kernels/segment_count.py:
+//   segment_boundaries_pallas (_segment_kernel), reached through
+//     sort.accumulate(boundaries_impl='kernel');
+//   segment_accumulate_pallas (_segment_accum_kernel), used by every
+//     accumulate on the counting path (the L3 compressors and the final
+//     store histogram).
 //
-// Bound: bytes. Per element it reads one 8 B word (and its neighbours,
+// Run-start flags (segment_boundaries): bound by bytes, 8 B read and 1 B
+// written per element. The TPU kernel reads its tile and the tile before
+// it, for the one word that precedes its first element; here each thread
+// compares its word with the one before (the cache serves that read), and
+// index 0 of a row compares with the sentinel. No padding and no tile.
+//
+// Fused sweep (segment_accumulate): bound by bytes. Per element it reads one 8 B word (and its neighbours,
 // which the cache serves) and one 4 B weight, and writes two 1 B flags and
 // one 4 B total; the work is a compare and an add.
 //
@@ -153,9 +162,33 @@ __global__ void accumulate_kernel(const int64_t* __restrict__ keys,
   }
 }
 
+__global__ void boundaries_kernel(const int64_t* __restrict__ keys,
+                                  int64_t n, int64_t sent,
+                                  uint8_t* __restrict__ is_new) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t* row = keys + (int64_t)blockIdx.y * n;
+  const int64_t k = row[i];
+  const int64_t prev = i > 0 ? row[i - 1] : sent;
+  is_new[(int64_t)blockIdx.y * n + i] = k != sent && k != prev;
+}
+
 }  // namespace
 
 extern "C" int segment_block() { return kBlock; }
+
+// keys (rows, n) int64 sorted per row -> is_new (rows, n) bool.
+extern "C" int segment_boundaries_launch(const void* keys, int64_t rows,
+                                         int64_t n, int64_t sent,
+                                         void* is_new, void* stream) {
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffff || rows > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)rows);
+  boundaries_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)keys, n, sent, (uint8_t*)is_new);
+  return (int)cudaGetLastError();
+}
 
 // keys (rows, n) int64 sorted per row, w (rows, n) int32;
 // blk_f / blk_v: (rows, ceil(n / block)) int32 scratch;

@@ -15,9 +15,12 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import encoding
 from repro_torch.kernels import flash_attention as flash_kernels
 from repro_torch.kernels import (hash_table, minimizer, radix_partition, ref,
                                  segment_count)
+from repro_torch.kernels import kmer_extract as extract_kernels
+from repro_torch.kernels import radix_hist as radix_hist_kernels
 from repro_torch.kernels.radix_partition import TILE, PartitionPlan
 
 
@@ -27,6 +30,73 @@ def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return False
     raise ValueError(f"no kernel for device {t.device}")
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """A (n,) stream as one (1, n) row; a (P, n) tensor as it is."""
+    if t.dim() not in (1, 2):
+        raise ValueError(f"expected a 1-d or 2-d tensor, got {t.dim()}-d")
+    return t.reshape(1, -1) if t.dim() == 1 else t
+
+
+def kmer_extract(reads: torch.Tensor, k: int, bits_per_symbol: int = 2, *,
+                 canonical: bool = False) -> torch.Tensor:
+    """(n_reads, m) codes below 2**bits_per_symbol -> (n_reads, m - k + 1)
+    int64 k-mer words; with `canonical` (2-bit DNA only), min(forward,
+    reverse complement) of each. k * bits_per_symbol <= 62."""
+    if reads.dim() != 2:
+        raise ValueError(f"reads must be (n_reads, m), got {reads.dim()}-d")
+    if not 1 <= bits_per_symbol <= 8 or k < 1:
+        raise ValueError(f"k={k}, bits_per_symbol={bits_per_symbol}: need "
+                         f"k >= 1 and 1 <= bits_per_symbol <= 8")
+    encoding.word_bits(k, bits_per_symbol)      # raises above 62 bits
+    if reads.shape[1] < k:
+        raise ValueError(f"reads of length {reads.shape[1]} are shorter "
+                         f"than k={k}")
+    if canonical and bits_per_symbol != 2:
+        raise ValueError("canonical k-mers are defined for 2-bit DNA codes")
+    if _on_cpu(reads):
+        return ref.kmer_extract(reads, k, bits_per_symbol, canonical)
+    out = extract_kernels.kmer_extract_cuda(reads.contiguous(), k,
+                                            bits_per_symbol, canonical)
+    kmer_extract.launches += 1
+    return out
+
+
+def radix_hist(keys: torch.Tensor, shift: int, digit_bits: int = 4,
+               tile: int = 1024) -> torch.Tensor:
+    """(n,) or (P, n) int64-carried words -> (n // tile, 2**digit_bits) or
+    (P, n // tile, 2**digit_bits) int32 per-tile counts of the digit
+    `(word >> shift) & (2**digit_bits - 1)`, the shift logical on the
+    unsigned word (digit 0 for a shift of 64 or more)."""
+    if keys.shape[-1] % tile != 0:
+        raise ValueError(f"n {keys.shape[-1]} % tile {tile} != 0")
+    if shift < 0 or digit_bits < 1:
+        raise ValueError(f"shift {shift} and digit_bits {digit_bits}: need "
+                         f"shift >= 0 and digit_bits >= 1")
+    rows = _rows(keys)
+    if _on_cpu(keys):
+        hist = ref.radix_hist(rows, shift, digit_bits, tile)
+    else:
+        hist = radix_hist_kernels.radix_hist_cuda(rows.contiguous(), shift,
+                                                  digit_bits, tile)
+        radix_hist.launches += 1
+    return hist[0] if keys.dim() == 1 else hist
+
+
+def segment_boundaries(sorted_keys: torch.Tensor, *,
+                       sentinel_val: int) -> torch.Tensor:
+    """(n,) or (P, n) sorted int64-carried words -> bool run-start flags of
+    the same shape: a valid word that differs from the one before it, the
+    sentinel standing before index 0."""
+    rows = _rows(sorted_keys)
+    if _on_cpu(sorted_keys):
+        flags = ref.segment_boundaries(rows, sentinel_val)
+    else:
+        flags = segment_count.segment_boundaries_cuda(rows.contiguous(),
+                                                      sentinel_val)
+        segment_boundaries.launches += 1
+    return flags.view(sorted_keys.shape)
 
 
 def bucket_hist(buckets: torch.Tensor, num_buckets: int) -> torch.Tensor:
@@ -227,7 +297,8 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
 
 KERNELS = (bucket_hist, bucket_positions, segment_accumulate, hash_insert,
            hash_lookup, sliding_min, sliding_min_pair, flash_attention,
-           flash_attention_fwd_lse, flash_attention_bwd)
+           flash_attention_fwd_lse, flash_attention_bwd, segment_boundaries,
+           kmer_extract, radix_hist)
 for _k in KERNELS:
     _k.launches = 0
 

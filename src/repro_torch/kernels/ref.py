@@ -4,8 +4,9 @@ Each function computes what its CUDA kernel computes, on the stacked
 (P, ...) layout: one row per processing element (the sliding minimum: one
 row per read; attention: (B, H, S, D)). `kernels.ops` runs these for
 tensors on the CPU; tests and `chip_smoke.py` hold the kernels to them.
-Counterparts of `repro.kernels.ref` (partition_plan_ref, bucket_hist_ref,
-bucket_positions_ref, segment_accumulate_ref, hash_insert_ref,
+Counterparts of `repro.kernels.ref` (kmer_extract_ref, radix_hist_ref,
+partition_plan_ref, bucket_hist_ref, bucket_positions_ref,
+segment_boundaries_ref, segment_accumulate_ref, hash_insert_ref,
 hash_lookup_ref, sliding_min_ref, sliding_min_pair_ref, mha_ref,
 flash_ref). `flash_fwd` and `flash_bwd` are the plain versions of the flash
 attention kernels (`repro.kernels.flash_attention` and
@@ -19,11 +20,47 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import words as W
+from repro_torch.core import encoding
 from repro_torch.kernels.radix_partition import PartitionPlan
 
 # XOR with the sign bit maps the unsigned order of int64-carried words onto
 # the signed order.
 _SIGN = -(1 << 63)
+
+
+def kmer_extract(reads: torch.Tensor, k: int, bits_per_symbol: int = 2,
+                 canonical: bool = False) -> torch.Tensor:
+    """(n_reads, m) symbol codes -> (n_reads, m - k + 1) int64 words.
+
+    The shift-or pack, then with `canonical` the separate reverse-complement
+    sweep: the oracle the fused in-loop canonical form of the kernel must
+    equal, as in `repro.kernels.ref.kmer_extract_ref`.
+    """
+    out = encoding.pack_kmers(reads, k, bits_per_symbol)
+    return encoding.canonical(out, k) if canonical else out
+
+
+def radix_hist(keys: torch.Tensor, shift: int, digit_bits: int,
+               tile: int) -> torch.Tensor:
+    """(P, n) int64-carried words -> (P, n // tile, 2**digit_bits) int32
+    per-tile counts of the digit `(word >> shift) & (2**digit_bits - 1)`.
+
+    The shift is logical on the unsigned word: a 64-bit word with its top
+    bit set reads its top digit unsigned, and a shift of 64 or more leaves
+    digit 0, as the JAX package's unsigned shift does (a 32-bit word is
+    zero-extended, so any shift past its width also gives 0).
+    """
+    radix = 1 << digit_bits
+    p, n = keys.shape
+    if shift >= 64:
+        digit = torch.zeros_like(keys)
+    else:
+        digit = W.srl(keys, shift) & (radix - 1)
+    tile_id = torch.arange(p * (n // tile), device=keys.device)
+    key = tile_id.view(p, -1, 1) * radix + digit.view(p, -1, tile)
+    hist = torch.bincount(key.reshape(-1), minlength=tile_id.numel() * radix)
+    return hist.view(p, n // tile, radix).to(torch.int32)
 
 
 def _tile_keys(buckets: torch.Tensor, num_buckets: int, tile: int):
@@ -81,6 +118,17 @@ def partition_plan(buckets: torch.Tensor, num_buckets: int) -> PartitionPlan:
     return PartitionPlan(positions=positions.to(torch.int32),
                          totals=totals.to(torch.int32),
                          starts=starts.to(torch.int32))
+
+
+def segment_boundaries(sorted_keys: torch.Tensor,
+                       sentinel_val: int) -> torch.Tensor:
+    """Run-start flags of every row of sorted int64 words: a valid word
+    that differs from the one before it, the sentinel standing before
+    index 0 (so index 0 starts a run iff it is valid)."""
+    sent = torch.full(sorted_keys.shape[:-1] + (1,), sentinel_val,
+                      dtype=sorted_keys.dtype, device=sorted_keys.device)
+    prev = torch.cat([sent, sorted_keys[..., :-1]], -1)
+    return (sorted_keys != sentinel_val) & (sorted_keys != prev)
 
 
 def segment_accumulate(sorted_keys: torch.Tensor, weights: torch.Tensor,

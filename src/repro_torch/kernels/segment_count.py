@@ -1,8 +1,10 @@
-"""Fused run-boundary and run-total sweep (the Accumulate phase).
+"""Sorted-run sweeps (the Accumulate phase): run-start flags, and the
+fused run-boundary and run-total sweep.
 
-Counterpart of `repro.kernels.segment_count.segment_accumulate_pallas`;
-the CUDA kernel is `csrc/segment_count.cu`. Rows of a (P, n) tensor are
-independent sorted streams.
+Counterparts of `repro.kernels.segment_count.segment_boundaries_pallas`
+and `segment_accumulate_pallas`; the CUDA kernels are in
+`csrc/segment_count.cu`. Rows of a (P, n) tensor are independent sorted
+streams.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ BLOCK = 1024  # must equal kBlock in the source
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
+    "segment_boundaries_launch": (_P, _I64, _I64, _I64, _P, _P),
     "segment_accumulate_launch": (_P, _P, _I64, _I64, _I64, _P, _P, _P, _P,
                                   _P, _P),
 }
@@ -28,6 +31,20 @@ def _lib():
     if lib.segment_block() != BLOCK:
         raise RuntimeError("csrc/segment_count.cu block differs from BLOCK")
     return lib
+
+
+def segment_boundaries_cuda(sorted_keys: torch.Tensor,
+                            sentinel_val: int) -> torch.Tensor:
+    """(P, n) sorted int64 words -> (P, n) bool run-start flags."""
+    build.check_arg(sorted_keys, "sorted_keys", torch.int64, 2)
+    rows, n = sorted_keys.shape
+    is_new = torch.empty((rows, n), dtype=torch.bool,
+                         device=sorted_keys.device)
+    if is_new.numel():
+        build.check_status(_lib().segment_boundaries_launch(
+            sorted_keys.data_ptr(), rows, n, sentinel_val, is_new.data_ptr(),
+            build.stream_ptr(sorted_keys)), "segment_boundaries")
+    return is_new
 
 
 def segment_accumulate_cuda(sorted_keys: torch.Tensor, weights: torch.Tensor,

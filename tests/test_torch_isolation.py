@@ -30,6 +30,7 @@ def test_port_imports_no_jax_and_no_repro():
     code = r"""
 import sys
 import numpy as np
+import torch
 import repro_torch
 from repro_torch import words
 from repro_torch.core import (aggregation, countstore, encoding, fabsp,
@@ -39,6 +40,7 @@ from repro_torch.data import genome
 from repro_torch.kernels import build, hash_table, ops, radix_partition, ref
 from repro_torch.kernels import minimizer as kminimizer
 from repro_torch.kernels import flash_attention, segment_count
+from repro_torch.kernels import kmer_extract, radix_hist
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data import tokens
 from repro_torch.launch import train
@@ -59,6 +61,12 @@ kc = fabsp.KmerCounter(fabsp.DAKCConfig(k=13, chunk_reads=8,
 kc.update(reads)
 assert int(kc.finalize()[0].counts.sum()) == st.raw_kmers
 assert int(kc.count(reads[:4, :13]).min()) > 0
+words = ops.kmer_extract(torch.from_numpy(reads), 13, canonical=True)
+srt = sort.radix_sort(words.reshape(1, -1), 26)
+assert int(ops.radix_hist(srt, 0, 4, srt.shape[1]).sum()) == srt.numel()
+acc = sort.accumulate(srt, sentinel_val=encoding.sentinel(13),
+                      boundaries_impl="kernel")
+assert int(acc.counts.sum()) == st.raw_kmers
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

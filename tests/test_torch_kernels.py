@@ -237,6 +237,12 @@ def test_no_kernel_for_other_devices():
     ids = torch.zeros((1, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         ops.bucket_hist(ids, 2)
+    words = torch.zeros((1, 8), dtype=torch.int64, device="meta")
+    for call in (lambda: ops.radix_hist(words, 0, 4, 8),
+                 lambda: ops.segment_boundaries(words, sentinel_val=-1),
+                 lambda: ops.kmer_extract(ids.to(torch.uint8), 3)):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()
 
 
 def test_cpu_path_counts_no_launches():
@@ -399,6 +405,70 @@ def test_flash_kernels_match_plain_on_card(d, dtype):
         torch.cuda.synchronize()
         for g, w in zip(got, ref.flash_bwd(q, kq, vq, wo, wlse, do, **band)):
             held(g, w, 5e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,bits,canonical,shape", [
+    (1, 2, False, (1001, 150)), (1, 2, True, (1001, 150)),
+    (13, 2, True, (1001, 150)), (15, 2, False, (64, 151)),
+    (21, 2, True, (1001, 150)), (31, 2, False, (1001, 150)),
+    (31, 2, True, (3, 9000)), (10, 3, False, (1001, 150)),
+    (7, 8, False, (100, 64)), (62, 1, False, (40, 300))])
+def test_kmer_extract_kernel_matches_plain_on_card(k, bits, canonical, shape):
+    """Row 9: the rolling window against the shift-or pack (and the
+    reverse-complement sweep); (3, 9000) spans several position tiles."""
+    dev = _cuda()
+    reads = torch.from_numpy(np.random.default_rng(k).integers(
+        0, 1 << bits, size=shape, dtype=np.uint8))
+    got = ops.kmer_extract(reads.to(dev), k, bits, canonical=canonical)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ops.kmer_extract(reads, k, bits,
+                                                   canonical=canonical))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("digit_bits,shift", [(2, 0), (4, 24), (8, 60),
+                                              (12, 20), (4, 64), (1, 63)])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_radix_hist_kernel_matches_plain_on_card(bits, digit_bits, shift):
+    """Row 10 on words with the sentinel and (64-bit) the top bit set; a
+    8192-key tile spans several blocks."""
+    dev = _cuda()
+    rng = np.random.default_rng(digit_bits * 100 + shift)
+    if bits == 64:
+        keys = rng.integers(0, 1 << 63, size=(3, 16384), dtype=np.uint64)
+        keys[:, ::3] |= np.uint64(1 << 63)
+        keys[:, ::7] = np.iinfo(np.uint64).max
+    else:
+        keys = rng.integers(0, 1 << 32, size=(3, 16384)).astype(np.uint32)
+        keys[:, ::7] = SENT32
+    kt = W.to_torch_words(keys)[0]
+    for tile in (512, 1024, 8192):
+        got = ops.radix_hist(kt.to(dev), shift, digit_bits, tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ops.radix_hist(kt, shift, digit_bits,
+                                                     tile))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [32, 64])
+def test_segment_boundaries_kernel_matches_plain_on_card(bits):
+    """Row 8: runs that span blocks, sentinel padding, and a row that is
+    all sentinel."""
+    dev = _cuda()
+    sent = W.sentinel(bits)
+    keys, _ = _sorted_runs(np.random.default_rng(bits), 300_000, 40,
+                           np.uint32(SENT32) if bits == 32
+                           else np.iinfo(np.uint64).max,
+                           np.uint32 if bits == 32 else np.uint64,
+                           long_run=150_000)
+    kt = W.to_torch_words(np.stack([keys, keys]))[0]
+    kt[1] = sent
+    got = ops.segment_boundaries(kt.to(dev), sentinel_val=sent)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ops.segment_boundaries(kt,
+                                                         sentinel_val=sent))
+    assert not bool(got[1].any())
 
 
 def test_hash_lookup_plain_matches_jax_ref():
