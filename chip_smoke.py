@@ -14,7 +14,8 @@ Phases:
   3. each kernel against its plain version on the card, bit-equal (the
      insert: equal (key, count) sets and drops exactly when the plain
      version drops; the flash attention kernels within stated tolerances,
-     f32 and bf16, head dims 16 to 256, up to the training path's shape;
+     f32 and bf16 (the bf16 kernels on the tensor cores), head dims 15 to
+     256, up to the training path's shape;
      the k-mer extraction, digit histogram and run-boundary kernels at
      small shapes and edge cases);
   4. the paper's workload at full size: "Synthetic 26" (2**26 uniform
@@ -91,7 +92,12 @@ FLASH_PATH = (4, 16, 4096, 64)   # (batch, heads, seq, head_dim), bf16
 # package's gradient bound). bf16: kernel and plain version round nearly
 # equal f32 values, so they may differ by one bf16 step at the value
 # (2**-7 of it), plus 1e-4 of the tensor's largest magnitude for values
-# that f32 sums of thousands of terms leave near zero.
+# that f32 sums of thousands of terms leave near zero; and, as both round
+# p (and ds) to bf16 before a product, by one bf16 step of each rounded
+# term (ref.flash_rounded_terms): nearly equal f32 values of p or ds,
+# summed in other orders or (forward) taken against another running max,
+# may round to neighbouring bf16 values. The logsumexp has no rounded
+# term and keeps 1e-5 in bf16 too.
 FLASH_F32_TOL = {"o": 1e-5, "lse": 1e-5, "grad": 5e-5}
 BF16_STEP, BF16_SLACK = 2.0 ** -7, 1e-4
 
@@ -400,16 +406,18 @@ def check_sliding_min(torch, ops, ref, gen, dev):
     log(f"  query shape {tuple(q.shape)} w=25: bit-equal")
 
 
-def _held(torch, got, want, tol_f32, what):
+def _held(torch, got, want, tol_f32, what, terms=None):
     """Max |got - want|; raises unless within the f32 tolerance, or for
-    bf16 within one bf16 step of each value plus the slack."""
+    bf16 within one bf16 step of each value and of its rounded terms'
+    magnitude (`terms`), plus the slack."""
     g, w = got.float(), want.float()
     if not g.numel():
         return 0.0
     diff = (g - w).abs()
     err = float(diff.max())
     if got.dtype == torch.bfloat16:
-        bound = BF16_STEP * w.abs() + BF16_SLACK * float(w.abs().max())
+        bound = (BF16_STEP * (w.abs() + terms)
+                 + BF16_SLACK * float(w.abs().max()))
         ok = bool((diff <= bound).all())
     else:
         ok = err <= tol_f32
@@ -420,8 +428,12 @@ def _held(torch, got, want, tol_f32, what):
 def check_flash(torch, ops, ref, errs):
     """Rows 11-13 against ref.flash_fwd / ref.flash_bwd on the same inputs:
     GQA by index, window, softcaps, causal=False, q_offset > 0, lengths
-    that are not multiples of a tile, fully masked rows, head dims 16, 64,
-    120 and 256, f32 and bf16; then the training path's shape in bf16.
+    that are not multiples of a tile, fully masked rows; for the bf16
+    tensor-core kernels also many tiles through both stages of their ring
+    (seq 1000 causal, seq 2048 under a window of 300), GQA 8/1 and a
+    q_offset that is not a multiple of a tile; head dims 15 (no 16-byte
+    copies), 16, 64, 120, 128 and 256, f32 and bf16; then the training
+    path's shape in bf16. Every bf16 launch must be a tensor-core launch.
     errs gets each kernel's largest f32 error."""
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -435,10 +447,18 @@ def check_flash(torch, ops, ref, errs):
         ("causal=False, 70 x 150", (1, 2, 1, 70, 150, False, None, None, 0)),
         ("q_offset 100, window 64", (1, 4, 2, 37, 160, True, 64, None, 100)),
         ("fully masked rows", (1, 2, 2, 16, 32, False, 8, 5.0, 30)),
+        ("seq 1000, causal", (1, 2, 2, 1000, 1000, True, None, None, 0)),
+        ("seq 2048, window 300",
+         (1, 2, 2, 2048, 2048, True, 300, None, 0)),
+        ("GQA 8/1, causal, 300 rows",
+         (1, 8, 1, 300, 300, True, None, None, 0)),
+        ("q_offset 77, causal, 200 x 277",
+         (1, 4, 2, 200, 277, True, None, None, 77)),
     ]
     worst = {"flash_attention": 0.0, "flash_attention_fwd_lse": 0.0,
              "flash_attention_bwd": 0.0}
-    runs = [(name, c, d, dt) for name, c in cases for d in (16, 64, 120, 256)
+    runs = [(name, c, d, dt) for name, c in cases
+            for d in (15, 16, 64, 120, 128, 256)
             for dt in (torch.float32, torch.bfloat16)]
     b, h, s, d = FLASH_PATH
     runs.append(("training path shape", (b, h, h, s, s, True, None, None, 0),
@@ -451,30 +471,39 @@ def check_flash(torch, ops, ref, errs):
                 .to(dt) for _ in range(2))
         band = dict(causal=causal, window=window, softcap=softcap,
                     q_offset=q_offset, scale=d ** -0.5)
+        tc_before = sum(ops.tc_launch_counts().values())
         o = ops.flash_attention(q, k, v, **band)
         o2, lse = ops.flash_attention_fwd_lse(q, k, v, **band)
         torch.cuda.synchronize()
         wo, wlse = ref.flash_fwd(q, k, v, with_lse=True, **band)
-        tag = f"{name}, d={d}, {str(dt)[6:]}"
-        e11 = _held(torch, o, wo, FLASH_F32_TOL["o"], f"row 11 o ({tag})")
-        e12 = max(_held(torch, o2, wo, FLASH_F32_TOL["o"],
-                        f"row 12 o ({tag})"),
-                  _held(torch, lse, wlse, FLASH_F32_TOL["lse"],
-                        f"row 12 lse ({tag})"))
         kq = k.repeat_interleave(hq // hkv, 1)
         vq = v.repeat_interleave(hq // hkv, 1)
+        t_o, t_dq, t_dk, t_dv = ref.flash_rounded_terms(q, kq, vq, wo, wlse,
+                                                        do, **band)
+        tag = f"{name}, d={d}, {str(dt)[6:]}"
+        e11 = _held(torch, o, wo, FLASH_F32_TOL["o"], f"row 11 o ({tag})",
+                    t_o)
+        e12 = max(_held(torch, o2, wo, FLASH_F32_TOL["o"],
+                        f"row 12 o ({tag})", t_o),
+                  _held(torch, lse, wlse, FLASH_F32_TOL["lse"],
+                        f"row 12 lse ({tag})"))
         got = ops.flash_attention_bwd(q, kq, vq, wo, wlse, do, **band)
         torch.cuda.synchronize()
         want = ref.flash_bwd(q, kq, vq, wo, wlse, do, **band)
         e13 = max(_held(torch, g, w, FLASH_F32_TOL["grad"],
-                        f"row 13 {n} ({tag})")
-                  for g, w, n in zip(got, want, ("dq", "dk", "dv")))
+                        f"row 13 {n} ({tag})", t)
+                  for g, w, n, t in zip(got, want, ("dq", "dk", "dv"),
+                                        (t_dq, t_dk, t_dv)))
+        tc = sum(ops.tc_launch_counts().values()) - tc_before
+        check(tc == (3 if dt == torch.bfloat16 else 0),
+              f"{tag}: {tc} tensor-core flash launches")
         if dt == torch.float32:
             for key, e in zip(worst, (e11, e12, e13)):
                 worst[key] = max(worst[key], e)
         log(f"  {tag}: max abs err o {e11:.2e}, o+lse {e12:.2e}, "
             f"dq/dk/dv {e13:.2e}")
         del q, k, v, do, o, o2, lse, wo, wlse, got, want, kq, vq
+        del t_o, t_dq, t_dk, t_dv
     errs.update(worst)
     torch.cuda.empty_cache()
 
@@ -902,6 +931,7 @@ def lm_phase(torch, ops):
                           batch=LM_BATCH, seq=LM_SEQ, log_every=1,
                           device=DEV, attn_impl="flash_train")
     launches = ops.launch_counts()
+    tc_launches = ops.tc_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses, gnorms = out["losses"], out["grad_norms"]
     check(all(math.isfinite(x) for x in losses + gnorms),
@@ -913,6 +943,8 @@ def lm_phase(torch, ops):
     for name, n in want.items():
         check(launches[name] == n, f"{name} launched {launches[name]} times "
               f"in {LM_STEPS} steps, expected {n}")
+        check(tc_launches[name] == n, f"{name}: {tc_launches[name]} of its "
+              f"{n} launches ran the tensor-core kernel")
     tokens = LM_BATCH * LM_SEQ
     steady = out["step_seconds"][1:]
     step_s = sum(steady) / len(steady)
@@ -934,7 +966,8 @@ def lm_phase(torch, ops):
         f"{100 * numbers['mfu']:.2f} % of {BF16_FLOP_PER_S:.3g} FLOP/s "
         f"({flops:.4g} FLOP per step)")
     log(f"  max_memory_allocated {peak / 1e9:.2f} GB; flash launches "
-        f"{ {k: launches[k] for k in want} }")
+        f"{ {k: launches[k] for k in want} }, on the tensor cores "
+        f"{ {k: tc_launches[k] for k in want} }")
     out_launches = {k: launches[k] for k in want}
 
     # The same weights and batch through 'flash_train' and 'ref' at a length
@@ -955,9 +988,10 @@ def lm_phase(torch, ops):
     (lf, gf), (lr_, gr) = res["flash_train"], res["ref"]
     log(f"  seq {LM_CHECK_SEQ}, one step's loss and grad norm: flash_train "
         f"{lf:.6f} {gf:.6f}, ref {lr_:.6f} {gr:.6f}")
-    # mha_ref rounds P to bf16 before P.V where the flash kernels keep it
-    # f32; over 24 layers that moves the loss by well under 1e-3 and the
-    # gradient norm by under 1e-2 (relative).
+    # Both round P to bf16 before P.V, mha_ref the normalised
+    # probabilities and the flash kernels the unnormalised p (and dS in the
+    # backward); over 24 layers that moves the loss by well under 1e-3 and
+    # the gradient norm by under 1e-2 (relative).
     check(abs(lf - lr_) <= 1e-3 * abs(lr_), "flash_train and ref losses "
           "differ by more than 1e-3 relative")
     check(abs(gf - gr) <= 1e-2 * abs(gr), "flash_train and ref grad norms "
@@ -974,9 +1008,11 @@ def lm_phase(torch, ops):
             cfg, attn_impl="flash"))[0]
         out_launches["flash_attention"] = ops.launch_counts()[
             "flash_attention"]
+        tc11 = ops.tc_launch_counts()["flash_attention"]
         lg_train = model.forward(params, {"tokens": tok}, cfg)[0]
-    check(out_launches["flash_attention"] == L,
-          "the 'flash' forward did not launch kernel 11 in every layer")
+    check(out_launches["flash_attention"] == L == tc11,
+          "the 'flash' forward did not launch kernel 11's tensor-core "
+          "kernel in every layer")
     err = float((lg_flash - lg_train).abs().max())
     scale = float(lg_train.abs().max())
     log(f"  seq {LM_SEQ} no-grad forward: 'flash' against 'flash_train' "

@@ -1,8 +1,9 @@
 // Shared by flash_attention.cu (forward) and flash_attention_bwd.cu
-// (backward): element conversion, the attention band, and the thread
-// layout of the flash kernels.
+// (backward): the attention band, and the tile loads and thread layout of
+// the f32 flash kernels (the bf16 kernels' tiles and fragments are in
+// flash_wgmma.cuh).
 //
-// Every flash kernel runs 16 x 16 threads. A thread owns RM rows of its
+// Every f32 flash kernel runs 16 x 16 threads. A thread owns RM rows of its
 // block's row tile (rows ty * RM + i) and 4 columns of the 64-wide column
 // tile (columns tx + 16 * j), so the 16 threads that share a row sit in one
 // half of a warp and reduce a row with four xor shuffles. Tiles live in
@@ -12,7 +13,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,13 +32,9 @@ __host__ __device__ constexpr int rows_per_thread() {
   return DP >= 256 ? 2 : 4;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch and XLA cast
+// Whether a device pointer allows 16-byte copies (the bf16 kernels' cp.async).
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // Query row `row` (absolute position, q_offset included) sees key column
@@ -59,9 +55,9 @@ struct Band {
 
 // Stage rows [r0, r0 + n) of a (rows_total, d) tensor into a (n, DP) f32
 // tile of row stride `stride`; rows past the end and columns past d are 0.
-template <typename T, int DP>
+template <int DP>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int64_t r0, int n,
                                           int64_t rows_total, int d) {
   const int tid = threadIdx.y * kTx + threadIdx.x;
@@ -69,7 +65,7 @@ __device__ __forceinline__ void load_tile(float* dst, int stride,
     const int r = idx / DP, c = idx % DP;
     const int64_t row = r0 + r;
     dst[r * stride + c] =
-        (row < rows_total && c < d) ? to_f32(src[row * d + c]) : 0.f;
+        (row < rows_total && c < d) ? src[row * d + c] : 0.f;
   }
 }
 

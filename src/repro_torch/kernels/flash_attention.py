@@ -5,7 +5,10 @@ Counterparts of `repro.kernels.flash_attention.flash_attention_pallas` and
 whose logsumexp output is optional) and of
 `repro.kernels.flash_attention_bwd.flash_attention_bwd_pallas`
 (`csrc/flash_attention_bwd.cu`: a dq kernel and a dk/dv kernel). Layout
-(B, H, S, D), contiguous, float32 or bfloat16, D <= 256.
+(B, H, S, D), contiguous, float32 or bfloat16, D <= 256. bfloat16 runs
+the tensor-core (wgmma) kernels, which round P, and in the backward dS,
+to bf16 before their products, as `ref.flash_fwd` / `ref.flash_bwd` do;
+float32 runs the first-version kernels, f32 on the CUDA cores.
 """
 
 from __future__ import annotations

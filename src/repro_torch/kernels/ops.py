@@ -217,6 +217,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = flash_kernels.flash_fwd_cuda(q.contiguous(), k.contiguous(),
                                        v.contiguous(), with_lse=False, **band)
     flash_attention.launches += 1
+    flash_attention.tc_launches += int(q.dtype == torch.bfloat16)
     return out
 
 
@@ -233,6 +234,7 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     out = flash_kernels.flash_fwd_cuda(q.contiguous(), k.contiguous(),
                                        v.contiguous(), with_lse=True, **band)
     flash_attention_fwd_lse.launches += 1
+    flash_attention_fwd_lse.tc_launches += int(q.dtype == torch.bfloat16)
     return out
 
 
@@ -251,6 +253,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.contiguous(), k.contiguous(), v.contiguous(), o.contiguous(),
         lse.contiguous(), do.contiguous(), **band)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tc_launches += int(q.dtype == torch.bfloat16)
     return out
 
 
@@ -299,17 +302,27 @@ KERNELS = (bucket_hist, bucket_positions, segment_accumulate, hash_insert,
            hash_lookup, sliding_min, sliding_min_pair, flash_attention,
            flash_attention_fwd_lse, flash_attention_bwd, segment_boundaries,
            kmer_extract, radix_hist)
-for _k in KERNELS:
-    _k.launches = 0
+# The flash kernels run on the tensor cores for bf16 (and on the CUDA
+# cores for f32): `tc_launches` counts the tensor-core launches.
+FLASH_KERNELS = (flash_attention, flash_attention_fwd_lse, flash_attention_bwd)
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in FLASH_KERNELS:
+        k.tc_launches = 0
+
+
+reset_launches()
 
 
 def launch_counts() -> Dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def tc_launch_counts() -> Dict[str, int]:
+    return {k.__name__: k.tc_launches for k in FLASH_KERNELS}
 
 
 def make_partition_plan(buckets: torch.Tensor,

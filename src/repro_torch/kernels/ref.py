@@ -302,11 +302,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Plain version of the flash forward kernel (rows 11 and 12).
 
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> o (B, Hq, Sq, D) in q's
-    dtype, and with `with_lse` the per-row logsumexp (B, Hq, Sq) f32. All
-    arithmetic is f32, P included (the TPU kernel multiplies P by V in
-    f32); masked scores are NEG_INF, so a fully masked row gives o = 0 and
-    lse = NEG_INF. The kernel's online softmax reaches the same values up
-    to f32 rounding.
+    dtype, and with `with_lse` the per-row logsumexp (B, Hq, Sq) f32.
+    Arithmetic is f32; p is rounded to v's dtype before the product with
+    v, as the bf16 tensor-core kernel rounds it (in f32 the cast does
+    nothing), while the row sum l is that of the f32 p. Masked scores are
+    NEG_INF, so a fully masked row gives o = 0 and lse = NEG_INF. The
+    kernel's online softmax reaches the same values up to f32 rounding,
+    and in bf16 up to p's rounding against the running max where this
+    rounds against the final one.
     """
     hq, d = q.shape[1], q.shape[3]
     scale = d ** -0.5 if scale is None else scale
@@ -317,7 +320,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    o = (torch.matmul(p, _expand_kv(v, hq).float()) / l_safe).to(q.dtype)
+    o = (torch.matmul(p.to(v.dtype).float(), _expand_kv(v, hq).float())
+         / l_safe).to(q.dtype)
     if not with_lse:
         return o
     return o, (m + torch.log(l_safe))[..., 0]
@@ -334,6 +338,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     band and returns (dq, dk, dv) in the dtypes of q, k and v:
       dv = p^T dO;  ds = p (dO v^T - rowsum(dO * O));  softcap: ds *= 1 -
       (s / cap)^2;  dq = ds k * scale;  dk = ds^T q * scale.
+    Arithmetic is f32, except that p is rounded to dO's dtype before dv's
+    product and ds to q's dtype before dq's and dk's, as the bf16
+    tensor-core kernels round them (in f32 the casts do nothing); ds
+    itself is computed from the f32 p.
     """
     mask = _full_band(q, k, q_offset, causal, window)
     s = _scores(q, k, scale, softcap)
@@ -341,13 +349,44 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     - lse[..., None]), 0.0)
     do32 = do.float()
     dsum = (do32 * o.float()).sum(-1, keepdim=True)
-    dv = torch.matmul(p.transpose(-1, -2), do32)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do32)
     ds = p * (torch.matmul(do32, v.float().transpose(-1, -2)) - dsum)
     if softcap is not None:
         ds = ds * (1.0 - (s / softcap) ** 2)
+    ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_rounded_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool, window: Optional[int],
+                        softcap: Optional[float], scale: float,
+                        q_offset: int = 0):
+    """For each output of the flash kernels in bf16, the sum of the
+    magnitudes of the terms whose factor is rounded to bf16 (p in P V and
+    P^T dO, ds in dS K and dS^T Q), in f32:
+      (|P| |V| / l, scale |dS| |K|, scale |dS^T| |Q|, |P^T| |dO|)
+    at the full head count (arguments as `flash_bwd`). Two implementations
+    that round nearly equal f32 values of p or ds (summed in other orders,
+    or in the forward against another running max) may land on
+    neighbouring bf16 values, one bf16 step (2**-7) of the term apart.
+    """
+    mask = _full_band(q, k, q_offset, causal, window)
+    s = _scores(q, k, scale, softcap)
+    p = torch.where(mask, torch.exp(torch.where(mask, s, NEG_INF)
+                                    - lse[..., None]), 0.0)
+    do32 = do.float()
+    dsum = (do32 * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(do32, v.float().transpose(-1, -2)) - dsum)
+    if softcap is not None:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    ds = ds.abs()
+    return (torch.matmul(p, v.float().abs()),
+            torch.matmul(ds, k.float().abs()) * scale,
+            torch.matmul(ds.transpose(-1, -2), q.float().abs()) * scale,
+            torch.matmul(p.transpose(-1, -2), do32.abs()))
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -360,7 +399,8 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the inputs' products (exact for bf16 inputs); masked scores are -inf
     and a fully masked row's NaN probabilities become 0. The probabilities
     are rounded to v's dtype before the product with v, as in the JAX
-    reference, so in bf16 this differs from `flash_fwd` by that rounding.
+    reference; `flash_fwd` rounds the unnormalised p instead and divides
+    by the row sum after the product.
     """
     hq, d = q.shape[1], q.shape[3]
     scale = d ** -0.5 if scale is None else scale

@@ -366,45 +366,65 @@ def test_sliding_min_kernels_match_plain_on_card(window, bits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 120, 256])
+@pytest.mark.parametrize("d", [15, 16, 64, 120, 128, 256])
 def test_flash_kernels_match_plain_on_card(d, dtype):
-    """Rows 11-13 against ref.flash_fwd / ref.flash_bwd: GQA 4/2 by index,
-    a window with a softcap, q_offset, lengths that are not multiples of a
-    tile. f32 within 1e-5 (o, lse) and 5e-5 (grads); bf16 within one bf16
-    step of each value plus 1e-4 of the largest."""
+    """Rows 11-13 against ref.flash_fwd / ref.flash_bwd: GQA 4/2 and 8/1
+    by index, a window with a softcap, q_offsets (77 is not a multiple of
+    a tile), lengths that are not multiples of a tile, and for the bf16
+    tensor-core kernels many tiles through both stages of their ring (seq
+    1000 causal, seq 2048 under a window of 300); head dim 15 takes no
+    16-byte copies. f32 within 1e-5 (o, lse) and 5e-5 (grads); bf16
+    within one bf16 step of each value plus 1e-4 of the largest, every
+    launch on the tensor cores. bf16 also within one bf16 step of each
+    term whose factor (p, ds) both sides round (ref.flash_rounded_terms):
+    nearly equal f32 values may round to neighbouring bf16 values."""
     dev = _cuda()
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(d)
 
-    def held(got, want, tol):
+    def held(got, want, tol, terms):
         g, w = got.float(), want.float()
         if dt == torch.bfloat16:
-            bound = 2.0 ** -7 * w.abs() + 1e-4 * float(w.abs().max())
+            bound = (2.0 ** -7 * (w.abs() + terms)
+                     + 1e-4 * float(w.abs().max()))
             assert bool(((g - w).abs() <= bound).all())
         else:
             assert float((g - w).abs().max()) <= tol
 
-    for causal, window, softcap, q_offset, sq, skv in (
-            (True, None, None, 0, 150, 150), (True, 40, 20.0, 30, 70, 100),
-            (False, None, None, 0, 50, 90)):
-        q, do = (torch.randn((2, 4, sq, d), generator=gen, device=dev).to(dt)
-                 for _ in range(2))
-        k, v = (torch.randn((2, 2, skv, d), generator=gen, device=dev).to(dt)
-                for _ in range(2))
+    for hq, hkv, causal, window, softcap, q_offset, sq, skv in (
+            (4, 2, True, None, None, 0, 150, 150),
+            (4, 2, True, 40, 20.0, 30, 70, 100),
+            (4, 2, False, None, None, 0, 50, 90),
+            (2, 2, True, None, None, 0, 1000, 1000),
+            (2, 2, True, 300, None, 0, 2048, 2048),
+            (8, 1, True, None, None, 0, 300, 300),
+            (4, 2, True, None, None, 77, 200, 277)):
+        q, do = (torch.randn((2, hq, sq, d), generator=gen, device=dev)
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn((2, hkv, skv, d), generator=gen, device=dev)
+                .to(dt) for _ in range(2))
         band = dict(causal=causal, window=window, softcap=softcap,
                     q_offset=q_offset, scale=d ** -0.5)
+        ops.reset_launches()
         o = ops.flash_attention(q, k, v, **band)
         o2, lse = ops.flash_attention_fwd_lse(q, k, v, **band)
         torch.cuda.synchronize()
         wo, wlse = ref.flash_fwd(q, k, v, with_lse=True, **band)
-        held(o, wo, 1e-5)
-        held(o2, wo, 1e-5)
+        kq = k.repeat_interleave(hq // hkv, 1)
+        vq = v.repeat_interleave(hq // hkv, 1)
+        terms = ref.flash_rounded_terms(q, kq, vq, wo, wlse, do, **band)
+        held(o, wo, 1e-5, terms[0])
+        held(o2, wo, 1e-5, terms[0])
         assert float((lse - wlse).abs().max()) <= 1e-5
-        kq, vq = k.repeat_interleave(2, 1), v.repeat_interleave(2, 1)
         got = ops.flash_attention_bwd(q, kq, vq, wo, wlse, do, **band)
         torch.cuda.synchronize()
-        for g, w in zip(got, ref.flash_bwd(q, kq, vq, wo, wlse, do, **band)):
-            held(g, w, 5e-5)
+        for g, w, t in zip(got, ref.flash_bwd(q, kq, vq, wo, wlse, do,
+                                              **band), terms[1:]):
+            held(g, w, 5e-5, t)
+        tc = 1 if dt == torch.bfloat16 else 0
+        assert ops.tc_launch_counts() == {
+            "flash_attention": tc, "flash_attention_fwd_lse": tc,
+            "flash_attention_bwd": tc}
 
 
 @pytest.mark.gpu
