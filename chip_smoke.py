@@ -17,7 +17,10 @@ Phases:
      f32 and bf16 (the bf16 kernels on the tensor cores), head dims 15 to
      256, up to the training path's shape;
      the k-mer extraction, digit histogram and run-boundary kernels at
-     small shapes and edge cases);
+     small shapes and edge cases; the rank kernel alone at B up to
+     MAX_BUCKETS, with ids of -1 and B, one bucket and alternating
+     buckets; the sliding minimum at w = 1 and w = n_pos, the query
+     shape, long rows and rows that start 8 bytes into 16);
   4. the paper's workload at full size: "Synthetic 26" (2**26 uniform
      bases), 2**23 reads of 150 bp, k=31, chunk_reads=256, 8 PEs on the
      card, checked exactly against an independent torch.unique count;
@@ -27,8 +30,9 @@ Phases:
      set fed to KmerCounter (k=31, hashed super-k-mer transport, prefix
      compaction, 8 PEs) in 8 updates, finalized exactly against
      torch.unique, then 2**20 point queries answered exactly; plus small
-     runs of the k-mer transport (k=13), the 'plain' minimizer order and
-     a rehash round;
+     runs of the k-mer transport (k=13), the 'plain' minimizer order (the
+     sliding minimum in the updates and at the query shape) and a rehash
+     round;
   9. the LM training path: qwen1.5-0.5b at full width and depth trains 10
      steps of 4 x 4096 tokens under attn_impl='flash_train' (bf16 compute,
      the flash forward and backward kernels in every layer); then, from
@@ -45,7 +49,9 @@ Phases:
      and exact against torch.unique of the same words;
   6. each kernel's time at its path's shapes beside its plain version, one
      library call where one exists, and its bound (runs after phases 8,
-     9 and 10);
+     9 and 10): per call (CUDA events around back-to-back calls, so the
+     host's launch path included) and on the device (torch.profiler's
+     kernel records, no host time between launches);
   7. on request only: the main path and one step of phase 9's training
      under torch.profiler (device time by kernel, the device's busy
      share).
@@ -57,9 +63,11 @@ record. Any failure raises and exits non-zero. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +108,7 @@ FLASH_PATH = (4, 16, 4096, 64)   # (batch, heads, seq, head_dim), bf16
 # term and keeps 1e-5 in bf16 too.
 FLASH_F32_TOL = {"o": 1e-5, "lse": 1e-5, "grad": 5e-5}
 BF16_STEP, BF16_SLACK = 2.0 ** -7, 1e-4
+SPIN_PAD = 8    # phase 6: spin kernels on each side of a profiled window
 
 
 def log(msg: str) -> None:
@@ -158,6 +167,7 @@ def check_kernels(torch, ops, ref, errs):
         log(f"  rows={rows} n={n} B={b}: bit-equal")
         del ids, hist, plan, want
 
+    check_positions(torch, ops, ref, dev)
     errs["bucket_hist"] = errs["bucket_positions"] = 0   # every case equal
     log("[kernels] segment_accumulate")
     for word_bits in (32, 64):
@@ -323,6 +333,53 @@ def check_sweeps(torch, ops, ref, errs):
     errs["segment_boundaries"] = 0
 
 
+def _positions_want(torch, ref, ids, base, tile):
+    """ref.bucket_positions with every id outside [0, B) moved to a bucket
+    B of its own, and the mask of the valid ids: a valid id's slot does not
+    depend on the others."""
+    b = base.shape[2]
+    valid = (ids >= 0) & (ids < b)
+    base1 = torch.cat([base, torch.zeros_like(base[..., :1])], 2)
+    return ref.bucket_positions(torch.where(valid, ids, b), base1,
+                                tile), valid
+
+
+def check_positions(torch, ops, ref, dev):
+    """Row 2 on its own, against its plain version on every valid id: B up
+    to MAX_BUCKETS, ragged tiles and rows that start mid-way into 16 bytes
+    (n = 3001, 5000), ids of -1 and of B, a tile of one bucket and
+    alternating buckets, with any int32 base."""
+    from repro_torch.kernels.radix_partition import MAX_BUCKETS
+
+    log("[kernels] bucket_positions alone")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for kind, rows, n, b in (
+            ("random", 8, 30720, 2), ("random", 8, 30720, 9),
+            ("random", 8, 30720, 257), ("random", 3, 5000, MAX_BUCKETS),
+            ("random", 2, 3001, 257), ("invalid", 8, 30720, 257),
+            ("invalid", 3, 3001, 9), ("one bucket", 8, 30720, 257),
+            ("alternating", 8, 30720, 257), ("alternating", 1, 3001, 2)):
+        ids = torch.randint(0, b, (rows, n), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if kind == "invalid":
+            ids[:, ::5] = -1
+            ids[:, 2::7] = b
+        elif kind == "one bucket":
+            ids[:] = b // 2
+        elif kind == "alternating":
+            ids[:] = torch.where(torch.arange(n, device=dev) % 2 == 0, 0,
+                                 b - 1).to(torch.int32)
+        base = torch.randint(0, 1 << 24, (rows, -(-n // ops.TILE), b),
+                             generator=gen, device=dev, dtype=torch.int32)
+        got = ops.bucket_positions(ids, base)
+        torch.cuda.synchronize()
+        want, valid = _positions_want(torch, ref, ids, base, ops.TILE)
+        check(torch.equal(got[valid], want[valid]),
+              f"bucket_positions differs ({kind}, {(rows, n, b)})")
+        log(f"  {kind} rows={rows} n={n} B={b}: bit-equal on "
+            f"{int(valid.sum())} valid ids")
+
+
 def check_lookup(torch, ops, ref, gen, dev):
     from repro_torch import words as W
     from repro_torch.core import countstore
@@ -404,6 +461,21 @@ def check_sliding_min(torch, ops, ref, gen, dev):
     check(torch.equal(gk, pk) and torch.equal(gv, pv),
           "sliding_min_pair differs at the query shape")
     log(f"  query shape {tuple(q.shape)} w=25: bit-equal")
+    # Row 6 alone: w = 1 and w = n_pos, long rows in position tiles, and
+    # rows that start 8 bytes into a 16-byte unit.
+    for rows, n_pos, w, offset in (
+            (1001, 144, 1, False), (1001, 144, 144, False),
+            (1001, 144, 25, True), (1001, 25, 25, True),
+            (3, 5000, 25, False), (3, 5000, 3000, False)):
+        buf = torch.randint(0, 1 << 62, (rows * n_pos + 1,),
+                            generator=gen).to(dev)
+        vals = (buf[1:] if offset else buf[:-1]).view(rows, n_pos)
+        vals[::3] |= -(1 << 63)
+        check(torch.equal(ops.sliding_min(vals, w), ref.sliding_min(vals, w)),
+              f"sliding_min differs at {(rows, n_pos)} w={w} "
+              f"offset={offset}")
+        log(f"  sliding_min {(rows, n_pos)} w={w}, starting "
+            f"{vals.data_ptr() % 16} bytes into 16: bit-equal")
 
 
 def _held(torch, got, want, tol_f32, what, terms=None):
@@ -649,10 +721,13 @@ def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
         f"k-mer instances/s; lifetime stats {stats._asdict()}")
     queries = make_queries(torch, reads, cfg.k, n_queries, seed=5)
     torch.cuda.synchronize()
+    before = ops.launch_counts()
     t0 = time.perf_counter()
     got = kc.count(queries)
     torch.cuda.synchronize()
     t_q = time.perf_counter() - t0
+    query_launches = {name: n - before[name]
+                      for name, n in ops.launch_counts().items()}
     qstats = kc.last_query_stats
     got_in = kc.contains(queries)
     peak = torch.cuda.max_memory_allocated()
@@ -681,6 +756,7 @@ def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
                "instances_per_s": stats.raw_kmers / update_wall,
                "finalize_s": t_fin, "query_wall_s": t_q,
                "queries_per_s": n_queries / t_q, "peak_bytes": peak,
+               "query_launches": query_launches,
                "query_stats": qstats._asdict(), "stats": stats}
     return kc, launches, numbers
 
@@ -722,6 +798,14 @@ def counter_phase(torch, fabsp, ops, genome):
         out[tag] = (sl, sn)
     check(out["plain"][0]["sliding_min"] > 0,
           "sliding_min did not launch under the 'plain' order")
+    # The query path takes each query k-mer's minimizer: one window of
+    # w = n_pos m-mers a row, the kernel's one-output layout.
+    check(out["plain"][1]["query_launches"]["sliding_min"] > 0,
+          "sliding_min did not launch on the 'plain' order's query path")
+    log(f"  'plain' order: sliding_min launched "
+        f"{out['plain'][0]['sliding_min']} times, "
+        f"{out['plain'][1]['query_launches']['sliding_min']} of them by "
+        f"count()'s query k-mers")
     check(out["rehash"][1]["stats"].retry_store_rehash > 0,
           "the rehash case ran no rehash round")
     return kc, out
@@ -853,10 +937,10 @@ def sweep_times(torch, ops, ref, reads, keys, srt):
     rows = [dict(
         name="kmer_extract", source="src/repro_torch/csrc/kmer_extract.cu",
         replaces="src/repro/kernels/kmer_extract.py:53",
-        ms=time_ms(torch, lambda: ops.kmer_extract(reads, K, canonical=True),
-                   5),
+        times=call_times(torch, lambda: ops.kmer_extract(reads, K,
+                                                         canonical=True), 5),
         plain_ms=time_ms(torch, plain_extract, 2),
-        nbytes=n_reads * m + n_reads * n_pos * 8, library_ms=None,
+        nbytes=n_reads * m + n_reads * n_pos * 8, library=None,
         shape=f"codes ({n_reads}, {m}) uint8 -> ({n_reads}, {n_pos}) int64, "
               f"k={K}, canonical, one launch")]
     log("  kmer_extract library_ms: none, no PyTorch call packs a k-window "
@@ -871,12 +955,12 @@ def sweep_times(torch, ops, ref, reads, keys, srt):
     rows.append(dict(
         name="radix_hist", source="src/repro_torch/csrc/radix_hist.cu",
         replaces="src/repro/kernels/radix_hist.py:30",
-        ms=time_ms(torch, lambda: ops.radix_hist(
+        times=call_times(torch, lambda: ops.radix_hist(
             keys, SWEEP_TIMED_SHIFT, SWEEP_DIGIT_BITS, SWEEP_TILE)),
         plain_ms=time_ms(torch, lambda: ref.radix_hist(
             keys, SWEEP_TIMED_SHIFT, SWEEP_DIGIT_BITS, SWEEP_TILE), 5),
         nbytes=p * n * 8 + p * n_tiles * radix * 4,
-        library_ms=time_ms(torch, lambda: torch.bincount(
+        library=library_times(torch, lambda: torch.bincount(
             tile_key.view(-1), minlength=p * n_tiles * radix), 5),
         shape=f"keys ({p}, {n}) int64, shift {SWEEP_TIMED_SHIFT}, "
               f"digit_bits {SWEEP_DIGIT_BITS}, tile {SWEEP_TILE}"))
@@ -889,10 +973,10 @@ def sweep_times(torch, ops, ref, reads, keys, srt):
         name="segment_boundaries",
         source="src/repro_torch/csrc/segment_count.cu",
         replaces="src/repro/kernels/segment_count.py:43",
-        ms=time_ms(torch, lambda: ops.segment_boundaries(
+        times=call_times(torch, lambda: ops.segment_boundaries(
             srt, sentinel_val=sent)),
         plain_ms=time_ms(torch, lambda: ref.segment_boundaries(srt, sent), 5),
-        nbytes=p * n * (8 + 1), library_ms=None,
+        nbytes=p * n * (8 + 1), library=None,
         shape=f"sorted keys ({p}, {n}) int64 -> bool"))
     log("  segment_boundaries library_ms: none, no PyTorch call gives "
         "sentinel-aware run-start flags")
@@ -1029,6 +1113,9 @@ def lm_phase(torch, ops):
 # --- phase 6: kernel times --------------------------------------------------
 
 def time_ms(torch, fn, reps=20):
+    """Per-call time: CUDA events around `reps` back-to-back calls after a
+    warm-up. For a call of a few microseconds this is the host's issue
+    rate, not the device's work."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1041,7 +1128,99 @@ def time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+@functools.cache
+def port_kernel_names():
+    """The __global__ functions of src/repro_torch/csrc/*.cu, each in the
+    sources' anonymous namespace."""
+    names = set()
+    csrc = os.path.join(SRC, "repro_torch", "csrc")
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as src:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)\s*\(", src.read()))
+    return names
+
+
+def device_ms(torch, fn, reps=20, port=True, tries=5):
+    """Device time per call: torch.profiler's CUDA records over `reps`
+    calls after a warm-up, summed and divided by `reps`, with no host time
+    in between. `port`: the records of the port's kernels (any other
+    device time of the calls is logged); else every device record (a
+    library call). On the card the profiler has kept too few kernel
+    records, three at a window's edge: the timed calls sit between spin
+    kernels (torch.cuda._sleep, left out of the sums), and a window whose
+    records per kernel are not a whole multiple of the calls is measured
+    again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def pad():
+        for _ in range(SPIN_PAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pad()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            pad()
+        recs, spins, first = {}, [], math.inf
+        for e in prof.events():
+            if e.device_type != cuda or e.device_time_total <= 0:
+                continue
+            if "spin_kernel" in e.name:
+                spins.append(e.time_range.start)
+                continue
+            first = min(first, e.time_range.start)
+            count, us = recs.get(e.name, (0, 0.0))
+            recs[e.name] = (count + 1, us + e.device_time_total)
+        if len(spins) != 2 * SPIN_PAD:
+            before = sum(t < first for t in spins)
+            log(f"  (the profiler kept {before} of the {SPIN_PAD} spin "
+                f"kernels' records before the calls, "
+                f"{len(spins) - before} of {SPIN_PAD} after)")
+        if recs and all(c % reps == 0 for c, _ in recs.values()):
+            break
+        log(f"  (the profiler kept {sorted(c for c, _ in recs.values())} "
+            f"kernel records of {reps} calls; measured again)")
+    else:
+        raise AssertionError(f"the profiler lost kernel records in {tries} "
+                             f"windows")
+    mine = rest = 0.0
+    for key, (_, us) in recs.items():
+        name = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", key)
+        if not port or (name and name.group(1) in port_kernel_names()):
+            mine += us
+        else:
+            rest += us
+    check(mine > 0, "the profiler recorded no device time")
+    if port and rest:
+        log(f"  (besides the port's kernels, {rest / reps / 1e3:.4f} ms of "
+            f"PyTorch device work per call)")
+    return mine / reps / 1e3
+
+
+def call_times(torch, fn, reps=20):
+    """(ms, device_ms) of a wrapper's call: per call, and on the device."""
+    return time_ms(torch, fn, reps), device_ms(torch, fn, reps)
+
+
+def library_times(torch, fn, reps=20):
+    """(library_ms, library_device_ms) of one PyTorch call."""
+    return time_ms(torch, fn, reps), device_ms(torch, fn, reps, port=False)
+
+
 def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
+    """The `kernels` rows. `launches` is the path runs' snapshot: the calls
+    timed here are not counted in it."""
     from repro_torch import words as W
 
     dev = torch.device("cuda")
@@ -1054,16 +1233,23 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
     base = (torch.cumsum(hist, 1) - hist).to(torch.int32)
     out = []
 
-    def entry(name, source, replaces, ms, plain_ms, nbytes, library_ms,
+    def entry(name, source, replaces, times, plain_ms, nbytes, library,
               flops=0):
+        """times: (ms, device_ms) of the wrapper's call; library:
+        (library_ms, library_device_ms), or None where no one PyTorch call
+        computes the same function."""
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = flops / BF16_FLOP_PER_S * 1e3
+        ms, dev_ms = times
+        lib_ms, lib_dev_ms = library or (None, None)
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+                    "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": max(by_bytes, by_ops),
                     "bound_by": "operations" if by_ops > by_bytes
-                    else "bytes", "library_ms": library_ms,
+                    else "bytes", "library_ms": lib_ms,
+                    "library_device_ms": lib_dev_ms,
                     "shape": shape_of[name]})
 
     shape_of = {
@@ -1075,24 +1261,25 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
     tile_key = ref._tile_keys(ids, b, ops.TILE)[0]
     entry("bucket_hist", "src/repro_torch/csrc/radix_partition.cu",
           "src/repro/kernels/radix_partition.py:65",
-          time_ms(torch, lambda: ops.bucket_hist(ids, b)),
+          call_times(torch, lambda: ops.bucket_hist(ids, b)),
           time_ms(torch, lambda: ref.bucket_hist(ids, b, ops.TILE)),
           rows * n * 4 + rows * n_tiles * b * 4,
-          time_ms(torch, lambda: torch.bincount(
+          library_times(torch, lambda: torch.bincount(
               tile_key, minlength=rows * n_tiles * b)))
     entry("bucket_positions", "src/repro_torch/csrc/radix_partition.cu",
           "src/repro/kernels/radix_partition.py:93",
-          time_ms(torch, lambda: ops.bucket_positions(ids, base)),
+          call_times(torch, lambda: ops.bucket_positions(ids, base)),
           time_ms(torch, lambda: ref.bucket_positions(ids, base, ops.TILE)),
           rows * n * 4 * 2 + rows * n_tiles * b * 4,
-          time_ms(torch, lambda: torch.argsort(ids, dim=1, stable=True)))
+          library_times(torch, lambda: torch.argsort(ids, dim=1,
+                                                     stable=True)))
 
     keys, w = _sorted_runs(torch, torch.Generator(device=dev).manual_seed(1),
                            rows, n, 15000, -1, 64, dev)
     entry("segment_accumulate", "src/repro_torch/csrc/segment_count.cu",
           "src/repro/kernels/segment_count.py:105",
-          time_ms(torch, lambda: ops.segment_accumulate(keys, w,
-                                                        sentinel_val=-1)),
+          call_times(torch, lambda: ops.segment_accumulate(
+              keys, w, sentinel_val=-1)),
           time_ms(torch, lambda: ref.segment_accumulate(keys, w, -1)),
           rows * n * (8 + 4) + rows * n * (1 + 1 + 4), None)
 
@@ -1102,26 +1289,28 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
     shape_of["hash_insert"] = (f"table ({rows}, {cap}) int64+int32, batch "
                                f"({rows}, {nb})")
     # Every timed launch inserts a fresh batch of new keys at random slots,
-    # so no launch finds its slots in the L2 cache.
+    # so no launch finds its slots in the L2 cache: a warm-up and `reps`
+    # batches for the per-call time, as many again for the device time.
     sent = W.sentinel(64)
     reps = 20
-    bkeys = torch.randint(0, 1 << 62, (reps + 1, rows, nb), generator=gen)
+    n_batches = 2 * (reps + 1)
+    bkeys = torch.randint(0, 1 << 62, (n_batches, rows, nb), generator=gen)
     bkeys[:, :, nb // 2:] = sent     # about half of each tile is padding
     bw = torch.ones((rows, nb), dtype=torch.int32)
-    bslots = torch.randint(0, cap, (reps + 1, rows, nb), generator=gen,
+    bslots = torch.randint(0, cap, (n_batches, rows, nb), generator=gen,
                            dtype=torch.int32)
     tk = torch.full((rows, cap), sent, dtype=torch.int64, device=dev)
     tc = torch.zeros((rows, cap), dtype=torch.int32, device=dev)
     dd = torch.zeros((rows,), dtype=torch.int32, device=dev)
     dkeys, dw, dslots = bkeys.to(dev), bw.to(dev), bslots.to(dev)
-    batch = iter(range(reps + 1))
+    batch = iter(range(n_batches))
 
     def insert_next():
         i = next(batch)
         ops.hash_insert(tk, tc, dkeys[i], dw, dslots[i], sentinel_val=sent,
                         dropped=dd)
 
-    ins_ms = time_ms(torch, insert_next, reps)
+    ins_times = call_times(torch, insert_next, reps)
     del tk, tc, dkeys, dslots
     bkeys, bslots = bkeys[0], bslots[0]
     small = 1 << 20
@@ -1134,7 +1323,7 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
     plain_ms = (time.perf_counter() - t0) * 1e3
     live = int((bkeys != sent).sum())
     entry("hash_insert", "src/repro_torch/csrc/hash_table.cu",
-          "src/repro/kernels/hash_table.py:114", ins_ms, plain_ms,
+          "src/repro/kernels/hash_table.py:114", ins_times, plain_ms,
           rows * nb * (8 + 4 + 4) + live * (8 + 4) * 2, None)
     log("  hash_insert plain_ms: the sequential CPU version, same batch, "
         f"{small}-slot tables per PE")
@@ -1143,12 +1332,13 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
     flash_times(torch, ops, ref, entry, shape_of)
     for row in sweep_rows:
         shape_of[row["name"]] = row["shape"]
-        entry(row["name"], row["source"], row["replaces"], row["ms"],
-              row["plain_ms"], row["nbytes"], row["library_ms"])
+        entry(row["name"], row["source"], row["replaces"], row["times"],
+              row["plain_ms"], row["nbytes"], row["library"])
     for e in out:
-        log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, "
-            f"library {e['library_ms']}, bound {e['bound_ms']:.5f}) "
-            f"at {e['shape']}")
+        log(f"  {e['name']}: {e['ms']:.4f} ms a call, {e['device_ms']:.4f} "
+            f"ms on the device (plain {e['plain_ms']:.4f}, library "
+            f"{e['library_ms']} / device {e['library_device_ms']}, bound "
+            f"{e['bound_ms']:.5f}) at {e['shape']}")
     return out
 
 
@@ -1173,10 +1363,10 @@ def new_kernel_times(torch, ops, ref, counter, entry, shape_of):
         f"m-mers ({rows}, {n_pos}) int64, w={w}")
     entry("sliding_min", "src/repro_torch/csrc/minimizer.cu",
           "src/repro/kernels/minimizer.py:55",
-          time_ms(torch, lambda: ops.sliding_min(mmers, w)),
+          call_times(torch, lambda: ops.sliding_min(mmers, w)),
           time_ms(torch, lambda: ref.sliding_min(mmers, w)),
           rows * (n_pos + n_out) * 8,
-          time_ms(torch, lambda: mmers.unfold(1, w, 1).amin(2)))
+          library_times(torch, lambda: mmers.unfold(1, w, 1).amin(2)))
 
     def library_pair():
         i = keys.unfold(1, w, 1).argmin(2, keepdim=True)
@@ -1185,9 +1375,10 @@ def new_kernel_times(torch, ops, ref, counter, entry, shape_of):
 
     entry("sliding_min_pair", "src/repro_torch/csrc/minimizer.cu",
           "src/repro/kernels/minimizer.py:111",
-          time_ms(torch, lambda: ops.sliding_min_pair(keys, mmers, w)),
+          call_times(torch, lambda: ops.sliding_min_pair(keys, mmers, w)),
           time_ms(torch, lambda: ref.sliding_min_pair(keys, mmers, w)),
-          rows * (n_pos + n_out) * 8 * 2, time_ms(torch, library_pair))
+          rows * (n_pos + n_out) * 8 * 2,
+          library_times(torch, library_pair))
 
     # One query batch of the full-size path as each PE probes it: 2**20
     # queries spread over 8 PEs, so each PE's received tile has
@@ -1220,8 +1411,8 @@ def new_kernel_times(torch, ops, ref, counter, entry, shape_of):
         f"({NUM_PES}, {n}), {live} live")
     entry("hash_lookup", "src/repro_torch/csrc/hash_table.cu",
           "src/repro/kernels/hash_table.py:195",
-          time_ms(torch, lambda: ops.hash_lookup(snap.keys, snap.counts, q,
-                                                 slots, sentinel_val=sent)),
+          call_times(torch, lambda: ops.hash_lookup(
+              snap.keys, snap.counts, q, slots, sentinel_val=sent)),
           time_ms(torch, lambda: ref.hash_lookup(snap.keys, snap.counts, q,
                                                  slots, sent), reps=5),
           NUM_PES * n * (8 + 4 + 4 + 4) + steps * (8 + 4), None)
@@ -1250,28 +1441,29 @@ def flash_times(torch, ops, ref, entry, shape_of):
                  "flash_attention_bwd"):
         shape_of[name] = f"q/k/v ({b}, {h}, {s}, {d}) bf16, causal"
     reps = 5
-    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    sdpa_fwd = library_times(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps)
     entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
           "src/repro/kernels/flash_attention.py:84",
-          time_ms(torch, lambda: ops.flash_attention(q, k, v, **band), reps),
+          call_times(torch, lambda: ops.flash_attention(q, k, v, **band),
+                     reps),
           time_ms(torch, lambda: ref.flash_fwd(q, k, v, **band), reps),
           4 * elem, sdpa_fwd, flops=4 * d * pairs)
     entry("flash_attention_fwd_lse", "src/repro_torch/csrc/flash_attention.cu",
           "src/repro/kernels/flash_attention.py:167",
-          time_ms(torch, lambda: ops.flash_attention_fwd_lse(q, k, v, **band),
-                  reps),
+          call_times(torch, lambda: ops.flash_attention_fwd_lse(
+              q, k, v, **band), reps),
           time_ms(torch, lambda: ref.flash_fwd(q, k, v, with_lse=True,
                                                **band), reps),
           4 * elem + lse_bytes, sdpa_fwd, flops=4 * d * pairs)
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+    sdpa_bwd = library_times(torch, lambda: torch.autograd.grad(
         og, (qg, kg, vg), do, retain_graph=True), reps)
     entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
           "src/repro/kernels/flash_attention_bwd.py:138",
-          time_ms(torch, lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
-                                                         **band), reps),
+          call_times(torch, lambda: ops.flash_attention_bwd(
+              q, k, v, o, lse, do, **band), reps),
           time_ms(torch, lambda: ref.flash_bwd(q, k, v, o, lse, do, **band),
                   reps),
           8 * elem + lse_bytes, sdpa_bwd, flops=10 * d * pairs)
@@ -1279,8 +1471,8 @@ def flash_times(torch, ops, ref, entry, shape_of):
         F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
         (qg, kg, vg), do), reps)
     log(f"  flash library_ms: scaled_dot_product_attention(is_causal=True) "
-        f"forward {sdpa_fwd:.4f} ms, its backward alone (autograd.grad on a "
-        f"kept graph) {sdpa_bwd:.4f} ms, forward + backward "
+        f"forward {sdpa_fwd[0]:.4f} ms, its backward alone (autograd.grad on "
+        f"a kept graph) {sdpa_bwd[0]:.4f} ms, forward + backward "
         f"{sdpa_both:.4f} ms")
     del q, k, v, do, o, lse, qg, kg, vg, og
     torch.cuda.empty_cache()
@@ -1423,18 +1615,6 @@ def main(argv=None) -> int:
             run_count(torch, fabsp, ops, genome, 4096, k, p, pieces=1,
                       genome_bases=1 << 16)
 
-    sweep_rows = []
-    if 10 in phases:
-        t0 = time.perf_counter()
-        log("[sweeps] Synthetic 26, 150 bp reads, k=31: kmer_extract, "
-            "radix_hist, radix_sort + accumulate(boundaries_impl='kernel')")
-        if args.reads != 1 << 23:
-            log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
-        sweep_launches, sweep_rows = sweeps_phase(
-            torch, ops, ref, genome, args.reads, timed=6 in phases)
-        launches.update(sweep_launches)
-        log(f"[sweeps] done ({time.perf_counter() - t0:.1f} s)")
-
     counter = None
     if 8 in phases:
         t0 = time.perf_counter()
@@ -1451,12 +1631,29 @@ def main(argv=None) -> int:
         launches.update(lm_launches)
         log(f"[lm] done ({time.perf_counter() - t0:.1f} s)")
 
+    # Phase 10 comes after the phases whose wall times the records keep, as
+    # it profiles its kernels for phase 6: once torch.profiler has run, the
+    # process launches kernels more slowly (PERF.md §6).
+    sweep_rows = []
+    if 10 in phases:
+        t0 = time.perf_counter()
+        log("[sweeps] Synthetic 26, 150 bp reads, k=31: kmer_extract, "
+            "radix_hist, radix_sort + accumulate(boundaries_impl='kernel')")
+        if args.reads != 1 << 23:
+            log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
+        sweep_launches, sweep_rows = sweeps_phase(
+            torch, ops, ref, genome, args.reads, timed=6 in phases)
+        launches.update(sweep_launches)
+        log(f"[sweeps] done ({time.perf_counter() - t0:.1f} s)")
+
     record = None
     if 6 in phases:
         check(len(launches) == len(ops.KERNELS) and errs
               and counter is not None and sweep_rows,
               "phase 6 needs phases 3, 4, 8, 9 and 10")
-        log("[times] CUDA events, 20 launches after a warm-up")
+        log("[times] per call: CUDA events around 20 calls after a warm-up "
+            "(5 for rows 9 and 11-13); on the device: torch.profiler's "
+            "kernel records of as many calls")
         record = kernel_times(torch, ops, ref, launches, errs, counter,
                               sweep_rows)
         counter = None

@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Rows 2 and 6 (`bucket_positions`, `sliding_min`) timed as phase 6 of
+chip_smoke.py times them, for the port under any source tree.
+
+Phase 6's two measurements (`chip_smoke.time_ms`: CUDA events around
+back-to-back calls; `chip_smoke.device_ms`: torch.profiler's kernel records)
+applied to the `repro_torch` found under --src, so two versions of a kernel
+(a parent commit's, unpacked with `git archive`, and this one) compare in
+one process run after another on one card:
+
+    python3 scripts/kernel_device_times.py --src build/parent/src
+    python3 scripts/kernel_device_times.py --src src
+
+Shapes: the partition rank at one radix pass of one step, ids (8, 30720)
+int32 with B=257; the sliding minimum at one scan step's m-mers, (2048, 144)
+int64 with w=25, and at the query path's windows, (2**20, 25) with w=25.
+Prints one JSON line per row. Needs a CUDA card.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", required=True,
+                    help="the directory that holds repro_torch")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_device_times: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    sys.path.insert(1, os.path.dirname(HERE))
+    import chip_smoke as cs
+    from repro_torch.core import encoding
+    from repro_torch.data import genome
+    from repro_torch.kernels import build, ops
+
+    build.build_all()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 257, (cs.NUM_PES, 30720), generator=gen,
+                        dtype=torch.int32).to(dev)
+    hist = ops.bucket_hist(ids, 257)
+    base = (torch.cumsum(hist, 1) - hist).to(torch.int32)
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=cs.NUM_PES * 256,
+                              read_len=150, seed=4)
+    mmers = encoding.pack_kmers(genome.sample_reads_torch(spec, dev), 7)
+    queries = torch.randint(0, 1 << 62, (1 << 20, 25), generator=gen).to(dev)
+    rows = (
+        ("bucket_positions", "ids (8, 30720) int32, B=257",
+         lambda: ops.bucket_positions(ids, base),
+         lambda: torch.argsort(ids, dim=1, stable=True)),
+        ("sliding_min", "m-mers (2048, 144) int64, w=25",
+         lambda: ops.sliding_min(mmers, 25),
+         lambda: mmers.unfold(1, 25, 1).amin(2)),
+        ("sliding_min", "queries (1048576, 25) int64, w=25",
+         lambda: ops.sliding_min(queries, 25),
+         lambda: queries.amin(1, keepdim=True)),
+    )
+    for name, shape, fn, library in rows:
+        ms, dev_ms = cs.call_times(torch, fn)
+        lib_ms, lib_dev_ms = cs.library_times(torch, library)
+        print(json.dumps({"src": args.src, "name": name, "shape": shape,
+                          "ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
+                          "library_device_ms": lib_dev_ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

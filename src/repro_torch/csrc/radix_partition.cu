@@ -17,12 +17,19 @@
 // - The histogram counts in shared memory with atomics; order does not
 //   matter for a count.
 // - The stable rank must not come from atomics, whose order is not fixed.
-//   Within a warp, __match_any_sync groups the lanes holding the same
-//   bucket and the popcount of the lower peers is the lane's rank. The
-//   lowest peer writes the warp's count per bucket to shared memory, and
-//   an exclusive scan over the 32 warps turns those into warp offsets. So
-//   every element's rank is its order among equal buckets in its tile,
-//   which makes the partition stable and bit-equal to a stable argsort.
+//   The rank kernel covers a tile with 8 warps of 4 elements a lane: it
+//   stages the tile in shared memory with 16-byte loads (and the tile's B
+//   bases with cp.async, which land while it ranks), and warp w ranks
+//   elements [128w, 128w + 128) in 4 passes of 32, in order. In a pass,
+//   __match_any_sync groups the lanes holding the same bucket and the
+//   popcount of the lower peers is the lane's rank in the pass; each warp
+//   keeps a running count per bucket in its own row of an (8, B) table in
+//   shared memory, so a lane's rank in its warp is that count plus its
+//   rank in the pass. An exclusive scan over the 8 warps, started at the
+//   tile's base, turns the table into each warp's first slot per bucket.
+//   So every element's slot follows its order among equal buckets in its
+//   tile, which makes the partition stable and bit-equal to a stable
+//   argsort. Ids outside [0, B) get no slot and write nothing.
 // - The (tile, bucket) base offsets (exclusive prefix, bucket-major then
 //   tile-major) are computed between the two launches by plain tensor
 //   code, as the TPU version leaves them to XLA.
@@ -32,8 +39,12 @@
 
 namespace {
 
-constexpr int kTile = 1024;           // elements per block, one per thread
-constexpr int kWarps = kTile / 32;
+constexpr int kTile = 1024;           // elements per block
+constexpr int kHistThreads = kTile;   // the histogram: one element a thread
+constexpr int kPosThreads = 256;      // the ranks: 8 warps of 4 passes
+constexpr int kPosWarps = kPosThreads / 32;
+constexpr int kPerWarp = kTile / kPosWarps;
+constexpr int kPasses = kPerWarp / 32;
 
 __global__ void bucket_hist_kernel(const int32_t* __restrict__ buckets,
                                    int64_t n, int num_buckets, int n_tiles,
@@ -53,43 +64,75 @@ __global__ void bucket_hist_kernel(const int32_t* __restrict__ buckets,
   for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) out[b] = counts[b];
 }
 
-__global__ void bucket_positions_kernel(const int32_t* __restrict__ buckets,
-                                        const int32_t* __restrict__ base,
-                                        int64_t n, int num_buckets,
-                                        int n_tiles,
-                                        int32_t* __restrict__ pos) {
-  extern __shared__ int32_t warp_counts[];  // [kWarps][num_buckets]
+__global__ void __launch_bounds__(kPosThreads)
+bucket_positions_kernel(const int32_t* __restrict__ buckets,
+                        const int32_t* __restrict__ base, int64_t n,
+                        int num_buckets, int n_tiles,
+                        int32_t* __restrict__ pos) {
+  __shared__ __align__(16) int32_t ids[kTile];
+  extern __shared__ int32_t table[];  // [kPosWarps][num_buckets], bases
+  int32_t* tile_base = table + kPosWarps * num_buckets;
   const int64_t row = blockIdx.y;
   const int tile = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int j = threadIdx.x; j < kWarps * num_buckets; j += blockDim.x)
-    warp_counts[j] = 0;
+  const int64_t first = (int64_t)tile * kTile;
+  const int len = n - first < kTile ? (int)(n - first) : kTile;
+  const int32_t* src = buckets + row * n + first;
+  // The tile's bases are fetched first: their copy overlaps the ranking.
+  const int32_t* base_src = base + (row * n_tiles + tile) * num_buckets;
+  for (int b = threadIdx.x; b < num_buckets; b += kPosThreads) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(tile_base + b);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(base_src + b));
+  }
+  for (int j = threadIdx.x; j < kPosWarps * num_buckets; j += kPosThreads)
+    table[j] = 0;
+  if (len == kTile && ((uintptr_t)src & 15) == 0) {
+    reinterpret_cast<int4*>(ids)[threadIdx.x] =
+        __ldg(reinterpret_cast<const int4*>(src) + threadIdx.x);
+  } else {  // a ragged last tile, or a row that starts mid-way into 16 bytes
+    for (int j = threadIdx.x; j < kTile; j += kPosThreads)
+      ids[j] = j < len ? src[j] : -1;
+  }
   __syncthreads();
 
-  const int64_t i = (int64_t)tile * kTile + threadIdx.x;
-  int b = i < n ? buckets[row * n + i] : -1;
-  const bool live = (unsigned)b < (unsigned)num_buckets;
-  if (!live) b = -1 - lane;  // a group of its own, never a real bucket
-  const unsigned peers = __match_any_sync(0xffffffffu, b);
-  const unsigned lower = peers & ((1u << lane) - 1u);
-  const int rank = __popc(lower);
-  if (live && lower == 0) warp_counts[warp * num_buckets + b] = __popc(peers);
+  int32_t* mine = table + warp * num_buckets;
+  const unsigned below = (1u << lane) - 1u;
+  int bucket[kPasses], rank[kPasses];
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    int b = ids[warp * kPerWarp + p * 32 + lane];
+    const bool live = (unsigned)b < (unsigned)num_buckets;
+    if (!live) b = -1 - lane;  // a group of its own, never a real bucket
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    const unsigned lower = peers & below;
+    const int before = live ? mine[b] : 0;  // this warp's earlier passes
+    __syncwarp();
+    if (live && lower == 0) mine[b] = before + __popc(peers);
+    __syncwarp();
+    bucket[p] = live ? b : -1;
+    rank[p] = before + __popc(lower);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  for (int bb = threadIdx.x; bb < num_buckets; bb += blockDim.x) {
-    int run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = warp_counts[w * num_buckets + bb];
-      warp_counts[w * num_buckets + bb] = run;
+  for (int b = threadIdx.x; b < num_buckets; b += kPosThreads) {
+    int run = tile_base[b];
+#pragma unroll
+    for (int w = 0; w < kPosWarps; ++w) {
+      const int c = table[w * num_buckets + b];
+      table[w * num_buckets + b] = run;
       run += c;
     }
   }
   __syncthreads();
 
-  if (live) {
-    pos[row * n + i] = base[(row * n_tiles + tile) * num_buckets + b] +
-                       warp_counts[warp * num_buckets + b] + rank;
+  int32_t* dst = pos + row * n + first;
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    if (bucket[p] >= 0)
+      dst[warp * kPerWarp + p * 32 + lane] = mine[bucket[p]] + rank[p];
   }
 }
 
@@ -104,7 +147,7 @@ extern "C" int bucket_hist_launch(const void* buckets, int64_t rows,
   const int n_tiles = (int)((n + kTile - 1) / kTile);
   const dim3 grid(n_tiles, (unsigned)rows);
   const size_t smem = (size_t)num_buckets * sizeof(int32_t);
-  bucket_hist_kernel<<<grid, kTile, smem, (cudaStream_t)stream>>>(
+  bucket_hist_kernel<<<grid, kHistThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)buckets, n, num_buckets, n_tiles, (int32_t*)hist);
   return (int)cudaGetLastError();
 }
@@ -117,8 +160,8 @@ extern "C" int bucket_positions_launch(const void* buckets, const void* base,
                                        void* stream) {
   const int n_tiles = (int)((n + kTile - 1) / kTile);
   const dim3 grid(n_tiles, (unsigned)rows);
-  const size_t smem = (size_t)kWarps * num_buckets * sizeof(int32_t);
-  bucket_positions_kernel<<<grid, kTile, smem, (cudaStream_t)stream>>>(
+  const size_t smem = (size_t)(kPosWarps + 1) * num_buckets * sizeof(int32_t);
+  bucket_positions_kernel<<<grid, kPosThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)buckets, (const int32_t*)base, n, num_buckets, n_tiles,
       (int32_t*)pos);
   return (int)cudaGetLastError();

@@ -31,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# Libraries whose entry points have their argtypes declared (`load`).
+_BOUND: Dict[str, ctypes.CDLL] = {}
 
 
 class NvccError(RuntimeError):
@@ -94,7 +96,7 @@ def build_all(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
 def check_arg(t, name: str, dtype, ndim: int, device=None) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of the given dtype and
     rank (and on `device`, when given): what every kernel wrapper takes."""
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor")
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-d {dtype}, got "
@@ -111,17 +113,26 @@ def check_status(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
-def stream_ptr(t) -> ctypes.c_void_p:
-    """The current CUDA stream of `t`'s device, for a launch."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_ptr(t) -> int:
+    """The raw handle of the current CUDA stream of `t`'s device, looked up
+    on every launch (never cached: graph capture and `torch.cuda.stream`
+    make another stream current)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The library built from `csrc/<name>.cu`, with argtypes declared and
-    an int (cudaError_t) result for every entry point in `signatures`."""
+    an int (cudaError_t) result for every entry point in `signatures`. The
+    entry points are declared at the first call; later calls return the
+    same library at the cost of a dict lookup, so each library has one
+    signature table."""
+    lib = _BOUND.get(name)
+    if lib is not None:
+        return lib
     lib = _LIBS.get(name) or build_all()[name]
     for fn, argtypes in signatures.items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
+    _BOUND[name] = lib
     return lib

@@ -12,6 +12,7 @@ partitioned on its own.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -21,8 +22,10 @@ from repro_torch.kernels import build
 # Elements per block in both kernels; must equal kTile in the source. The
 # positions of a stable partition do not depend on it.
 TILE = 1024
-# The rank kernel keeps a (32 warps, B) int32 table in 48 KB of shared memory.
-MAX_BUCKETS = 384
+# The rank kernel keeps an (8 warps, B) int32 table and the tile's B bases
+# beside the 4 KB tile in the 48 KB of shared memory a launch gets without
+# opting in: B up to 1251 would fit; 1024 keeps a margin.
+MAX_BUCKETS = 1024
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -61,6 +64,7 @@ class PartitionPlan(NamedTuple):
         return dst, fill, overflow
 
 
+@functools.cache
 def _lib():
     lib = build.load("radix_partition", _SIGNATURES)
     if lib.partition_tile() != TILE:

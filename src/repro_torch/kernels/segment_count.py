@@ -10,6 +10,7 @@ streams.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,6 +27,7 @@ _SIGNATURES = {
 }
 
 
+@functools.cache
 def _lib():
     lib = build.load("segment_count", _SIGNATURES)
     if lib.segment_block() != BLOCK:

@@ -506,3 +506,246 @@ def test_hash_lookup_plain_matches_jax_ref():
             np.testing.assert_array_equal(probes[r].numpy(), np.asarray(jp))
         if name == "full":
             assert int(probes.max()) == 16   # a miss sweeps the whole table
+
+
+# --- the kernels' block layouts, mirrored on the CPU --------------------------
+# The CUDA kernels run only on a card. These mirrors walk the blocks of
+# `csrc/minimizer.cu`'s sliding_min_kernel and `csrc/radix_partition.cu`'s
+# bucket_positions_kernel in numpy, with the layouts the wrappers pick, and
+# hold them to the plain versions: a fault in the block decomposition or
+# the rank arithmetic shows here before a card runs it.
+
+def _mirror_sliding_min(vals: np.ndarray, window: int):
+    """sliding_min_kernel's blocks over (rows, n_pos) uint64 words: returns
+    the outputs and how often each was written."""
+    from repro_torch.kernels import minimizer
+
+    rows, n_pos = vals.shape
+    n_out = n_pos - window + 1
+    seg_rows, tp = minimizer._plain_layout(n_pos, window)
+    flat_in = vals.reshape(-1)
+    out = np.zeros(rows * n_out, np.uint64)
+    writes = np.zeros(rows * n_out, np.int64)
+    tiles = -(-n_out // tp) if tp else 0
+    blocks = -(-rows // seg_rows) if tp == 0 else rows * tiles
+    for blk in range(blocks):
+        if tp == 0:
+            r0 = blk * seg_rows
+            nseg, seg_len, q = min(seg_rows, rows - r0), n_pos, n_out
+            first, out0 = r0 * n_pos, r0 * n_out
+        else:
+            row, p0 = divmod(blk, tiles)
+            p0 *= tp
+            nseg, q = 1, min(tp, n_out - p0)
+            seg_len = q + window - 1
+            first, out0 = row * n_pos + p0, row * n_out + p0
+        span = nseg * seg_len
+        staged = 2 * span + 2 if n_out > 1 else span + 2
+        assert staged * 8 <= 227 * 1024
+        if tp == 0:
+            assert staged * 8 <= 48 * 1024
+        x = flat_in[first:first + span].reshape(nseg, seg_len)
+        if q == 1:
+            got = x.min(1)
+        else:
+            g = np.empty_like(x)
+            h = np.empty_like(x)
+            for lo in range(0, seg_len, window):
+                hi = min(seg_len, lo + window)
+                g[:, lo:hi] = np.minimum.accumulate(x[:, lo:hi], 1)
+                h[:, lo:hi] = np.minimum.accumulate(
+                    x[:, lo:hi][:, ::-1], 1)[:, ::-1]
+            got = np.minimum(h[:, :q], g[:, window - 1:window - 1 + q])
+        out[out0:out0 + nseg * q] = got.reshape(-1)
+        writes[out0:out0 + nseg * q] += 1
+    return out.reshape(rows, n_out), writes
+
+
+@pytest.mark.parametrize("rows,n_pos,window", [
+    (7, 30, 1), (7, 30, 7), (7, 30, 30), (300, 25, 25), (1001, 144, 25),
+    (5, 2048, 2048), (3, 2049, 25), (2, 5000, 1), (2, 5000, 3000),
+    (2, 5000, 5000), (1, 20000, 14000)])
+def test_sliding_min_block_layout_mirror(rows, n_pos, window):
+    """Every output written once, equal to the plain version: whole-row
+    blocks, the one-window reduction, and position tiles of long rows."""
+    rng = np.random.default_rng(rows * n_pos + window)
+    vals = rng.integers(0, 1 << 63, size=(rows, n_pos), dtype=np.uint64)
+    vals[::3] |= np.uint64(1 << 63)
+    vals[1::4] %= np.uint64(3)
+    got, writes = _mirror_sliding_min(vals, window)
+    assert (writes == 1).all()
+    want = ref.sliding_min(W.to_torch_words(vals)[0], window)
+    np.testing.assert_array_equal(got, W.to_numpy_words(want, 64))
+
+
+def test_sliding_min_layout_refuses_too_wide_window():
+    from repro_torch.kernels import minimizer
+
+    with pytest.raises(ValueError, match="too wide"):
+        minimizer._plain_layout(40000, 20000)
+
+
+def _mirror_bucket_positions(ids: np.ndarray, base: np.ndarray):
+    """bucket_positions_kernel's ranks: 8 warps of 128 elements a tile, 4
+    ordered passes of 32 lanes, a running count per (warp, bucket), an
+    exclusive scan over the warps from the tile's base. -1 where an id is
+    outside [0, B) (the kernel writes nothing there)."""
+    from repro_torch.kernels.radix_partition import MAX_BUCKETS
+
+    rows, n = ids.shape
+    b_count = base.shape[2]
+    assert b_count <= MAX_BUCKETS and 9 * b_count * 4 + 4096 <= 48 * 1024
+    pos = np.full((rows, n), -1, np.int64)
+    for r in range(rows):
+        for t in range(-(-n // 1024)):
+            tile = np.full(1024, -1, np.int64)
+            piece = ids[r, t * 1024:(t + 1) * 1024]
+            tile[:piece.size] = piece
+            table = np.zeros((8, b_count), np.int64)
+            bucket = np.full((8, 4, 32), -1, np.int64)
+            rank = np.zeros((8, 4, 32), np.int64)
+            for w in range(8):
+                for p in range(4):
+                    lanes = tile[w * 128 + p * 32:w * 128 + p * 32 + 32]
+                    for lane, b in enumerate(lanes):
+                        if 0 <= b < b_count:
+                            lower = int((lanes[:lane] == b).sum())
+                            bucket[w, p, lane] = b
+                            rank[w, p, lane] = table[w, b] + lower
+                    for b in set(int(v) for v in lanes if 0 <= v < b_count):
+                        table[w, b] += int((lanes == b).sum())
+            first = np.cumsum(table, 0) - table + base[r, t][None, :]
+            for w in range(8):
+                for p in range(4):
+                    for lane in range(32):
+                        e = t * 1024 + w * 128 + p * 32 + lane
+                        b = bucket[w, p, lane]
+                        if e < n and b >= 0:
+                            pos[r, e] = first[w, b] + rank[w, p, lane]
+    return pos
+
+
+def _positions_want(ids: torch.Tensor, base: torch.Tensor):
+    """ref.bucket_positions with every id outside [0, B) moved to a bucket
+    B of its own, and the mask of the valid ids: a valid id's slot does not
+    depend on the others."""
+    b_count = base.shape[2]
+    valid = (ids >= 0) & (ids < b_count)
+    base1 = torch.cat([base, torch.zeros_like(base[..., :1])], 2)
+    want = ref.bucket_positions(torch.where(valid, ids, b_count), base1,
+                                ops.TILE)
+    return want, valid
+
+
+def _positions_case(kind: str, rows: int, n: int, b_count: int, seed: int):
+    """(ids, base) of a rank case: random ids, ids of -1 and B among them,
+    a single bucket, or two alternating buckets; any int32 base."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, b_count, size=(rows, n)).astype(np.int32)
+    if kind == "invalid":
+        ids[:, ::5] = -1
+        ids[:, 2::7] = b_count
+    elif kind == "one bucket":
+        ids[:] = b_count // 2
+    elif kind == "alternating":
+        ids[:] = np.where(np.arange(n) % 2 == 0, 0, b_count - 1)
+    n_tiles = -(-n // ops.TILE)
+    base = rng.integers(0, 1 << 24, size=(rows, n_tiles, b_count)).astype(
+        np.int32)
+    return torch.from_numpy(ids), torch.from_numpy(base)
+
+
+POSITION_CASES = [
+    ("random", 2, 3001, 2), ("random", 2, 3001, 9), ("random", 2, 2048, 257),
+    ("random", 1, 4096, 1024), ("invalid", 2, 3001, 9),
+    ("one bucket", 2, 2050, 257), ("alternating", 2, 2050, 257)]
+
+
+@pytest.mark.parametrize("kind,rows,n,b_count", POSITION_CASES)
+def test_bucket_positions_rank_mirror(kind, rows, n, b_count):
+    ids, base = _positions_case(kind, rows, n, b_count, 3)
+    got = _mirror_bucket_positions(ids.numpy(), base.numpy())
+    want, valid = _positions_want(ids, base)
+    np.testing.assert_array_equal(got[valid.numpy()],
+                                  want[valid].numpy())
+    assert (got[~valid.numpy()] == -1).all()
+
+
+def test_load_declares_entry_points_once(monkeypatch):
+    """`build.load` declares a library's argtypes at its first call and
+    hands back the same library afterwards without declaring them again."""
+    import ctypes
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import build
+
+    lib = SimpleNamespace(f=SimpleNamespace())
+    monkeypatch.setitem(build._LIBS, "fake", lib)
+    monkeypatch.setattr(build, "_BOUND", {})
+    assert build.load("fake", {"f": (ctypes.c_void_p,)}) is lib
+    assert lib.f.argtypes == [ctypes.c_void_p]
+    assert lib.f.restype is ctypes.c_int
+    lib.f.argtypes = "kept"
+    assert build.load("fake", {"f": (ctypes.c_void_p,)}) is lib
+    assert lib.f.argtypes == "kept"
+
+
+# --- rows 2 and 6 on the card -------------------------------------------------
+
+SLIDING_MIN_CASES = [
+    # (rows, n_pos, window, kind): w = 1 and w = n_pos; n_pos not a
+    # multiple of w; 1001 rows; the query path's shape; rows where every
+    # key ties; long rows in position tiles; a view that starts 8 bytes
+    # into a 16-byte unit.
+    (1001, 144, 1, "random"), (1001, 144, 144, "random"),
+    (1001, 144, 25, "random"), (1001, 131, 12, "random"),
+    (1 << 20, 25, 25, "random"), (1001, 144, 25, "ties"),
+    (3, 5000, 25, "random"), (3, 5000, 3000, "random"),
+    (1001, 25, 25, "offset"), (1001, 144, 25, "offset")]
+
+
+def _sliding_min_input(rows, n_pos, kind, seed):
+    """Random 64-bit words, the top bit set on every third row (compared
+    unsigned); 'ties' makes every other row constant (poly-A)."""
+    g = torch.Generator().manual_seed(seed)
+    vals = torch.randint(0, 1 << 62, (rows, n_pos), generator=g)
+    vals[::3] |= -(1 << 63)
+    if kind == "ties":
+        vals[::2] = vals[::2, :1]
+    return vals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n_pos,window,kind", SLIDING_MIN_CASES)
+def test_sliding_min_plain_kernel_matches_plain_on_card(rows, n_pos, window,
+                                                        kind):
+    """Row 6's van Herk / Gil-Werman kernel, bit-equal."""
+    dev = _cuda()
+    vals = _sliding_min_input(rows, n_pos, kind, rows + window)
+    if kind == "offset":   # one word into a 16-byte aligned buffer
+        buf = torch.zeros((rows * n_pos + 1,), dtype=torch.int64, device=dev)
+        dvals = buf[1:].view(rows, n_pos)
+        dvals.copy_(vals)
+        assert dvals.data_ptr() % 16 == 8
+    else:
+        dvals = vals.to(dev)
+    got = ops.sliding_min(dvals, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref.sliding_min(vals, window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rows,n,b_count", POSITION_CASES + [
+    ("random", 8, 30720, 257), ("invalid", 3, 5000, 257),
+    ("one bucket", 1, 4096, 2), ("alternating", 3, 3001, 9)])
+def test_bucket_positions_kernel_matches_plain_on_card(kind, rows, n,
+                                                       b_count):
+    """Row 2's 8-warp rank kernel, bit-equal on every valid id: B up to
+    MAX_BUCKETS, ragged tiles, rows that start mid-way into 16 bytes, ids
+    of -1 and B, one bucket, alternating buckets."""
+    dev = _cuda()
+    ids, base = _positions_case(kind, rows, n, b_count, rows * n + b_count)
+    got = ops.bucket_positions(ids.to(dev), base.to(dev))
+    torch.cuda.synchronize()
+    want, valid = _positions_want(ids, base)
+    assert torch.equal(got.cpu()[valid], want[valid])
