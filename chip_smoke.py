@@ -13,7 +13,9 @@ Phases:
   2. build: compile every kernel in src/repro_torch/csrc with nvcc;
   3. each kernel against its plain version on the card, bit-equal (the
      insert: equal (key, count) sets and drops exactly when the plain
-     version drops; the flash attention kernels within stated tolerances,
+     version drops, with home slots given and hashed in the kernel, which
+     hash_lookup then finds, and a store_grow rehash; the flash attention
+     kernels within stated tolerances,
      f32 and bf16 (the bf16 kernels on the tensor cores), head dims 15 to
      256, up to the training path's shape;
      the k-mer extraction, digit histogram and run-boundary kernels at
@@ -51,10 +53,13 @@ Phases:
      library call where one exists, and its bound (runs after phases 8,
      9 and 10): per call (CUDA events around back-to-back calls, so the
      host's launch path included) and on the device (torch.profiler's
-     kernel records, no host time between launches);
+     kernel records, no host time between launches); the insert cold (new
+     keys, an empty store) and warm (phase 4's live share per batch slot
+     and share of stored keys, a store pre-filled to phase 4's distinct
+     k-mers), each beside the old path's store_slots on its batch;
   7. on request only: the main path and one step of phase 9's training
      under torch.profiler (device time by kernel, the device's busy
-     share).
+     share, the main path's launches per scan step).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -242,6 +247,7 @@ def check_kernels(torch, ops, ref, errs):
             log(f"  {word_bits}-bit rows={rows} cap={cap} n={n} ({name}): "
                 f"same (key, count) sets, drops {dd.tolist()} vs plain "
                 f"{pd.tolist()}")
+    check_home_slots(torch, ops, dev)
     errs["hash_insert"] = 0
     check_lookup(torch, ops, ref, gen, dev)
     errs["hash_lookup"] = 0
@@ -275,6 +281,20 @@ def check_sweeps(torch, ops, ref, errs):
               (7, 8, False, torch.randint(0, 256, (100, 64), generator=gen,
                                           device=dev, dtype=torch.uint8)),
               (62, 1, False, reads[:40] & 1)]
+    # The packed-row design's edges: odd k; k * bits = 62; m = k; odd
+    # n_pos; rows that span tiles (n_pos > 8192); every bits 1-8; codes
+    # that start off a 16-byte boundary.
+    flat = reads.view(-1)
+    cases += [(31, 2, True, reads[:40, :31]), (29, 2, True, reads[:70]),
+              (15, 2, True, flat[:300 * 60].view(300, 60)),
+              (31, 2, True, flat[5:5 + 3 * 4201].view(3, 4201)),
+              (31, 2, True, flat[7:7 + 3 * 8223].view(3, 8223)),
+              (21, 2, False, flat[3:3 + 2 * 9001].view(2, 9001)),
+              (20, 3, False, reads[:100] | 4),
+              (12, 5, False, reads[:100] * 7),
+              (10, 6, False, reads[:100] * 21),
+              (8, 7, False, reads[:100] * 42),
+              (15, 4, False, reads[:100] * 5)]
     for k, bits, canonical, codes in cases:
         got = ops.kmer_extract(codes, k, bits, canonical=canonical)
         torch.cuda.synchronize()
@@ -378,6 +398,72 @@ def check_positions(torch, ops, ref, dev):
               f"bucket_positions differs ({kind}, {(rows, n, b)})")
         log(f"  {kind} rows={rows} n={n} B={b}: bit-equal on "
             f"{int(valid.sum())} valid ids")
+
+
+def check_home_slots(torch, ops, dev):
+    """Row 4 with slots=None, through `countstore.store_insert`: the kernel
+    hashes each key. 32- and 64-bit words (the top bit set), caps 1, 257,
+    2**20 and one PE's full-size store: set-equal to the plain version with
+    slots=None and the same drop signal; `hash_lookup` from `store_slots`
+    then finds every stored key with its count (a wrong home slot hides
+    it); and a `store_grow` rehash on the card keeps every (key, count)."""
+    from repro_torch import words as W
+    from repro_torch.core import countstore
+
+    log("[kernels] hash_insert, home slots hashed in the kernel")
+    gen = torch.Generator().manual_seed(7)
+    for word_bits in (32, 64):
+        sent = W.sentinel(word_bits)
+        hi = (1 << 62) if word_bits == 64 else (1 << 32)
+        for cap in (1, 257, 1 << 20, 188_743_680):
+            rows, n = (2, 5000) if cap < 1 << 20 else (2, 400_000)
+            pool = torch.randint(0, hi, (rows, min(cap + 50, n // 2)),
+                                 generator=gen)
+            if word_bits == 64:
+                pool[:, ::2] |= -(1 << 63)          # the top bit set
+            keys = pool.gather(1, torch.randint(0, pool.shape[1], (rows, n),
+                                                generator=gen))
+            keys[:, ::13] = sent
+            w = torch.randint(0, 4, (rows, n), generator=gen,
+                              dtype=torch.int32)
+            st = countstore.empty_store(rows, cap, word_bits, dev)
+            countstore.store_insert(st, keys.to(dev), w.to(dev))
+            pt = countstore.empty_store(rows, cap, word_bits)
+            countstore.store_insert(pt, keys, w)
+            torch.cuda.synchronize()
+            dk, dc, dd = st.keys.cpu(), st.counts.cpu(), st.dropped.cpu()
+            for r in range(rows):
+                occ, pocc = dk[r] != sent, pt.keys[r] != sent
+                got = sorted(zip(dk[r][occ].tolist(), dc[r][occ].tolist()))
+                if int(pt.dropped[r]) == 0:
+                    check(got == sorted(zip(pt.keys[r][pocc].tolist(),
+                                            pt.counts[r][pocc].tolist())),
+                          f"hash_insert (slots=None) set differs at cap {cap}")
+                else:   # a full table: which keys win the slots may differ
+                    check(len(got) == cap, f"hash_insert (slots=None) fill "
+                          f"differs at cap {cap}")
+                check((int(dd[r]) > 0) == (int(pt.dropped[r]) > 0),
+                      f"hash_insert (slots=None) drop signal differs at cap "
+                      f"{cap}")
+            del pt
+            live = st.keys != sent
+            counts, _ = countstore.store_lookup(st, st.keys)
+            check(torch.equal(counts[live], st.counts[live]),
+                  f"hash_lookup misses a key the kernel stored (cap {cap})")
+            grown = "no rehash (the table dropped)"
+            if int(dd.sum()) == 0:
+                g = countstore.store_grow(st, 2 * cap + 1)
+                counts, _ = countstore.store_lookup(g, st.keys)
+                check(torch.equal(counts[live], st.counts[live]) and
+                      int((g.keys != sent).sum()) == int(live.sum()),
+                      f"store_grow lost a key (cap {cap})")
+                grown = f"store_grow to {2 * cap + 1} keeps all"
+                del g
+            log(f"  {word_bits}-bit rows={rows} cap={cap} n={n}: same "
+                f"(key, count) sets, drops {dd.tolist()}, every stored key "
+                f"found by hash_lookup; {grown}")
+            del st, counts, live
+    torch.cuda.empty_cache()
 
 
 def check_lookup(torch, ops, ref, gen, dev):
@@ -660,7 +746,7 @@ def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
     distinct = reference_check(torch, reads, k, res, stats, num_pes, pieces)
     log(f"  exact against torch.unique: {distinct} distinct k-mers, "
         f"{stats.raw_kmers} instances ({time.perf_counter() - t0:.1f} s)")
-    return launches, wall, peak
+    return launches, wall, peak, distinct, stats
 
 
 # --- phase 8: the incremental counter and its queries ----------------------
@@ -1112,6 +1198,9 @@ def lm_phase(torch, ops):
 
 # --- phase 6: kernel times --------------------------------------------------
 
+DEVICE_MS_TRIES = 5     # profiler windows before device_ms gives up
+
+
 def time_ms(torch, fn, reps=20):
     """Per-call time: CUDA events around `reps` back-to-back calls after a
     warm-up. For a call of a few microseconds this is the host's issue
@@ -1143,7 +1232,7 @@ def port_kernel_names():
     return names
 
 
-def device_ms(torch, fn, reps=20, port=True, tries=5):
+def device_ms(torch, fn, reps=20, port=True, tries=DEVICE_MS_TRIES):
     """Device time per call: torch.profiler's CUDA records over `reps`
     calls after a warm-up, summed and divided by `reps`, with no host time
     in between. `port`: the records of the port's kernels (any other
@@ -1218,11 +1307,10 @@ def library_times(torch, fn, reps=20):
     return time_ms(torch, fn, reps), device_ms(torch, fn, reps, port=False)
 
 
-def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
+def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows,
+                 insert_state):
     """The `kernels` rows. `launches` is the path runs' snapshot: the calls
     timed here are not counted in it."""
-    from repro_torch import words as W
-
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
     rows, n, b = NUM_PES, 30720, 257          # one radix pass of one step
@@ -1283,51 +1371,7 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
           time_ms(torch, lambda: ref.segment_accumulate(keys, w, -1)),
           rows * n * (8 + 4) + rows * n * (1 + 1 + 4), None)
 
-    # The receiver's batch at full size: P * (cap_n + cap_h) decoded pairs
-    # per PE into that PE's 188,743,680-slot store.
-    cap, nb = 188_743_680, NUM_PES * (11520 + 5760)
-    shape_of["hash_insert"] = (f"table ({rows}, {cap}) int64+int32, batch "
-                               f"({rows}, {nb})")
-    # Every timed launch inserts a fresh batch of new keys at random slots,
-    # so no launch finds its slots in the L2 cache: a warm-up and `reps`
-    # batches for the per-call time, as many again for the device time.
-    sent = W.sentinel(64)
-    reps = 20
-    n_batches = 2 * (reps + 1)
-    bkeys = torch.randint(0, 1 << 62, (n_batches, rows, nb), generator=gen)
-    bkeys[:, :, nb // 2:] = sent     # about half of each tile is padding
-    bw = torch.ones((rows, nb), dtype=torch.int32)
-    bslots = torch.randint(0, cap, (n_batches, rows, nb), generator=gen,
-                           dtype=torch.int32)
-    tk = torch.full((rows, cap), sent, dtype=torch.int64, device=dev)
-    tc = torch.zeros((rows, cap), dtype=torch.int32, device=dev)
-    dd = torch.zeros((rows,), dtype=torch.int32, device=dev)
-    dkeys, dw, dslots = bkeys.to(dev), bw.to(dev), bslots.to(dev)
-    batch = iter(range(n_batches))
-
-    def insert_next():
-        i = next(batch)
-        ops.hash_insert(tk, tc, dkeys[i], dw, dslots[i], sentinel_val=sent,
-                        dropped=dd)
-
-    ins_times = call_times(torch, insert_next, reps)
-    del tk, tc, dkeys, dslots
-    bkeys, bslots = bkeys[0], bslots[0]
-    small = 1 << 20
-    pk = torch.full((rows, small), sent, dtype=torch.int64)
-    pc = torch.zeros((rows, small), dtype=torch.int32)
-    pd = torch.zeros((rows,), dtype=torch.int32)
-    t0 = time.perf_counter()
-    ops.hash_insert(pk, pc, bkeys, bw, bslots % small, sentinel_val=sent,
-                    dropped=pd)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    live = int((bkeys != sent).sum())
-    entry("hash_insert", "src/repro_torch/csrc/hash_table.cu",
-          "src/repro/kernels/hash_table.py:114", ins_times, plain_ms,
-          rows * nb * (8 + 4 + 4) + live * (8 + 4) * 2, None)
-    log("  hash_insert plain_ms: the sequential CPU version, same batch, "
-        f"{small}-slot tables per PE")
-    del pk, pc
+    insert_rows(torch, ops, entry, out, shape_of, insert_state)
     new_kernel_times(torch, ops, ref, counter, entry, shape_of)
     flash_times(torch, ops, ref, entry, shape_of)
     for row in sweep_rows:
@@ -1340,6 +1384,231 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows):
             f"{e['library_ms']} / device {e['library_device_ms']}, bound "
             f"{e['bound_ms']:.5f}) at {e['shape']}")
     return out
+
+
+# --- phase 6, row 4: the insert at the receiver's batch ---------------------
+
+STORE_CAP = 188_743_680     # one PE's store slots on the full-size path
+
+
+def insert_census(torch, fabsp, genome, n_reads):
+    """The live share of each slot of the insert's batch on phase 4's path
+    (k=31, 'dual', 8 PEs): count_kmers over the first `n_reads` reads with
+    `countstore.store_insert` wrapped to sum, per batch column, the rows
+    whose slot is not the sentinel. Returns ((width,) float live share on
+    the card, steps). The share does not depend on the read count: each
+    step routes the same number of reads."""
+    from repro_torch.core import countstore
+
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=n_reads,
+                              read_len=150, seed=0)
+    reads = genome.sample_reads_torch(spec, DEV)
+    acc, calls = [], [0]
+    insert = countstore.store_insert
+
+    def census(store, words, counts=None):
+        live = (words != -1).sum(0)
+        if acc:
+            acc[0] += live
+        else:
+            acc.append(live)
+        calls[0] += words.shape[0]
+        return insert(store, words, counts)
+
+    countstore.store_insert = census
+    try:
+        fabsp.count_kmers(reads, fabsp.DAKCConfig(k=K, chunk_reads=256),
+                          num_pes=NUM_PES, device=DEV)
+    finally:
+        countstore.store_insert = insert
+    del reads
+    return acc[0].double() / calls[0], calls[0] // NUM_PES
+
+
+def insert_path_state(torch, fabsp, genome, count_run):
+    """What the insert meets on phase 4's path: each batch slot's live
+    share (a census run), the share of live items already stored, and the
+    distinct k-mers a row at the end. Logs the live share of phase 4's own
+    batches: its live items (`sent_words`) over its batch slots."""
+    distinct, stats, inserts = count_run
+    share, steps = insert_census(torch, fabsp, genome, 1 << 20)
+    width = share.numel()
+    hit = 1.0 - distinct / stats.sent_words
+    log(f"  the insert on phase 4's path: batches of ({NUM_PES}, {width}); "
+        f"{stats.sent_words} live items over {inserts} launches, "
+        f"{stats.sent_words / (inserts * NUM_PES * width):.4f} of the batch "
+        f"slots live; {hit:.4f} of live items already stored ({distinct} "
+        f"distinct); census over {steps} steps: {float(share.mean()):.4f} "
+        f"live, the share along a sender tile falling from "
+        f"{float(share.max()):.4f} to {float(share.min()):.4f}")
+    return share, hit, distinct // NUM_PES
+
+
+def insert_table(torch, ops, rows, cap, n_fill, seed):
+    """A (rows, cap) store holding `n_fill` random 62-bit keys a row,
+    inserted by the kernel (weight 1); returns (keys, counts, stored)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    tk = torch.full((rows, cap), -1, dtype=torch.int64, device=DEV)
+    tc = torch.zeros((rows, cap), dtype=torch.int32, device=DEV)
+    dd = torch.zeros((rows,), dtype=torch.int32, device=DEV)
+    stored = torch.randint(0, 1 << 62, (rows, n_fill), generator=g,
+                           device=DEV)
+    ones = torch.ones((rows, 1 << 22), dtype=torch.int32, device=DEV)
+    for lo in range(0, n_fill, 1 << 22):
+        part = stored[:, lo:lo + (1 << 22)].contiguous()
+        w = ones[:, :part.shape[1]].contiguous()
+        ops.hash_insert(tk, tc, part, w, None, sentinel_val=-1, dropped=dd,
+                        word_bits=64)
+    check(int(dd.sum()) == 0, "the pre-filled store dropped keys")
+    return tk, tc, stored
+
+
+def insert_batch_count(reps, tries=DEVICE_MS_TRIES):
+    """Batches for one `call_times` of an insert that takes a fresh batch
+    per call: time_ms's warm-up and `reps` calls, device_ms's warm-up and
+    up to `tries` windows of `reps` calls."""
+    return 2 + reps * (1 + tries)
+
+
+def fresh_batches(keys):
+    """A function that returns the next batch of `keys` at each call and
+    raises once they are used up, so that no timed call inserts a batch
+    again."""
+    batches = iter(keys)
+
+    def next_batch():
+        batch = next(batches, None)
+        if batch is None:
+            raise AssertionError(f"all {keys.shape[0]} fresh batches used")
+        return batch
+
+    return next_batch
+
+
+def insert_batches(torch, n_batches, live_share, hit, stored, seed):
+    """(n_batches, rows, width) int64 batches: in each row, slot j is live
+    where the row's uniform draw lies below live_share[j], so a sender
+    tile (whose share falls along it) is a live prefix and then sentinels;
+    a live slot holds one of the row's `stored` keys with probability
+    `hit`, else a new random key. Returns (keys, live items, new items)
+    per batch on average."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rows = NUM_PES if stored is None else stored.shape[0]
+    width = live_share.numel()
+    shape = (n_batches, rows, width)
+    live = (torch.rand((n_batches, rows, 1), generator=g, device=DEV)
+            < live_share.to(torch.float32))
+    keys = torch.randint(0, 1 << 62, shape, generator=g, device=DEV)
+    fresh = live
+    if hit > 0:
+        idx = torch.randint(0, stored.shape[1], shape, generator=g,
+                            device=DEV)
+        old = stored.unsqueeze(0).expand(n_batches, -1, -1).gather(2, idx)
+        take = torch.rand(shape, generator=g, device=DEV) < hit
+        keys = torch.where(take, old, keys)
+        fresh = live & ~take
+        del idx, old, take
+    keys = torch.where(live, keys, -1)
+    return (keys, int(live.sum()) / n_batches, int(fresh.sum()) / n_batches)
+
+
+def insert_bounds(rows, width, live, new):
+    """Row 4's two bounds in bytes. Streamed: each batch slot's 8 B key and
+    each live item's 4 B weight read once (a padding item's weight is not
+    needed); each live item's 8 B table key and 4 B count read and written
+    once. Sectors: the streamed batch, plus the 32 B sectors live items
+    touch at random: a key sector and a count sector read per live item,
+    the count sector written back per live item and the key sector per new
+    key."""
+    streamed = rows * width * 8 + live * 4
+    return (streamed + live * (8 + 4) * 2,
+            streamed + 32 * (2 * live + live + new))
+
+
+def insert_rows(torch, ops, entry, out, shape_of, state):
+    """Row 4 at the receiver's batch, (8, 138240) into 188,743,680-slot
+    stores, home slots hashed in the kernel. Cold: new keys in half of each
+    row, an empty store. Warm, the path's state: a store pre-filled by the
+    kernel with phase 4's distinct k-mers a row, batches with phase 4's
+    live share per slot and its share of live items already stored. Every
+    timed call takes a fresh batch, so no call finds its slots in the L2
+    cache. Beside each: the old path's `store_slots` on the same batch."""
+    from repro_torch.core import countstore
+
+    live_share, hit, n_fill = state
+    width = live_share.numel()
+    rows, reps = NUM_PES, 20
+    n_batches = insert_batch_count(reps)
+    shape_of["hash_insert"] = (f"table ({rows}, {STORE_CAP}) int64+int32, "
+                               f"batch ({rows}, {width}), slots hashed in "
+                               f"the kernel")
+    ones = torch.ones((rows, width), dtype=torch.int32, device=DEV)
+    dd = torch.zeros((rows,), dtype=torch.int32, device=DEV)
+    numbers = {}
+    for name in ("cold", "warm"):
+        if name == "cold":
+            tk = torch.full((rows, STORE_CAP), -1, dtype=torch.int64,
+                            device=DEV)
+            tc = torch.zeros((rows, STORE_CAP), dtype=torch.int32,
+                             device=DEV)
+            half = (torch.arange(width, device=DEV) < width // 2).double()
+            keys, live, new = insert_batches(torch, n_batches, half, 0.0,
+                                             None, 11)
+        else:
+            tk, tc, stored = insert_table(torch, ops, rows, STORE_CAP,
+                                          n_fill, 12)
+            keys, live, new = insert_batches(torch, n_batches, live_share,
+                                             hit, stored, 13)
+            del stored
+        next_batch = fresh_batches(keys)
+
+        def insert_next():
+            ops.hash_insert(tk, tc, next_batch(), ones, None,
+                            sentinel_val=-1, dropped=dd, word_bits=64)
+
+        times = call_times(torch, insert_next, reps)
+        slot_times = library_times(torch, lambda: countstore.store_slots(
+            keys[0], STORE_CAP, 64))
+        by_bytes, by_sectors = insert_bounds(rows, width, live, new)
+        numbers[name] = dict(
+            ms=times[0], device_ms=times[1], live_items=live,
+            new_items=new, bound_ms=by_bytes / HBM_BYTES_PER_S * 1e3,
+            sector_bound_ms=by_sectors / HBM_BYTES_PER_S * 1e3,
+            store_slots_ms=slot_times[0],
+            store_slots_device_ms=slot_times[1])
+        log(f"  hash_insert {name}: {live:.0f} live items a batch "
+            f"({live / rows / width:.4f} of the slots), {new:.0f} new; "
+            f"{times[0]:.4f} ms a call, {times[1]:.4f} ms on the device; "
+            f"bounds {numbers[name]['bound_ms']:.5f} ms (bytes), "
+            f"{numbers[name]['sector_bound_ms']:.5f} ms (sectors); the old "
+            f"path's store_slots on the batch {slot_times[0]:.4f} ms a call, "
+            f"{slot_times[1]:.4f} ms on the device")
+        check(int(dd.sum()) == 0, f"the {name} timing dropped keys")
+        if name == "cold":
+            batch0 = keys[0].cpu()
+        del tk, tc, keys
+        torch.cuda.empty_cache()
+    small = 1 << 20
+    pk = torch.full((rows, small), -1, dtype=torch.int64)
+    pc = torch.zeros((rows, small), dtype=torch.int32)
+    pd = torch.zeros((rows,), dtype=torch.int32)
+    t0 = time.perf_counter()
+    ops.hash_insert(pk, pc, batch0, ones.cpu(), None, sentinel_val=-1,
+                    dropped=pd, word_bits=64)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cold = numbers["cold"]
+    entry("hash_insert", "src/repro_torch/csrc/hash_table.cu",
+          "src/repro/kernels/hash_table.py:114",
+          (cold["ms"], cold["device_ms"]), plain_ms,
+          insert_bounds(rows, width, cold["live_items"],
+                        cold["new_items"])[0], None)
+    out[-1]["sector_bound_ms"] = cold["sector_bound_ms"]
+    out[-1]["warm"] = numbers["warm"]
+    out[-1]["store_slots"] = {k: numbers[k]["store_slots_device_ms"]
+                              for k in numbers}
+    log("  hash_insert plain_ms: the sequential CPU version, the cold "
+        f"batch, {small}-slot tables per PE")
+    del pk, pc
 
 
 def new_kernel_times(torch, ops, ref, counter, entry, shape_of):
@@ -1498,11 +1767,16 @@ def profile_path(torch, fabsp, genome, n_reads):
         fabsp.count_kmers(reads, cfg, num_pes=NUM_PES)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _log_profile(torch, prof, wall_us, f"{n_reads} reads")
+    launches = _log_profile(torch, prof, wall_us, f"{n_reads} reads")
+    steps = n_reads // (256 * NUM_PES)
+    log(f"  {launches} device kernel launches over {steps} scan steps: "
+        f"{launches / steps:.2f} a step")
+    return launches / steps
 
 
 def _log_profile(torch, prof, wall_us, what):
-    """Device time by kernel and the device's busy share of `wall_us`."""
+    """Device time by kernel and the device's busy share of `wall_us`;
+    returns the count of device kernel records."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = [(e.key, e.count, e.self_device_time_total)
             for e in prof.key_averages()
@@ -1514,6 +1788,7 @@ def _log_profile(torch, prof, wall_us, what):
         f"({100 * device_us / wall_us:.1f} %)")
     for key, count, us in rows[:15]:
         log(f"  {us / 1e3:10.2f} ms {count:8d}x  {key[:90]}")
+    return sum(r[1] for r in rows)
 
 
 def profile_lm_step(torch):
@@ -1601,12 +1876,15 @@ def main(argv=None) -> int:
             f"({time.perf_counter() - t0:.1f} s)")
 
     launches = {}
+    count_run = None
     if 4 in phases:
         log("[full size] Synthetic 26, 150 bp reads, k=31, 8 PEs")
         if args.reads != 1 << 23:
             log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
-        launches, _, _ = run_count(torch, fabsp, ops, genome, args.reads, K,
-                                   NUM_PES, pieces=4, genome_bases=1 << 26)
+        launches, _, _, distinct, stats = run_count(
+            torch, fabsp, ops, genome, args.reads, K, NUM_PES, pieces=4,
+            genome_bases=1 << 26)
+        count_run = (distinct, stats, launches["hash_insert"])
         torch.cuda.empty_cache()
 
     if 5 in phases:
@@ -1649,13 +1927,14 @@ def main(argv=None) -> int:
     record = None
     if 6 in phases:
         check(len(launches) == len(ops.KERNELS) and errs
-              and counter is not None and sweep_rows,
+              and counter is not None and sweep_rows and count_run,
               "phase 6 needs phases 3, 4, 8, 9 and 10")
+        insert_state = insert_path_state(torch, fabsp, genome, count_run)
         log("[times] per call: CUDA events around 20 calls after a warm-up "
             "(5 for rows 9 and 11-13); on the device: torch.profiler's "
             "kernel records of as many calls")
         record = kernel_times(torch, ops, ref, launches, errs, counter,
-                              sweep_rows)
+                              sweep_rows, insert_state)
         counter = None
         torch.cuda.empty_cache()
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Rows 2 and 6 (`bucket_positions`, `sliding_min`) timed as phase 6 of
-chip_smoke.py times them, for the port under any source tree.
+"""Rows 2, 6 and 9 (`bucket_positions`, `sliding_min`, `kmer_extract`)
+timed as phase 6 of chip_smoke.py times them, for the port under any
+source tree.
 
 Phase 6's two measurements (`chip_smoke.time_ms`: CUDA events around
 back-to-back calls; `chip_smoke.device_ms`: torch.profiler's kernel records)
@@ -13,8 +14,12 @@ one process run after another on one card:
 
 Shapes: the partition rank at one radix pass of one step, ids (8, 30720)
 int32 with B=257; the sliding minimum at one scan step's m-mers, (2048, 144)
-int64 with w=25, and at the query path's windows, (2**20, 25) with w=25.
-Prints one JSON line per row. Needs a CUDA card.
+int64 with w=25, and at the query path's windows, (2**20, 25) with w=25;
+the extraction at phase 10's shape, the Synthetic-26 read set's 2**23
+reads of 150 bp to canonical k=31 words in one launch, beside the time to
+zero its output in PyTorch (`Tensor.zero_`, the same 8 GB written: a
+floor for the writes alone, not the same function). `--rows 9` picks
+rows. Prints one JSON line per row. Needs a CUDA card.
 """
 
 import argparse
@@ -29,7 +34,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
                     help="the directory that holds repro_torch")
+    ap.add_argument("--rows", default="2,6,9", help="of 2, 6 and 9")
     args = ap.parse_args()
+    wanted = {int(r) for r in args.rows.split(",")}
     import torch
     if not torch.cuda.is_available():
         print("kernel_device_times: no CUDA device", file=sys.stderr)
@@ -63,12 +70,26 @@ def main():
          lambda: ops.sliding_min(queries, 25),
          lambda: queries.amin(1, keepdim=True)),
     )
+    rows = [row for r, row in zip((2, 6, 6), rows) if r in wanted]
+    if 9 in wanted:
+        reads = genome.sample_reads_torch(genome.ReadSetSpec(
+            genome_bases=1 << 26, n_reads=1 << 23, read_len=150, seed=0), dev)
+        out = torch.empty((reads.shape[0], reads.shape[1] - cs.K + 1),
+                          dtype=torch.int64, device=dev)
+        rows.append(("kmer_extract", "codes (8388608, 150) uint8 -> "
+                     "(8388608, 120) int64, k=31, canonical",
+                     lambda: ops.kmer_extract(reads, cs.K, canonical=True),
+                     out.zero_))
     for name, shape, fn, library in rows:
-        ms, dev_ms = cs.call_times(torch, fn)
-        lib_ms, lib_dev_ms = cs.library_times(torch, library)
+        reps = 5 if name == "kmer_extract" else 20
+        ms, dev_ms = cs.call_times(torch, fn, reps)
+        lib_ms, lib_dev_ms = cs.library_times(torch, library, reps)
+        beside = ("zero_of_output" if name == "kmer_extract"
+                  else "library")
         print(json.dumps({"src": args.src, "name": name, "shape": shape,
-                          "ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
-                          "library_device_ms": lib_dev_ms}), flush=True)
+                          "ms": ms, "device_ms": dev_ms,
+                          f"{beside}_ms": lib_ms,
+                          f"{beside}_device_ms": lib_dev_ms}), flush=True)
     return 0
 
 

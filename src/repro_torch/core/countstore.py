@@ -18,9 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch import words as W
-from repro_torch.core import owner
 from repro_torch.core.sort import AccumResult, accumulate, sort_with_weights
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 class CountStore(NamedTuple):
@@ -60,23 +59,25 @@ def empty_store(num_pes: int, capacity: int, word_bits: int,
 def store_slots(words: torch.Tensor, capacity: int,
                 word_bits: int) -> torch.Tensor:
     """Home slot of each word: the slot hash modulo capacity, unsigned."""
-    return W.umod(owner.slot_hash(words, word_bits), capacity,
-                  word_bits).to(torch.int32)
+    return ref.home_slots(words, capacity, word_bits)
 
 
 def store_insert(store: CountStore, words: torch.Tensor,
                  counts: Optional[torch.Tensor] = None) -> CountStore:
     """Fold (P, n) (words, counts) into the store IN PLACE; sentinel and
     zero-count entries are skipped. Returns the store (its tensors are the
-    same objects, `dropped` accumulated)."""
+    same objects, `dropped` accumulated).
+
+    The home slots come from the insert itself (`ops.hash_insert` with no
+    slots): on the card the kernel hashes each word, so no PyTorch op runs
+    for them; on the CPU the plain version computes `store_slots`."""
     sent = W.sentinel(store.word_bits)
     if counts is None:
         counts = (words != sent).to(torch.int32)
-    words = words.contiguous()
-    ops.hash_insert(store.keys, store.counts, words,
-                    counts.to(torch.int32).contiguous(),
-                    store_slots(words, store.keys.shape[1], store.word_bits),
-                    sentinel_val=sent, dropped=store.dropped)
+    ops.hash_insert(store.keys, store.counts, words.contiguous(),
+                    counts.to(torch.int32).contiguous(), None,
+                    sentinel_val=sent, dropped=store.dropped,
+                    word_bits=store.word_bits)
     return store
 
 
@@ -101,7 +102,9 @@ def store_copy(store: CountStore) -> CountStore:
 
 def store_grow(store: CountStore, new_capacity: int) -> CountStore:
     """Rehash every live entry into a fresh table of `new_capacity` slots;
-    the new store's `dropped` starts at 0."""
+    the new store's `dropped` starts at 0. One `store_insert` of the whole
+    old table: the kernel hashes every live key on the card, so no
+    (P, capacity) temporary of home slots is made."""
     if new_capacity < store.keys.shape[1]:
         raise ValueError("store_grow cannot shrink the table")
     grown = empty_store(store.keys.shape[0], new_capacity, store.word_bits,

@@ -10,6 +10,7 @@ a copy of the store per chunk would cost its whole size on every scan step.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -17,9 +18,10 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_INT = ctypes.c_int
 _SIGNATURES = {
-    "hash_insert_launch": (_P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _P,
-                           _P),
+    "hash_insert_launch": (_P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _INT,
+                           _P, _P),
     "hash_lookup_launch": (_P, _P, _I64, _I64, _P, _P, _I64, _I64, _P, _P,
                            _P),
 }
@@ -27,29 +29,37 @@ _SIGNATURES = {
 
 def hash_insert_cuda(table_keys: torch.Tensor, table_counts: torch.Tensor,
                      keys: torch.Tensor, weights: torch.Tensor,
-                     slots: torch.Tensor, sentinel_val: int,
-                     dropped: torch.Tensor) -> None:
+                     slots: Optional[torch.Tensor], sentinel_val: int,
+                     dropped: torch.Tensor, word_bits: int) -> None:
     """Fold a (P, n) batch into the (P, cap) table in place; the items each
-    row drops are added to `dropped` (P,) int32."""
+    row drops are added to `dropped` (P,) int32. With `slots` None the
+    kernel computes each key's home slot (`countstore.store_slots` of a
+    `word_bits`-bit word)."""
     build.check_arg(table_keys, "table_keys", torch.int64, 2)
     dev = table_keys.device
     build.check_arg(table_counts, "table_counts", torch.int32, 2, dev)
     build.check_arg(keys, "keys", torch.int64, 2, dev)
     build.check_arg(weights, "weights", torch.int32, 2, dev)
-    build.check_arg(slots, "slots", torch.int32, 2, dev)
+    if slots is not None:
+        build.check_arg(slots, "slots", torch.int32, 2, dev)
     build.check_arg(dropped, "dropped", torch.int32, 1, dev)
     rows, cap = table_keys.shape
     if (table_counts.shape != table_keys.shape
-            or weights.shape != keys.shape or slots.shape != keys.shape
+            or weights.shape != keys.shape
+            or (slots is not None and slots.shape != keys.shape)
             or keys.shape[0] != rows or dropped.shape[0] != rows):
         raise ValueError("table, batch and dropped shapes disagree")
+    if not 1 <= cap < (1 << 31) or word_bits not in (32, 64):
+        raise ValueError(f"capacity {cap} outside [1, 2**31) or word_bits "
+                         f"{word_bits} not 32 or 64")
     n = keys.shape[1]
     if rows and n:
         lib = build.load("hash_table", _SIGNATURES)
         build.check_status(lib.hash_insert_launch(
             table_keys.data_ptr(), table_counts.data_ptr(), rows, cap,
-            keys.data_ptr(), weights.data_ptr(), slots.data_ptr(), n,
-            sentinel_val, dropped.data_ptr(), build.stream_ptr(keys)),
+            keys.data_ptr(), weights.data_ptr(),
+            None if slots is None else slots.data_ptr(), n, sentinel_val,
+            word_bits, dropped.data_ptr(), build.stream_ptr(keys)),
             "hash_insert")
 
 

@@ -130,22 +130,31 @@ def segment_accumulate(sorted_keys: torch.Tensor, weights: torch.Tensor, *,
 
 def hash_insert(table_keys: torch.Tensor, table_counts: torch.Tensor,
                 keys: torch.Tensor, weights: torch.Tensor,
-                slots: torch.Tensor, *, sentinel_val: int,
-                dropped: torch.Tensor) -> None:
+                slots: Optional[torch.Tensor], *, sentinel_val: int,
+                dropped: torch.Tensor,
+                word_bits: Optional[int] = None) -> None:
     """Insert-or-add a (P, n) batch into the (P, cap) table IN PLACE and add
     each row's dropped items to `dropped` (P,) int32.
 
-    On the CPU the items fold in stream order (the slot layout of the
-    sequential reference); on the card they fold in parallel, which gives
-    the same (key, count) set and drops exactly when a row is full.
+    `slots` (P, n) are the items' home slots; with None, each key's home
+    slot is `ref.home_slots` of a `word_bits`-bit word, which the kernel
+    computes on the card. On the CPU the items fold in stream order (the
+    slot layout of the sequential reference); on the card they fold in
+    parallel, which gives the same (key, count) set and drops exactly when
+    a row is full.
     """
+    if slots is None and word_bits is None:
+        raise ValueError("hash_insert: slots=None needs word_bits")
     if _on_cpu(table_keys):
+        if slots is None:
+            slots = ref.home_slots(keys, table_keys.shape[1], word_bits)
         dropped += ref.hash_insert(table_keys, table_counts, keys,
                                    weights.to(torch.int32),
                                    slots.to(torch.int32), sentinel_val)
         return
     hash_table.hash_insert_cuda(table_keys, table_counts, keys, weights,
-                                slots, sentinel_val, dropped)
+                                slots, sentinel_val, dropped,
+                                64 if word_bits is None else word_bits)
     hash_insert.launches += 1
 
 

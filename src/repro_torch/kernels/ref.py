@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import words as W
-from repro_torch.core import encoding
+from repro_torch.core import encoding, owner
 from repro_torch.kernels.radix_partition import PartitionPlan
 
 # XOR with the sign bit maps the unsigned order of int64-carried words onto
@@ -158,6 +158,15 @@ def segment_accumulate(sorted_keys: torch.Tensor, weights: torch.Tensor,
 
 def _wrap32(x: int) -> int:
     return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def home_slots(keys: torch.Tensor, capacity: int,
+               word_bits: int) -> torch.Tensor:
+    """int32 home slot of each `word_bits`-bit word: the slot hash modulo
+    capacity, unsigned (`countstore.store_slots`; the insert kernel
+    computes it on the card when it is given no slots)."""
+    return W.umod(owner.slot_hash(keys, word_bits), capacity,
+                  word_bits).to(torch.int32)
 
 
 def hash_insert(table_keys: torch.Tensor, table_counts: torch.Tensor,

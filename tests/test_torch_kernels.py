@@ -433,14 +433,29 @@ def test_flash_kernels_match_plain_on_card(d, dtype):
     (13, 2, True, (1001, 150)), (15, 2, False, (64, 151)),
     (21, 2, True, (1001, 150)), (31, 2, False, (1001, 150)),
     (31, 2, True, (3, 9000)), (10, 3, False, (1001, 150)),
-    (7, 8, False, (100, 64)), (62, 1, False, (40, 300))])
-def test_kmer_extract_kernel_matches_plain_on_card(k, bits, canonical, shape):
-    """Row 9: the rolling window against the shift-or pack (and the
-    reverse-complement sweep); (3, 9000) spans several position tiles."""
+    (7, 8, False, (100, 64)), (62, 1, False, (40, 300)),
+    (31, 2, True, (40, 31)), (29, 2, True, (70, 150)),
+    (15, 2, True, (300, 60)), (31, 2, True, (3, 4201)),
+    (21, 2, False, (2, 9001)), (20, 3, False, (7, 100)),
+    (12, 5, False, (7, 77)), (10, 6, False, (7, 100)),
+    (8, 7, False, (7, 100)), (15, 4, False, (9, 333)),
+    (31, 2, True, (3, 8223)), (7, 8, False, (2, 20000))])
+@pytest.mark.parametrize("offset", [0, 5])
+def test_kmer_extract_kernel_matches_plain_on_card(k, bits, canonical, shape,
+                                                   offset):
+    """Row 9's packed-row kernel against the shift-or pack (and the
+    reverse-complement sweep): odd k, k * bits = 62, m = k, odd n_pos,
+    rows that span several tiles (n_pos > 8192, an odd row length), every
+    bits 1-8, and codes that start `offset` bytes past a 16-byte
+    boundary."""
     dev = _cuda()
     reads = torch.from_numpy(np.random.default_rng(k).integers(
         0, 1 << bits, size=shape, dtype=np.uint8))
-    got = ops.kmer_extract(reads.to(dev), k, bits, canonical=canonical)
+    buf = torch.zeros((reads.numel() + offset,), dtype=torch.uint8,
+                      device=dev)
+    dreads = buf[offset:].view(shape)
+    dreads.copy_(reads)
+    got = ops.kmer_extract(dreads, k, bits, canonical=canonical)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ops.kmer_extract(reads, k, bits,
                                                    canonical=canonical))
@@ -749,3 +764,387 @@ def test_bucket_positions_kernel_matches_plain_on_card(kind, rows, n,
     torch.cuda.synchronize()
     want, valid = _positions_want(ids, base)
     assert torch.equal(got.cpu()[valid], want[valid])
+
+
+# --- row 4: home slots computed in the insert kernel ------------------------
+# With no slots, `csrc/hash_table.cu` hashes each key itself: the slot hash
+# in unsigned 32- or 64-bit arithmetic, then the unsigned `%` by the
+# capacity. The mirror below does exactly that in numpy integers.
+
+_C64 = (np.uint64(0xBF58476D1CE4E5B9), np.uint64(0x94D049BB133111EB))
+
+
+def _mirror_mix64(x):
+    x = x ^ (x >> np.uint64(30))
+    x = x * _C64[0]
+    x = x ^ (x >> np.uint64(27))
+    x = x * _C64[1]
+    return x ^ (x >> np.uint64(31))
+
+
+def _mirror_mix32(x):
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def _mirror_home_slots(words: np.ndarray, cap: int, word_bits: int):
+    """hash_insert_kernel's home_slot over uint32/uint64 words."""
+    if word_bits == 64:
+        h = _mirror_mix64(_mirror_mix64(words.astype(np.uint64))
+                          ^ np.uint64(0x9E3779B97F4A7C15))
+        return (h % np.uint64(cap)).astype(np.int32)
+    h = _mirror_mix32(_mirror_mix32(words.astype(np.uint32))
+                      ^ np.uint32(0x9E3779B9))
+    return (h % np.uint32(cap)).astype(np.int32)
+
+
+HOME_CAPS = (1, 2, (1 << 31) - 1, 188_743_680)
+
+
+def _home_words():
+    rng = np.random.default_rng(17)
+    w64 = rng.integers(0, 1 << 63, size=100_000, dtype=np.uint64)
+    w64[::2] |= np.uint64(1 << 63)           # the top bit set
+    w64[:4] = [0, 1, (1 << 64) - 2, (1 << 64) - 1]
+    w32 = rng.integers(0, 1 << 32, size=100_000).astype(np.uint32)
+    return w64, w32
+
+
+HOME64, HOME32 = _home_words()
+
+def _store_batch(bits):
+    """Words of a k=13 (32-bit) or k=31 (64-bit) batch with repeats and
+    sentinel padding, and their counts."""
+    rng = np.random.default_rng(bits)
+    dt = np.uint32 if bits == 32 else np.uint64
+    pool = rng.integers(0, 1 << (26 if bits == 32 else 62), size=400,
+                        dtype=np.uint64)
+    words = rng.choice(pool, size=(1, 1500)).astype(dt)
+    words[:, ::9] = np.iinfo(dt).max
+    return words, rng.integers(0, 4, size=(1, 1500)).astype(np.int32)
+
+
+STORE64 = _store_batch(64)
+
+_BODY_HOME = """
+from repro.core import countstore
+for cap in (1, 2, (1 << 31) - 1, 188_743_680):
+    O[f"s64_{cap}"] = countstore.store_slots(jnp.asarray(I["w64"]), cap)
+for cap in (1801, 300):
+    s = countstore.store_insert(countstore.empty_store(cap, jnp.uint64),
+                                jnp.asarray(I["sw"][0]),
+                                jnp.asarray(I["sc"][0]))
+    O[f"st_{cap}"] = np.stack([np.asarray(s.keys).view(np.int64),
+                               np.asarray(s.counts).astype(np.int64)])
+    O[f"sd_{cap}"] = s.dropped
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_home64(tmp_path_factory):
+    return run_jax(tmp_path_factory.mktemp("home64"), _BODY_HOME,
+                   {"w64": HOME64, "sw": STORE64[0], "sc": STORE64[1]},
+                   x64=True)
+
+
+@pytest.mark.parametrize("cap", HOME_CAPS)
+def test_home_slot_mirror_64bit(jax_home64, cap):
+    """10**5 64-bit words, half with the top bit set: the kernel's unsigned
+    remainder equals `words.umod` of the port's slot hash, `ref.home_slots`
+    and the JAX package's `store_slots`."""
+    got = _mirror_home_slots(HOME64, cap, 64)
+    t = W.to_torch_words(HOME64)[0]
+    from repro_torch.core import owner
+    np.testing.assert_array_equal(
+        got, W.umod(owner.slot_hash(t, 64), cap, 64).to(torch.int32).numpy())
+    np.testing.assert_array_equal(got, ref.home_slots(t, cap, 64).numpy())
+    np.testing.assert_array_equal(got, jax_home64[f"s64_{cap}"])
+
+
+@pytest.mark.parametrize("cap", HOME_CAPS)
+def test_home_slot_mirror_32bit(cap):
+    from repro.core import countstore as jcs
+    got = _mirror_home_slots(HOME32, cap, 32)
+    t = W.to_torch_words(HOME32)[0]
+    np.testing.assert_array_equal(got, ref.home_slots(t, cap, 32).numpy())
+    np.testing.assert_array_equal(
+        got, np.asarray(jcs.store_slots(jnp.asarray(HOME32), cap)))
+
+
+def _port_store_insert(words, counts, cap, bits):
+    from repro_torch.core import countstore
+    st = countstore.empty_store(1, cap, bits)
+    return countstore.store_insert(st, W.to_torch_words(words)[0],
+                                   torch.from_numpy(counts))
+
+
+@pytest.mark.parametrize("cap", [1801, 300])
+def test_store_insert_no_slots_matches_jax_k31(jax_home64, cap):
+    """`store_insert` passes no slots; on the CPU its layout, counts and
+    drops equal the JAX package's store at k=31 (300 slots: it drops)."""
+    st = _port_store_insert(*STORE64, cap, 64)
+    want = jax_home64[f"st_{cap}"]
+    np.testing.assert_array_equal(st.keys[0].numpy(), want[0])
+    np.testing.assert_array_equal(st.counts[0].numpy(), want[1])
+    assert int(st.dropped[0]) == int(jax_home64[f"sd_{cap}"])
+    assert (int(st.dropped[0]) > 0) == (cap == 300)
+
+
+@pytest.mark.parametrize("cap", [1801, 300])
+def test_store_insert_no_slots_matches_jax_k13(cap):
+    from repro.core import countstore as jcs
+    words, counts = _store_batch(32)
+    st = _port_store_insert(words, counts, cap, 32)
+    js = jcs.store_insert(jcs.empty_store(cap, jnp.uint32),
+                          jnp.asarray(words[0]), jnp.asarray(counts[0]))
+    np.testing.assert_array_equal(W.to_numpy_words(st.keys[0], 32),
+                                  np.asarray(js.keys))
+    np.testing.assert_array_equal(st.counts[0].numpy(),
+                                  np.asarray(js.counts))
+    assert int(st.dropped[0]) == int(js.dropped)
+    assert (int(st.dropped[0]) > 0) == (cap == 300)
+
+
+@pytest.mark.parametrize("name", sorted(INSERT_CASES))
+def test_hash_insert_no_slots_equals_home_slots(name):
+    """`slots=None` on the CPU folds exactly as explicit `ref.home_slots`."""
+    tk, tc, keys, w, _ = _insert_case(name, SENT32, np.uint32, 19)
+    cap = tk.shape[1]
+    slots = ref.home_slots(W.to_torch_words(keys)[0], cap, 32).numpy()
+    want = _port_insert(tk, tc, keys, w, slots, SENT32)
+    got_k = W.to_torch_words(tk)[0].clone()
+    got_c = torch.from_numpy(tc.copy())
+    got_d = torch.zeros((2,), dtype=torch.int32)
+    ops.hash_insert(got_k, got_c, W.to_torch_words(keys)[0],
+                    torch.from_numpy(w), None, sentinel_val=SENT32,
+                    dropped=got_d, word_bits=32)
+    for g, r in zip((got_k, got_c, got_d), want):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="word_bits"):
+        ops.hash_insert(got_k, got_c, W.to_torch_words(keys)[0],
+                        torch.from_numpy(w), None, sentinel_val=SENT32,
+                        dropped=got_d)
+
+
+# --- row 9: the packed-row extraction, mirrored on the CPU --------------------
+# `csrc/kmer_extract.cu` stages a tile's codes from the 16-byte boundary
+# below its first code, packs them into 64-bit words (F: first symbol most
+# significant; L: first symbol least significant, for the reverse
+# complement), and reads each window with one funnel shift of two words.
+# This mirror walks the same tiles, packing (for b = 2 the multiply and
+# byte-permute steps) and word index / shift arithmetic in numpy.
+
+TILE_OUT, TILE_CODES = 8192, 16384
+_U64 = np.uint64
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm for selectors 0-7 on uint32 arrays."""
+    src = [(x >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)]
+    src += [(y >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(s >> (4 * i)) & 7] << np.uint32(8 * i)
+    return out
+
+
+def _pack_words(buf: np.ndarray, nchunks: int, b: int, canonical: bool):
+    """The packed F (and L) words of `nchunks` staged 16-byte chunks, one
+    zero word past them, as pack() computes them."""
+    nw = (nchunks * 16 * b + 63) // 64 + 1
+    data = np.zeros(64 * nw + 16 * nchunks + 64, np.uint8)
+    data[:16 * nchunks] = buf[:16 * nchunks]
+    if b == 2:
+        x = data[:32 * nw].view("<u4").reshape(nw, 8)
+        f = x * np.uint32(0x40100401)
+        fhi = _byte_perm(_byte_perm(f[:, 0], f[:, 1], 0x3700),
+                         _byte_perm(f[:, 2], f[:, 3], 0x0037), 0x3254)
+        flo = _byte_perm(_byte_perm(f[:, 4], f[:, 5], 0x3700),
+                         _byte_perm(f[:, 6], f[:, 7], 0x0037), 0x3254)
+        fw = (fhi.astype(_U64) << _U64(32)) | flo.astype(_U64)
+        if not canonical:
+            return fw, None
+        lw = x * np.uint32(0x01041040)
+        llo = _byte_perm(_byte_perm(lw[:, 0], lw[:, 1], 0x0073),
+                         _byte_perm(lw[:, 2], lw[:, 3], 0x0073), 0x5410)
+        lhi = _byte_perm(_byte_perm(lw[:, 4], lw[:, 5], 0x0073),
+                         _byte_perm(lw[:, 6], lw[:, 7], 0x0073), 0x5410)
+        return fw, (lhi.astype(_U64) << _U64(32)) | llo.astype(_U64)
+    fw = np.zeros(nw, _U64)
+    for w in range(nw):
+        lo, v = 64 * w, 0
+        for s in range(lo // b, (lo + 63) // b + 1):
+            c = int(data[s])
+            sh = 64 - b - (s * b - lo)
+            v |= (c << sh) & ((1 << 64) - 1) if sh >= 0 else c >> -sh
+        fw[w] = v
+    return fw, None
+
+
+def _shl2(a, b, o):
+    return (a << o) | ((b >> _U64(1)) >> (_U64(63) - o))
+
+
+def _shr2(a, b, o):
+    return (a >> o) | ((b << _U64(1)) << (_U64(63) - o))
+
+
+def _mirror_kmer_extract(codes: np.ndarray, k: int, b: int,
+                         canonical: bool, addr0: int = 0):
+    """The kernel's tiles over (rows, m) uint8 codes whose first byte lies
+    at an address of `addr0` mod 16: returns the words and how often each
+    was written."""
+    rows, m = codes.shape
+    n_pos = m - k + 1
+    flat = codes.reshape(-1)
+    kb = k * b
+    mask = _U64((1 << kb) - 1)
+    if n_pos <= TILE_OUT:
+        rb = min(TILE_OUT // n_pos, TILE_CODES // m)
+        rb = rb & ~1 if rb > 1 else max(rb, 1)
+        rb = min(rb, rows)
+        T, tiles = n_pos, [(t * rb, min(rows, t * rb + rb))
+                           for t in range(-(-rows // rb))]
+        spans = [(r0 * m, r1 * m, r0 * n_pos, (r1 - r0) * n_pos)
+                 for r0, r1 in tiles]
+    else:
+        T, per_row, rb = TILE_OUT, -(-n_pos // TILE_OUT), 1
+        spans = []
+        for r in range(rows):
+            for pt in range(per_row):
+                p0 = pt * TILE_OUT
+                ln = min(TILE_OUT, n_pos - p0)
+                spans.append((r * m + p0, r * m + p0 + ln + k - 1,
+                              r * n_pos + p0, ln))
+    out = np.zeros(rows * n_pos, _U64)
+    writes = np.zeros(rows * n_pos, np.int64)
+    for g0, g1, o0, ln in spans:
+        off0 = (addr0 + g0) % 16
+        nchunks = (off0 + g1 - g0 + 15) // 16
+        buf = np.zeros(16 * nchunks, np.uint8)
+        lo, hi = g0 - off0, g0 - off0 + 16 * nchunks
+        buf[max(0, -lo):16 * nchunks - max(0, hi - flat.size)] = \
+            flat[max(lo, 0):min(hi, flat.size)]
+        fw, lw = _pack_words(buf, nchunks, b, canonical)
+        e = np.arange(ln)
+        x = off0 + (e // T) * m + e % T
+        bit = x * b
+        w, o = bit >> 6, (bit & 63).astype(_U64)
+        fwd = _shl2(fw[w], fw[w + 1], o) >> _U64(64 - kb)
+        if canonical:
+            rc = ~_shr2(lw[w], lw[w + 1], o) & mask
+            fwd = np.minimum(fwd, rc)
+        out[o0:o0 + ln] = fwd
+        writes[o0:o0 + ln] += 1
+        # Tiles of several whole rows start at even words, so every pair
+        # (2t, 2t + 1) is one 16-byte store.
+        assert n_pos > TILE_OUT or rb == 1 or o0 % 2 == 0
+    return out.reshape(rows, n_pos), writes
+
+
+EXTRACT_MIRROR_CASES = [
+    # (k, bits, canonical, rows, m, addr0): every k at 2 bits, canonical and
+    # not; bits 1-8 at the widest k; m = k; odd n_pos (tiles at odd words);
+    # rows longer than a tile (n_pos > 8192), with an odd row length; codes
+    # that start off a 16-byte boundary.
+    *[(k, 2, c, 5, 150, k % 16) for k in range(1, 32) for c in (False, True)],
+    *[(62 // b, b, False, 7, 100, b) for b in range(1, 9)],
+    *[(5, b, False, 3, 77, 0) for b in range(1, 9)],
+    (31, 2, True, 40, 31, 3), (30, 2, True, 70, 150, 0),
+    (15, 2, True, 300, 60, 9), (31, 2, True, 3, 4200, 0),
+    (31, 2, True, 3, 4201, 5), (21, 2, False, 2, 9000, 1),
+    (31, 2, True, 1, 4126, 0), (7, 8, False, 100, 64, 0),
+    (31, 2, True, 3, 8223, 0), (31, 2, True, 2, 8300, 3),
+    (7, 8, False, 2, 20000, 0), (31, 2, True, 120, 150, 0)]
+
+_BODY_EXTRACT = """
+from repro.kernels import ref
+for i, (k, b, c) in enumerate(I["cases"].tolist()):
+    O[f"w{i}"] = np.asarray(ref.kmer_extract_ref(
+        jnp.asarray(I[f"c{i}"]), k, b, canonical=bool(c))).astype(np.uint64)
+"""
+
+
+def _extract_codes(i, case):
+    k, b, _, rows, m, _ = case
+    rng = np.random.default_rng(100 + i)
+    codes = rng.integers(0, 1 << b, size=(rows, m), dtype=np.uint8)
+    codes[0, :min(m, 40)] = 0                  # a poly-A run
+    return codes
+
+
+@pytest.fixture(scope="module")
+def jax_extract(tmp_path_factory):
+    inputs = {"cases": np.array([c[:3] for c in EXTRACT_MIRROR_CASES])}
+    for i, case in enumerate(EXTRACT_MIRROR_CASES):
+        inputs[f"c{i}"] = _extract_codes(i, case)
+    return run_jax(tmp_path_factory.mktemp("extract"), _BODY_EXTRACT, inputs,
+                   x64=True)
+
+
+@pytest.mark.parametrize("i", range(len(EXTRACT_MIRROR_CASES)))
+def test_kmer_extract_packed_window_mirror(jax_extract, i):
+    """The kernel's tiles, packing and window arithmetic against the JAX
+    package's `kmer_extract_ref`: every word written once and bit-equal."""
+    case = EXTRACT_MIRROR_CASES[i]
+    k, b, canonical, _, _, addr0 = case
+    got, writes = _mirror_kmer_extract(_extract_codes(i, case), k, b,
+                                       canonical, addr0)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, jax_extract[f"w{i}"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1, 257, 1 << 20, 188_743_680])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_hash_insert_home_slots_on_card(bits, cap):
+    """Row 4 with `slots=None`: the kernel's home slots. The table is set-
+    equal to the plain version's with the same drop signal; every inserted
+    key is then found by `hash_lookup` from `store_slots` with its count (a
+    wrong home slot hides the key); a `store_grow` rehash on the card keeps
+    the set."""
+    from repro_torch.core import countstore
+
+    dev = _cuda()
+    sent = W.sentinel(bits)
+    g = torch.Generator().manual_seed(cap + bits)
+    hi = 1 << 62 if bits == 64 else 1 << 32
+    pool = torch.randint(0, hi, (2, min(cap + 50, 3000)), generator=g)
+    if bits == 64:
+        pool[:, ::2] |= -(1 << 63)             # the top bit set
+    pool[:, 1::5] = sent - 1 if bits == 32 else -2
+    keys = pool.gather(1, torch.randint(0, pool.shape[1], (2, 5000),
+                                        generator=g))
+    keys[:, ::13] = sent
+    w = torch.randint(0, 4, keys.shape, generator=g, dtype=torch.int32)
+    st = countstore.empty_store(2, cap, bits, dev)
+    countstore.store_insert(st, keys.to(dev), w.to(dev))
+    pt = countstore.empty_store(2, cap, bits)
+    countstore.store_insert(pt, keys, w)
+    torch.cuda.synchronize()
+    dk, dc, dd = st.keys.cpu(), st.counts.cpu(), st.dropped.cpu()
+    for r in range(2):
+        assert (int(dd[r]) > 0) == (int(pt.dropped[r]) > 0)
+        occ, pocc = dk[r] != sent, pt.keys[r] != sent
+        got = sorted(zip(dk[r][occ].tolist(), dc[r][occ].tolist()))
+        if int(pt.dropped[r]) == 0:
+            assert got == sorted(zip(pt.keys[r][pocc].tolist(),
+                                     pt.counts[r][pocc].tolist()))
+        else:   # a full table: which keys win the slots may differ
+            assert len(got) == cap
+    counts, _ = countstore.store_lookup(st, st.keys)
+    live = st.keys != sent
+    assert torch.equal(counts[live], st.counts[live])
+    if int(dd.sum()) == 0:
+        grown = countstore.store_grow(st, 2 * cap + 1)
+        torch.cuda.synchronize()
+        gk = grown.keys.cpu()
+        for r in range(2):
+            occ = gk[r] != sent
+            assert sorted(gk[r][occ].tolist()) == sorted(
+                dk[r][dk[r] != sent].tolist())
+        counts, _ = countstore.store_lookup(grown, st.keys)
+        assert torch.equal(counts[live], st.counts[live])
