@@ -19,10 +19,15 @@ Phases:
      f32 and bf16 (the bf16 kernels on the tensor cores), head dims 15 to
      256, up to the training path's shape;
      the k-mer extraction, digit histogram and run-boundary kernels at
-     small shapes and edge cases; the rank kernel alone at B up to
-     MAX_BUCKETS, with ids of -1 and B, one bucket and alternating
-     buckets; the sliding minimum at w = 1 and w = n_pos, the query
-     shape, long rows and rows that start 8 bytes into 16);
+     small shapes and edge cases; the histogram's plain counts and its
+     plan prefix at B = 2 to 1024, ids of -1 and B, rows on either side
+     of PREFIX_MAX_CELLS and the store histogram's row; the rank kernel
+     alone at B up to MAX_BUCKETS, with ids of -1 and B, one bucket and
+     alternating buckets; the run sweep in its flags and compacting
+     modes, with and without weights, int32 sums that wrap, a row of
+     2**24 + 5 and the store histogram's row; the sliding minimum at
+     w = 1 and w = n_pos, the query shape, long rows and rows that start
+     8 bytes into 16);
   4. the paper's workload at full size: "Synthetic 26" (2**26 uniform
      bases), 2**23 reads of 150 bp, k=31, chunk_reads=256, 8 PEs on the
      card, checked exactly against an independent torch.unique count;
@@ -56,7 +61,12 @@ Phases:
      kernel records, no host time between launches); the insert cold (new
      keys, an empty store) and warm (phase 4's live share per batch slot
      and share of stored keys, a store pre-filled to phase 4's distinct
-     k-mers), each beside the old path's store_slots on its batch;
+     k-mers), each beside the old path's store_slots on its batch; row 1
+     with its prefix at B = 2, 9 and 257, row 3 in both modes at a scan
+     step's and the store histogram's shapes; and rows 1-3's call sites,
+     make_partition_plan and sort.accumulate(impl='fused'), as whole
+     calls (ms, device ms and device launches a call, in the JSON's
+     `calls`);
   7. on request only: the main path and one step of phase 9's training
      under torch.profiler (device time by kernel, the device's busy
      share, the main path's launches per scan step).
@@ -85,8 +95,9 @@ K = 31
 NUM_PES = 8
 # The kernels of count_kmers' path (phase 4); the counter's path (phase 8)
 # adds the lookup and the sliding minimum.
-COUNT_KERNELS = ("bucket_hist", "bucket_positions", "segment_accumulate",
-                 "hash_insert")
+COUNT_KERNELS = ("bucket_hist", "bucket_prefix", "bucket_positions",
+                 "segment_accumulate", "hash_insert")
+ROW1 = ("bucket_hist", "bucket_prefix")   # row 1's two entry points
 # The kernels reached only through their entry points (phase 10).
 SWEEP_KERNELS = ("kmer_extract", "radix_hist", "segment_boundaries")
 DEV = "cuda"
@@ -153,54 +164,12 @@ def check_kernels(torch, ops, ref, errs):
     dgen = torch.Generator(device=dev).manual_seed(0)
     store_per_pe = 188_743_680   # one PE's store on the full-size path
 
-    log("[kernels] partition: bucket_hist + bucket_positions")
-    for rows, n, b in ((3, 1000, 2), (8, 30720, 9), (8, 61440, 9),
-                       (8, 30720, 257), (2, 5000, 257), (1, 3001, 9),
-                       (1, store_per_pe, 257)):
-        ids = torch.randint(0, b, (rows, n), generator=gen,
-                            dtype=torch.int32).to(dev)
-        hist = ops.bucket_hist(ids, b)
-        torch.cuda.synchronize()
-        check(torch.equal(hist, ref.bucket_hist(ids, b, ops.TILE)),
-              f"bucket_hist differs at {(rows, n, b)}")
-        plan = ops.make_partition_plan(ids, b)
-        torch.cuda.synchronize()
-        want = ref.partition_plan(ids, b)
-        for field in ("positions", "totals", "starts"):
-            check(torch.equal(getattr(plan, field), getattr(want, field)),
-                  f"partition {field} differs at {(rows, n, b)}")
-        log(f"  rows={rows} n={n} B={b}: bit-equal")
-        del ids, hist, plan, want
-
+    check_partition(torch, ops, ref, gen, store_per_pe)
     check_positions(torch, ops, ref, dev)
-    errs["bucket_hist"] = errs["bucket_positions"] = 0   # every case equal
-    log("[kernels] segment_accumulate")
-    for word_bits in (32, 64):
-        sent = W.sentinel(word_bits)
-        for rows, n, nd, long_run, all_s in (
-                (8, 30720, 3000, 0, False), (8, 30720, 40, 0, False),
-                (2, 300_000, 5, 150_000, False), (3, 5000, 10, 0, True),
-                (1, 4099, 7, 0, False)):
-            keys, w = _sorted_runs(torch, dgen, rows, n, nd, sent,
-                                   word_bits, dev, long_run, all_s)
-            got = ops.segment_accumulate(keys, w, sentinel_val=sent)
-            torch.cuda.synchronize()
-            want = ref.segment_accumulate(keys, w, sent)
-            for g, r, name in zip(got, want, ("is_new", "is_end", "totals")):
-                check(torch.equal(g, r), f"segment_accumulate {name} differs "
-                      f"at {(word_bits, rows, n, nd)}")
-            log(f"  {word_bits}-bit rows={rows} n={n} distinct<={nd} "
-                f"long_run={long_run} all_sentinel={all_s}: bit-equal")
-    keys, w = _sorted_runs(torch, dgen, 1, store_per_pe, 1 << 26, -1, 64,
-                           dev)
-    got = ops.segment_accumulate(keys, w, sentinel_val=-1)
-    torch.cuda.synchronize()
-    want = ref.segment_accumulate(keys, w, -1)
-    for g, r in zip(got, want):
-        check(torch.equal(g, r), "segment_accumulate differs at store size")
-    log(f"  64-bit rows=1 n={store_per_pe}: bit-equal")
+    errs["bucket_hist"] = errs["bucket_prefix"] = 0   # every case equal
+    errs["bucket_positions"] = 0
+    check_accumulate(torch, ops, ref, dgen, store_per_pe)
     errs["segment_accumulate"] = 0
-    del keys, w, got, want
 
     log("[kernels] hash_insert")
     for word_bits in (32, 64):
@@ -255,6 +224,115 @@ def check_kernels(torch, ops, ref, errs):
     errs["sliding_min"] = errs["sliding_min_pair"] = 0
     check_flash(torch, ops, ref, errs)
     check_sweeps(torch, ops, ref, errs)
+
+
+def check_partition(torch, ops, ref, gen, store_per_pe):
+    """Row 1 (its plain counts and its prefix) and whole plans against
+    their plain versions: B = 2 to 1024, ragged tiles, ids of -1 and B,
+    rows whose (tiles, B) table lies on either side of PREFIX_MAX_CELLS
+    (the large side must still launch row 1, for its plain counts), and
+    the store histogram's row."""
+    from repro_torch.kernels.radix_partition import PREFIX_MAX_CELLS
+
+    dev = torch.device("cuda")
+    log("[kernels] partition: bucket_hist, bucket_prefix, whole plans")
+    for rows, n, b, kind in (
+            (3, 1000, 2, ""), (8, 30720, 2, ""), (8, 30720, 9, ""),
+            (8, 61440, 9, ""), (3, 5000, 9, "invalid"), (8, 30720, 257, ""),
+            (2, 5000, 257, "invalid"), (1, 3001, 9, ""),
+            (2, PREFIX_MAX_CELLS // 1024 * 1024, 1024, ""),
+            (2, PREFIX_MAX_CELLS // 1024 * 1024 + 5, 1024, "invalid"),
+            (8, PREFIX_MAX_CELLS // 2 * 1024, 2, ""),
+            (2, PREFIX_MAX_CELLS // 2 * 1024 + 1, 2, ""),
+            (1, store_per_pe, 257, "")):
+        ids = torch.randint(0, b, (rows, n), generator=gen,
+                            dtype=torch.int32).to(dev)
+        if kind == "invalid":
+            ids[:, ::5] = -1
+            ids[:, 2::7] = b
+        hist = ops.bucket_hist(ids, b)
+        torch.cuda.synchronize()
+        check(torch.equal(hist, ref.bucket_hist(ids, b, ops.TILE)),
+              f"bucket_hist differs at {(rows, n, b, kind)}")
+        before = (ops.bucket_prefix.launches, ops.bucket_hist.launches)
+        got = ops.bucket_prefix(ids, b)
+        torch.cuda.synchronize()
+        fits = -(-n // ops.TILE) * b <= PREFIX_MAX_CELLS
+        check((ops.bucket_prefix.launches - before[0],
+               ops.bucket_hist.launches - before[1])
+              == ((1, 0) if fits else (0, 1)),
+              f"bucket_prefix took the wrong branch at {(rows, n, b)}")
+        for g, w, name in zip(got, ref.bucket_prefix(ids, b, ops.TILE),
+                              ("base", "totals", "starts")):
+            check(torch.equal(g, w), f"bucket_prefix {name} differs at "
+                  f"{(rows, n, b, kind)}")
+        if not kind:
+            plan = ops.make_partition_plan(ids, b)
+            torch.cuda.synchronize()
+            want = ref.partition_plan(ids, b)
+            for field in ("positions", "totals", "starts"):
+                check(torch.equal(getattr(plan, field), getattr(want, field)),
+                      f"partition {field} differs at {(rows, n, b)}")
+            del plan, want
+        log(f"  rows={rows} n={n} B={b} {kind or 'random'}: bit-equal "
+            f"({'prefix in the kernel' if fits else 'prefix in tensor code'})")
+        del ids, hist, got
+
+
+def check_accumulate(torch, ops, ref, dgen, store_per_pe):
+    """Row 3, both modes, against the plain versions: runs that span many
+    tiles, all-sentinel rows, int32 sums that wrap, every valid key
+    weighing 1 (weights=None), ragged rows, a row of 2**24 + 5 elements,
+    the store histogram's row."""
+    from repro_torch import words as W
+    from repro_torch.core import sort
+
+    log("[kernels] segment_accumulate, flags and compacting modes")
+    cases = []
+    for word_bits in (32, 64):
+        for rows, n, nd, long_run, all_s, wkind in (
+                (8, 30720, 3000, 0, False, "small"),
+                (8, 30720, 40, 0, False, "ones"),
+                (2, 300_000, 5, 150_000, False, "wrap"),
+                (3, 5000, 10, 0, True, "small"),
+                (1, 4099, 7, 0, False, "small"),
+                (1, (1 << 24) + 5, 1 << 20, 0, False, "small")):
+            cases.append((word_bits, rows, n, nd, long_run, all_s, wkind))
+    cases.append((64, 1, store_per_pe, 1 << 26, 0, False, "small"))
+    for word_bits, rows, n, nd, long_run, all_s, wkind in cases:
+        sent = W.sentinel(word_bits)
+        keys, w = _sorted_runs(torch, dgen, rows, n, nd, sent, word_bits,
+                               "cuda", long_run, all_s)
+        if wkind == "wrap":
+            w = torch.randint(1 << 29, (1 << 31) - 1, (rows, n),
+                              generator=dgen, dtype=torch.int32,
+                              device="cuda")
+        elif wkind == "ones":
+            w = None
+        what = (word_bits, rows, n, nd, long_run, all_s, wkind)
+        for compact in (False, True):
+            got = ops.segment_accumulate(keys, w, sentinel_val=sent,
+                                         compact=compact)
+            torch.cuda.synchronize()
+            plain = ref.segment_compact if compact else ref.segment_accumulate
+            for g, r in zip(got, plain(keys, w, sent)):
+                check(torch.equal(g, r), f"segment_accumulate differs at "
+                      f"{what}, compact={compact}")
+            del got
+        if n < store_per_pe:
+            fused = sort.accumulate(keys, w, sentinel_val=sent, impl="fused")
+            oracle = sort.accumulate(keys, w, sentinel_val=sent,
+                                     impl="segment_sum")
+            for field in fused._fields:
+                check(torch.equal(getattr(fused, field),
+                                  getattr(oracle, field)),
+                      f"accumulate(impl='fused') {field} differs at {what}")
+            del fused, oracle
+        log(f"  {word_bits}-bit rows={rows} n={n} distinct<={nd} "
+            f"long_run={long_run} all_sentinel={all_s} weights={wkind}: "
+            f"both modes bit-equal")
+        del keys, w
+    torch.cuda.empty_cache()
 
 
 def check_sweeps(torch, ops, ref, errs):
@@ -741,7 +819,13 @@ def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
     launches = {name: launches[name] for name in COUNT_KERNELS}
     log(f"  launches on this path {launches}")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} did not launch on the main path")
+        # Row 1 launches through bucket_prefix, and through bucket_hist for
+        # rows too large for the prefix in the kernel (the store
+        # histogram's at full size; a small run has none).
+        if name not in ROW1:
+            check(n > 0, f"kernel {name} did not launch on the main path")
+    check(sum(launches[name] for name in ROW1) > 0,
+          "row 1 did not launch on the main path")
     t0 = time.perf_counter()
     distinct = reference_check(torch, reads, k, res, stats, num_pes, pieces)
     log(f"  exact against torch.unique: {distinct} distinct k-mers, "
@@ -860,7 +944,8 @@ def counter_phase(torch, fabsp, ops, genome):
     kc, launches, numbers = run_counter(torch, fabsp, ops, genome, cfg, spec,
                                         NUM_PES, 8, 1 << 20, 4, "full size")
     for name in ("hash_lookup", "sliding_min_pair", "hash_insert",
-                 "bucket_hist", "bucket_positions", "segment_accumulate"):
+                 "bucket_hist", "bucket_prefix", "bucket_positions",
+                 "segment_accumulate"):
         check(launches[name] > 0, f"kernel {name} did not launch on the "
               f"counter's path")
     out = {"full": (launches, numbers)}
@@ -1219,10 +1304,13 @@ def time_ms(torch, fn, reps=20):
 
 @functools.cache
 def port_kernel_names():
-    """The __global__ functions of src/repro_torch/csrc/*.cu, each in the
+    """The __global__ functions of the imported repro_torch's csrc/*.cu
+    (this tree's, or the one a script put first on the path), each in the
     sources' anonymous namespace."""
+    import repro_torch
+
     names = set()
-    csrc = os.path.join(SRC, "repro_torch", "csrc")
+    csrc = os.path.join(os.path.dirname(repro_torch.__file__), "csrc")
     for f in sorted(os.listdir(csrc)):
         if f.endswith(".cu"):
             with open(os.path.join(csrc, f)) as src:
@@ -1232,16 +1320,13 @@ def port_kernel_names():
     return names
 
 
-def device_ms(torch, fn, reps=20, port=True, tries=DEVICE_MS_TRIES):
-    """Device time per call: torch.profiler's CUDA records over `reps`
-    calls after a warm-up, summed and divided by `reps`, with no host time
-    in between. `port`: the records of the port's kernels (any other
-    device time of the calls is logged); else every device record (a
-    library call). On the card the profiler has kept too few kernel
-    records, three at a window's edge: the timed calls sit between spin
-    kernels (torch.cuda._sleep, left out of the sums), and a window whose
-    records per kernel are not a whole multiple of the calls is measured
-    again."""
+def _device_records(torch, fn, reps, tries):
+    """{record name: (count, device us)} of torch.profiler's CUDA records
+    over `reps` calls after a warm-up, with no host time in between. On
+    the card the profiler has kept too few kernel records, three at a
+    window's edge: the timed calls sit between spin kernels
+    (torch.cuda._sleep, left out), and a window whose records per kernel
+    are not a whole multiple of the calls is measured again."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -1277,12 +1362,19 @@ def device_ms(torch, fn, reps=20, port=True, tries=DEVICE_MS_TRIES):
                 f"kernels' records before the calls, "
                 f"{len(spins) - before} of {SPIN_PAD} after)")
         if recs and all(c % reps == 0 for c, _ in recs.values()):
-            break
+            return recs
         log(f"  (the profiler kept {sorted(c for c, _ in recs.values())} "
             f"kernel records of {reps} calls; measured again)")
-    else:
-        raise AssertionError(f"the profiler lost kernel records in {tries} "
-                             f"windows")
+    raise AssertionError(f"the profiler lost kernel records in {tries} "
+                         f"windows")
+
+
+def device_ms(torch, fn, reps=20, port=True, tries=DEVICE_MS_TRIES):
+    """Device time per call from torch.profiler's CUDA records
+    (`_device_records`), summed and divided by `reps`. `port`: the records
+    of the port's kernels (any other device time of the calls is logged);
+    else every device record (a library call)."""
+    recs = _device_records(torch, fn, reps, tries)
     mine = rest = 0.0
     for key, (_, us) in recs.items():
         name = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", key)
@@ -1295,6 +1387,15 @@ def device_ms(torch, fn, reps=20, port=True, tries=DEVICE_MS_TRIES):
         log(f"  (besides the port's kernels, {rest / reps / 1e3:.4f} ms of "
             f"PyTorch device work per call)")
     return mine / reps / 1e3
+
+
+def whole_call(torch, fn, reps=20):
+    """A call of several device operations: (ms a call, device ms a call
+    of every record, device launches a call: kernels, fills and copies)."""
+    ms = time_ms(torch, fn, reps)
+    recs = _device_records(torch, fn, reps, DEVICE_MS_TRIES)
+    return (ms, sum(us for _, us in recs.values()) / reps / 1e3,
+            sum(c for c, _ in recs.values()) / reps)
 
 
 def call_times(torch, fn, reps=20):
@@ -1317,8 +1418,7 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows,
     ids = torch.randint(0, b, (rows, n), generator=gen,
                         dtype=torch.int32).to(dev)
     n_tiles = -(-n // ops.TILE)
-    hist = ops.bucket_hist(ids, b)
-    base = (torch.cumsum(hist, 1) - hist).to(torch.int32)
+    base = ops.bucket_prefix(ids, b)[0]
     out = []
 
     def entry(name, source, replaces, times, plain_ms, nbytes, library,
@@ -1342,8 +1442,9 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows,
 
     shape_of = {
         "bucket_hist": f"ids ({rows}, {n}) int32, B={b}",
+        "bucket_prefix": f"ids ({rows}, {n}) int32, B={b}",
         "bucket_positions": f"ids ({rows}, {n}) int32, B={b}",
-        "segment_accumulate": f"keys ({rows}, {n}) int64",
+        "segment_accumulate": f"keys ({rows}, {n}) int64, flags mode",
         "hash_insert": None,
     }
     tile_key = ref._tile_keys(ids, b, ops.TILE)[0]
@@ -1354,6 +1455,24 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows,
           rows * n * 4 + rows * n_tiles * b * 4,
           library_times(torch, lambda: torch.bincount(
               tile_key, minlength=rows * n_tiles * b)))
+    prefix_bytes = lambda nb: rows * n * 4 + rows * (n_tiles + 2) * nb * 4
+    entry("bucket_prefix", "src/repro_torch/csrc/radix_partition.cu",
+          "src/repro/kernels/radix_partition.py:65",
+          call_times(torch, lambda: ops.bucket_prefix(ids, b)),
+          time_ms(torch, lambda: ref.bucket_prefix(ids, b, ops.TILE)),
+          prefix_bytes(b), None)
+    by_b = {}
+    for nb in (2, 9):
+        ids_b = torch.randint(0, nb, (rows, n), generator=gen,
+                              dtype=torch.int32).to(dev)
+        ms, dev_ms = call_times(torch, lambda: ops.bucket_prefix(ids_b, nb))
+        by_b[str(nb)] = {"ms": ms, "device_ms": dev_ms, "bound_ms":
+                         prefix_bytes(nb) / HBM_BYTES_PER_S * 1e3}
+        log(f"  bucket_prefix at B={nb}: {ms:.4f} ms a call, {dev_ms:.4f} "
+            f"ms on the device, bound {by_b[str(nb)]['bound_ms']:.6f}")
+    out[-1]["by_buckets"] = by_b
+    log("  bucket_prefix library_ms: none, no one PyTorch call gives the "
+        "plan's prefix (torch.bincount gives the counts alone)")
     entry("bucket_positions", "src/repro_torch/csrc/radix_partition.cu",
           "src/repro/kernels/radix_partition.py:93",
           call_times(torch, lambda: ops.bucket_positions(ids, base)),
@@ -1362,14 +1481,39 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows,
           library_times(torch, lambda: torch.argsort(ids, dim=1,
                                                      stable=True)))
 
-    keys, w = _sorted_runs(torch, torch.Generator(device=dev).manual_seed(1),
-                           rows, n, 15000, -1, 64, dev)
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    keys, w = _sorted_runs(torch, dgen, rows, n, 15000, -1, 64, dev)
     entry("segment_accumulate", "src/repro_torch/csrc/segment_count.cu",
           "src/repro/kernels/segment_count.py:105",
           call_times(torch, lambda: ops.segment_accumulate(
               keys, w, sentinel_val=-1)),
           time_ms(torch, lambda: ref.segment_accumulate(keys, w, -1)),
           rows * n * (8 + 4) + rows * n * (1 + 1 + 4), None)
+    acc = out[-1]
+    ms, dev_ms = call_times(torch, lambda: ops.segment_accumulate(
+        keys, None, sentinel_val=-1, compact=True))
+    acc["compact"] = {"ms": ms, "device_ms": dev_ms, "bound_ms":
+                      rows * n * (8 + 8 + 4) / HBM_BYTES_PER_S * 1e3}
+    log(f"  segment_accumulate compacting, weights=None, at ({rows}, {n}): "
+        f"{ms:.4f} ms a call (with its two fills), {dev_ms:.4f} ms on the "
+        f"device (the kernel), bound {acc['compact']['bound_ms']:.6f}")
+    del keys, w
+    store_n = STORE_CAP
+    keys, w = _sorted_runs(torch, dgen, 1, store_n, 1 << 26, -1, 64, dev)
+    store = {}
+    for compact in (False, True):
+        ms, dev_ms = call_times(torch, lambda: ops.segment_accumulate(
+            keys, w, sentinel_val=-1, compact=compact), reps=5)
+        nbytes = store_n * (12 + (12 if compact else 6))
+        store["compact" if compact else "flags"] = {
+            "ms": ms, "device_ms": dev_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        log(f"  segment_accumulate at the store histogram's (1, {store_n}), "
+            f"compact={compact}: {ms:.4f} ms a call, {dev_ms:.4f} ms on "
+            f"the device, bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f}")
+    acc["store_row"] = store
+    del keys, w
+    torch.cuda.empty_cache()
 
     insert_rows(torch, ops, entry, out, shape_of, insert_state)
     new_kernel_times(torch, ops, ref, counter, entry, shape_of)
@@ -1384,6 +1528,37 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows,
             f"{e['library_ms']} / device {e['library_device_ms']}, bound "
             f"{e['bound_ms']:.5f}) at {e['shape']}")
     return out
+
+
+def call_sites(torch, ops):
+    """Rows 1-3's call sites as whole calls at one scan step's shapes:
+    `make_partition_plan` (a radix pass, B=257, and the route, B=9) and
+    `sort.accumulate(impl='fused')` (the L3 compressor's, weights=None):
+    ms a call, device ms a call of every device record, and device
+    launches a call (kernels, fills and copies)."""
+    from repro_torch.core import sort
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    out = []
+    for rows, n, b in ((NUM_PES, 30720, 257), (NUM_PES, 61440, 9)):
+        ids = torch.randint(0, b, (rows, n), generator=gen,
+                            dtype=torch.int32).to(dev)
+        out.append(("make_partition_plan", f"ids ({rows}, {n}) int32, "
+                    f"B={b}", whole_call(
+                        torch, lambda: ops.make_partition_plan(ids, b))))
+    keys, _ = _sorted_runs(torch, torch.Generator(device=dev).manual_seed(3),
+                           NUM_PES, 30720, 15000, -1, 64, dev)
+    out.append(("accumulate_fused", f"keys ({NUM_PES}, 30720) int64, "
+                f"weights=None", whole_call(torch, lambda: sort.accumulate(
+                    keys, sentinel_val=-1, impl="fused"))))
+    calls = []
+    for name, shape, (ms, dev_ms, n_launch) in out:
+        log(f"  {name} at {shape}: {ms:.4f} ms a call, {dev_ms:.4f} ms of "
+            f"device records, {n_launch:g} device launches a call")
+        calls.append({"name": name, "shape": shape, "ms": ms,
+                      "device_ms": dev_ms, "device_launches": n_launch})
+    return calls
 
 
 # --- phase 6, row 4: the insert at the receiver's batch ---------------------
@@ -1884,6 +2059,9 @@ def main(argv=None) -> int:
         launches, _, _, distinct, stats = run_count(
             torch, fabsp, ops, genome, args.reads, K, NUM_PES, pieces=4,
             genome_bases=1 << 26)
+        for name in ROW1:
+            check(launches[name] > 0, f"{name} did not launch on the main "
+                  f"path at full size")
         count_run = (distinct, stats, launches["hash_insert"])
         torch.cuda.empty_cache()
 
@@ -1935,6 +2113,7 @@ def main(argv=None) -> int:
             "kernel records of as many calls")
         record = kernel_times(torch, ops, ref, launches, errs, counter,
                               sweep_rows, insert_state)
+        calls = call_sites(torch, ops)
         counter = None
         torch.cuda.empty_cache()
 
@@ -1946,7 +2125,7 @@ def main(argv=None) -> int:
 
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     if record is not None:
-        log(json.dumps({"kernels": record}))
+        log(json.dumps({"kernels": record, "calls": calls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Rows 2, 6 and 9 (`bucket_positions`, `sliding_min`, `kmer_extract`)
-timed as phase 6 of chip_smoke.py times them, for the port under any
-source tree.
+"""Rows 1, 2, 3, 6 and 9 (`bucket_hist` / `bucket_prefix`,
+`bucket_positions`, `segment_accumulate`, `sliding_min`, `kmer_extract`)
+and the call sites of rows 1-3 (`make_partition_plan`,
+`sort.accumulate(impl='fused')`) timed as phase 6 of chip_smoke.py times
+them, for the port under any source tree.
 
 Phase 6's two measurements (`chip_smoke.time_ms`: CUDA events around
 back-to-back calls; `chip_smoke.device_ms`: torch.profiler's kernel records)
@@ -12,14 +14,21 @@ one process run after another on one card:
     python3 scripts/kernel_device_times.py --src build/parent/src
     python3 scripts/kernel_device_times.py --src src
 
-Shapes: the partition rank at one radix pass of one step, ids (8, 30720)
-int32 with B=257; the sliding minimum at one scan step's m-mers, (2048, 144)
+Shapes: the histogram at one radix pass of one step, ids (8, 30720) int32
+with B=257 (plain counts, and, in trees that have it, the histogram with
+the plan's prefix at B=2, 9 and 257); the partition rank at the same ids;
+the run sweep at (8, 30720) sorted int64 words, flags mode; the plan at
+(8, 30720), B=257, and at (8, 61440), B=9; the L3 compressor's
+accumulate at (8, 30720) with weights=None (the call sites: ms, device
+ms of every record and device launches a call); the sliding minimum at one scan step's m-mers, (2048, 144)
 int64 with w=25, and at the query path's windows, (2**20, 25) with w=25;
 the extraction at phase 10's shape, the Synthetic-26 read set's 2**23
 reads of 150 bp to canonical k=31 words in one launch, beside the time to
 zero its output in PyTorch (`Tensor.zero_`, the same 8 GB written: a
 floor for the writes alone, not the same function). `--rows 9` picks
-rows. Prints one JSON line per row. Needs a CUDA card.
+rows (1, 2, 3, 6, 9, plan, acc). With --profile, phase 7's profile of
+`count_kmers` at 2**20 reads and its launches per scan step. Prints one
+JSON line per row. Needs a CUDA card.
 """
 
 import argparse
@@ -34,9 +43,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
                     help="the directory that holds repro_torch")
-    ap.add_argument("--rows", default="2,6,9", help="of 2, 6 and 9")
+    ap.add_argument("--rows", default="1,2,3,6,9,plan,acc",
+                    help="of 1, 2, 3, 6, 9, plan and acc")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    wanted = {int(r) for r in args.rows.split(",")}
+    wanted = set(args.rows.split(","))
     import torch
     if not torch.cuda.is_available():
         print("kernel_device_times: no CUDA device", file=sys.stderr)
@@ -44,7 +55,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, os.path.dirname(HERE))
     import chip_smoke as cs
-    from repro_torch.core import encoding
+    from repro_torch.core import encoding, fabsp, sort
     from repro_torch.data import genome
     from repro_torch.kernels import build, ops
 
@@ -55,11 +66,22 @@ def main():
                         dtype=torch.int32).to(dev)
     hist = ops.bucket_hist(ids, 257)
     base = (torch.cumsum(hist, 1) - hist).to(torch.int32)
+    keys, w = cs._sorted_runs(torch,
+                              torch.Generator(device=dev).manual_seed(1),
+                              cs.NUM_PES, 30720, 15000, -1, 64, dev)
+    for name, shape, fn in call_sites(torch, cs, ops, sort, wanted, dev,
+                                      gen):
+        ms, dev_ms, n_launch = cs.whole_call(torch, fn)
+        print(json.dumps({"src": args.src, "name": name, "shape": shape,
+                          "ms": ms, "device_ms": dev_ms,
+                          "device_launches": n_launch}), flush=True)
     spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=cs.NUM_PES * 256,
                               read_len=150, seed=4)
     mmers = encoding.pack_kmers(genome.sample_reads_torch(spec, dev), 7)
     queries = torch.randint(0, 1 << 62, (1 << 20, 25), generator=gen).to(dev)
     rows = (
+        ("bucket_hist", "ids (8, 30720) int32, B=257",
+         lambda: ops.bucket_hist(ids, 257), None),
         ("bucket_positions", "ids (8, 30720) int32, B=257",
          lambda: ops.bucket_positions(ids, base),
          lambda: torch.argsort(ids, dim=1, stable=True)),
@@ -70,8 +92,20 @@ def main():
          lambda: ops.sliding_min(queries, 25),
          lambda: queries.amin(1, keepdim=True)),
     )
-    rows = [row for r, row in zip((2, 6, 6), rows) if r in wanted]
-    if 9 in wanted:
+    rows = [row for r, row in zip("1266", rows) if r in wanted]
+    if "1" in wanted and hasattr(ops, "bucket_prefix"):
+        for nb in (2, 9, 257):
+            ids_b = torch.randint(0, nb, (cs.NUM_PES, 30720), generator=gen,
+                                  dtype=torch.int32).to(dev)
+            rows.append(("bucket_prefix", f"ids (8, 30720) int32, B={nb}",
+                         lambda ids_b=ids_b, nb=nb: ops.bucket_prefix(ids_b,
+                                                                      nb),
+                         None))
+    if "3" in wanted:
+        rows.append(("segment_accumulate", "keys (8, 30720) int64, flags",
+                     lambda: ops.segment_accumulate(keys, w, sentinel_val=-1),
+                     None))
+    if "9" in wanted:
         reads = genome.sample_reads_torch(genome.ReadSetSpec(
             genome_bases=1 << 26, n_reads=1 << 23, read_len=150, seed=0), dev)
         out = torch.empty((reads.shape[0], reads.shape[1] - cs.K + 1),
@@ -83,14 +117,40 @@ def main():
     for name, shape, fn, library in rows:
         reps = 5 if name == "kmer_extract" else 20
         ms, dev_ms = cs.call_times(torch, fn, reps)
-        lib_ms, lib_dev_ms = cs.library_times(torch, library, reps)
-        beside = ("zero_of_output" if name == "kmer_extract"
-                  else "library")
-        print(json.dumps({"src": args.src, "name": name, "shape": shape,
-                          "ms": ms, "device_ms": dev_ms,
-                          f"{beside}_ms": lib_ms,
-                          f"{beside}_device_ms": lib_dev_ms}), flush=True)
+        rec = {"src": args.src, "name": name, "shape": shape, "ms": ms,
+               "device_ms": dev_ms}
+        if library is not None:
+            lib_ms, lib_dev_ms = cs.library_times(torch, library, reps)
+            beside = ("zero_of_output" if name == "kmer_extract"
+                      else "library")
+            rec.update({f"{beside}_ms": lib_ms,
+                        f"{beside}_device_ms": lib_dev_ms})
+        print(json.dumps(rec), flush=True)
+    if args.profile:
+        per_step = cs.profile_path(torch, fabsp, genome, 1 << 20)
+        print(json.dumps({"src": args.src, "name": "count_kmers_profile",
+                          "launches_per_step": per_step}), flush=True)
     return 0
+
+
+def call_sites(torch, cs, ops, sort, wanted, dev, gen):
+    """(name, shape, call) of the plan and the L3 accumulate."""
+    out = []
+    if "plan" in wanted:
+        for n, nb in ((30720, 257), (61440, 9)):
+            ids = torch.randint(0, nb, (8, n), generator=gen,
+                                dtype=torch.int32).to(dev)
+            out.append(("make_partition_plan", f"ids (8, {n}) int32, B={nb}",
+                        lambda ids=ids, nb=nb: ops.make_partition_plan(ids,
+                                                                       nb)))
+    if "acc" in wanted:
+        keys, _ = cs._sorted_runs(
+            torch, torch.Generator(device=dev).manual_seed(3), 8, 30720,
+            15000, -1, 64, dev)
+        out.append(("accumulate_fused", "keys (8, 30720) int64, weights=None",
+                    lambda: sort.accumulate(keys, sentinel_val=-1,
+                                            impl="fused")))
+    return out
 
 
 if __name__ == "__main__":

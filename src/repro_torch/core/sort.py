@@ -8,8 +8,9 @@ stream, sorted and accumulated on its own.
   sentinel goes to a tail bucket of its own on every pass.
 - `sort_with_weights(impl='argsort')`: the comparison-sort oracle.
 - `accumulate`: the sorted-run sweep. 'fused' runs the boundary and
-  run-total kernel once; 'segment_sum' is the two-pass oracle, whose
-  run-start flags come from a tensor expression or the boundary kernel.
+  run-total kernel once, compacting in it; 'segment_sum' is the two-pass
+  oracle, whose run-start flags come from a tensor expression or the
+  boundary kernel.
 
 Words are int64 (see `repro_torch.words`). The radix passes read logical
 digits and the oracle sorts in unsigned order, so both see the same order
@@ -32,18 +33,6 @@ class AccumResult(NamedTuple):
     unique: torch.Tensor      # unique keys, ascending; sentinel past num_unique
     counts: torch.Tensor      # int32 counts; 0 past num_unique
     num_unique: torch.Tensor  # (P,) int32
-
-
-def _scatter_drop(idx: torch.Tensor, src: torch.Tensor,
-                  fill: int) -> torch.Tensor:
-    """`full(fill).at[idx].set(src, mode='drop')` along dim 1, where every
-    dropped element points one past the end: scatter into one extra slot
-    and slice it off. Kept destinations are unique, so this is
-    deterministic on CUDA too."""
-    p, n = src.shape
-    buf = torch.full((p, n + 1), fill, dtype=src.dtype, device=src.device)
-    buf.scatter_(1, idx, src)
-    return buf[:, :n]
 
 
 def _radix_sort_lanes(keys: torch.Tensor, lanes: Sequence[torch.Tensor],
@@ -114,33 +103,30 @@ def accumulate(sorted_keys: torch.Tensor,
 
     sorted_keys: (P, n) ascending per row, padding == sentinel_val (last).
     weights: optional int32 multiplicities; 1 per valid entry by default.
-    impl: 'fused' runs the boundary + run-total kernel and one compaction
-    scatter; 'segment_sum' is the two-pass oracle. Bit-identical results.
+    impl: 'fused' runs the boundary + run-total kernel in its compacting
+    mode (on the card two fills and one launch); 'segment_sum' is the
+    two-pass oracle. Bit-identical results.
     boundaries_impl ('segment_sum' only; 'fused' ignores it): 'inline'
     takes the run-start flags from their plain tensor expression, 'kernel'
     from the `segment_boundaries` kernel -- the JAX package's 'jnp' and
     'pallas'.
     """
+    if impl == "fused":
+        if weights is not None:
+            weights = weights.to(torch.int32).contiguous()
+        unique, counts, num_unique = ops.segment_accumulate(
+            sorted_keys.contiguous(), weights, sentinel_val=sentinel_val,
+            compact=True)
+        return AccumResult(unique=unique, counts=counts,
+                           num_unique=num_unique)
+    if impl != "segment_sum":
+        raise ValueError(f"unknown accumulate impl {impl!r}")
     p, n = sorted_keys.shape
     valid = sorted_keys != sentinel_val
     if weights is None:
         w = valid.to(torch.int32)
     else:
         w = torch.where(valid, weights.to(torch.int32), 0)
-    if impl == "fused":
-        is_new, is_end, run_tot = ops.segment_accumulate(
-            sorted_keys.contiguous(), w, sentinel_val=sentinel_val)
-        del w, valid
-        seg = torch.clamp(torch.cumsum(is_new, 1, dtype=torch.int64) - 1,
-                          min=0)
-        unique = _scatter_drop(torch.where(is_new, seg, n), sorted_keys,
-                               sentinel_val)
-        counts = _scatter_drop(torch.where(is_end, seg, n), run_tot, 0)
-        num_unique = is_new.sum(1, dtype=torch.int32)
-        return AccumResult(unique=unique, counts=counts,
-                           num_unique=num_unique)
-    if impl != "segment_sum":
-        raise ValueError(f"unknown accumulate impl {impl!r}")
     if boundaries_impl == "kernel":
         is_new = ops.segment_boundaries(sorted_keys.contiguous(),
                                         sentinel_val=sentinel_val)
@@ -151,8 +137,8 @@ def accumulate(sorted_keys: torch.Tensor,
     seg = torch.clamp(torch.cumsum(is_new, 1, dtype=torch.int64) - 1, min=0)
     counts = torch.zeros((p, n), dtype=torch.int64, device=sorted_keys.device)
     counts.scatter_add_(1, seg, w.to(torch.int64))
-    unique = _scatter_drop(torch.where(is_new, seg, n), sorted_keys,
-                           sentinel_val)
+    unique = ref.scatter_drop(torch.where(is_new, seg, n), sorted_keys,
+                              sentinel_val)
     num_unique = is_new.sum(1, dtype=torch.int32)
     live = torch.arange(n, device=sorted_keys.device)[None, :] \
         < num_unique[:, None]

@@ -21,7 +21,8 @@ from repro_torch.kernels import (hash_table, minimizer, radix_partition, ref,
                                  segment_count)
 from repro_torch.kernels import kmer_extract as extract_kernels
 from repro_torch.kernels import radix_hist as radix_hist_kernels
-from repro_torch.kernels.radix_partition import TILE, PartitionPlan
+from repro_torch.kernels.radix_partition import (PREFIX_MAX_CELLS, TILE,
+                                                 PartitionPlan)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -108,6 +109,23 @@ def bucket_hist(buckets: torch.Tensor, num_buckets: int) -> torch.Tensor:
     return out
 
 
+def bucket_prefix(buckets: torch.Tensor, num_buckets: int):
+    """(P, n) int32 ids -> the partition plan's prefix of their per-tile
+    histograms: (base (P, n_tiles, B), totals (P, B), starts (P, B)).
+
+    On the card one launch of the histogram kernel, which writes the
+    prefix itself, where a row's (tiles, B) table fits PREFIX_MAX_CELLS;
+    a larger row takes `bucket_hist`'s counts and the prefix in tensor
+    code (`radix_partition.hist_prefix`)."""
+    if _on_cpu(buckets):
+        return ref.bucket_prefix(buckets, num_buckets, TILE)
+    if -(-buckets.shape[1] // TILE) * num_buckets > PREFIX_MAX_CELLS:
+        return radix_partition.hist_prefix(bucket_hist(buckets, num_buckets))
+    out = radix_partition.bucket_prefix_cuda(buckets, num_buckets)
+    bucket_prefix.launches += 1
+    return out
+
+
 def bucket_positions(buckets: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """(P, n) int32 ids + (P, n_tiles, B) bases -> (P, n) int32 slots."""
     if _on_cpu(buckets):
@@ -117,13 +135,19 @@ def bucket_positions(buckets: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def segment_accumulate(sorted_keys: torch.Tensor, weights: torch.Tensor, *,
-                       sentinel_val: int):
-    """Fused boundary + run-total sweep: (is_new, is_end, run_totals)."""
+def segment_accumulate(sorted_keys: torch.Tensor,
+                       weights: Optional[torch.Tensor], *,
+                       sentinel_val: int, compact: bool = False):
+    """The fused boundary + run-total sweep of (P, n) sorted words, int32
+    weights or None (every valid word weighs 1), one launch on the card:
+    (is_new, is_end, run_totals); with `compact`, the runs compacted
+    instead: (unique keys, counts, num_unique), the slots past num_unique
+    holding the sentinel and 0."""
     if _on_cpu(sorted_keys):
-        return ref.segment_accumulate(sorted_keys, weights, sentinel_val)
+        plain = ref.segment_compact if compact else ref.segment_accumulate
+        return plain(sorted_keys, weights, sentinel_val)
     out = segment_count.segment_accumulate_cuda(sorted_keys, weights,
-                                                sentinel_val)
+                                                sentinel_val, compact)
     segment_accumulate.launches += 1
     return out
 
@@ -307,10 +331,12 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
                                  _resolved_scale(q, scale))
 
 
-KERNELS = (bucket_hist, bucket_positions, segment_accumulate, hash_insert,
-           hash_lookup, sliding_min, sliding_min_pair, flash_attention,
-           flash_attention_fwd_lse, flash_attention_bwd, segment_boundaries,
-           kmer_extract, radix_hist)
+# Row 1 has two entry points: `bucket_prefix` (the histogram kernel with
+# the plan's prefix) and `bucket_hist` (its plain counts).
+KERNELS = (bucket_hist, bucket_prefix, bucket_positions, segment_accumulate,
+           hash_insert, hash_lookup, sliding_min, sliding_min_pair,
+           flash_attention, flash_attention_fwd_lse, flash_attention_bwd,
+           segment_boundaries, kmer_extract, radix_hist)
 # The flash kernels run on the tensor cores for bf16 (and on the CUDA
 # cores for f32): `tc_launches` counts the tensor-core launches.
 FLASH_KERNELS = (flash_attention, flash_attention_fwd_lse, flash_attention_bwd)
@@ -336,25 +362,11 @@ def tc_launch_counts() -> Dict[str, int]:
 
 def make_partition_plan(buckets: torch.Tensor,
                         num_buckets: int) -> PartitionPlan:
-    """Stable partition plan of every row of (P, n) int32 bucket ids.
-
-    One histogram launch, the exclusive prefix (bucket-major, then
-    tile-major) in tensor code, one rank launch. Each row holds fewer than
-    2**31 elements, so the prefix fits int32.
-    """
+    """Stable partition plan of every row of (P, n) int32 bucket ids: the
+    histogram with its prefix (`bucket_prefix`), then the ranks. On the
+    card that is two launches where a row's (tiles, B) table fits
+    PREFIX_MAX_CELLS. Each row holds fewer than 2**31 elements."""
     b = buckets.to(torch.int32).contiguous()
-    p = b.shape[0]
-    hist = bucket_hist(b, num_buckets)                   # (P, T, B)
-    n_tiles = hist.shape[1]
-    totals = hist.sum(1, dtype=torch.int32)
-    # The base of (tile t, bucket k) is the count of every element of a
-    # smaller bucket plus those of bucket k in earlier tiles: one exclusive
-    # scan in bucket-major, tile-major order.
-    flat = hist.transpose(1, 2).reshape(p, num_buckets * n_tiles)
-    del hist
-    base = (torch.cumsum(flat, 1, dtype=torch.int32) - flat).view(
-        p, num_buckets, n_tiles)
-    starts = base[:, :, 0].clone() if n_tiles else torch.zeros_like(totals)
-    base = base.transpose(1, 2).contiguous()
+    base, totals, starts = bucket_prefix(b, num_buckets)
     pos = bucket_positions(b, base)
     return PartitionPlan(positions=pos, totals=totals, starts=starts)

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import words as W
 from repro_torch.core import encoding, owner
-from repro_torch.kernels.radix_partition import PartitionPlan
+from repro_torch.kernels.radix_partition import PartitionPlan, hist_prefix
 
 # XOR with the sign bit maps the unsigned order of int64-carried words onto
 # the signed order.
@@ -76,12 +76,21 @@ def _tile_keys(buckets: torch.Tensor, num_buckets: int, tile: int):
 
 def bucket_hist(buckets: torch.Tensor, num_buckets: int,
                 tile: int) -> torch.Tensor:
-    """(P, n) int32 ids in [0, B) -> (P, ceil(n / tile), B) int32 per-tile
-    histograms; a ragged last tile counts only its real elements."""
+    """(P, n) int32 ids -> (P, ceil(n / tile), B) int32 per-tile
+    histograms; a ragged last tile counts only its real elements, and ids
+    outside [0, B) are not counted."""
     p = buckets.shape[0]
     key, n_tiles = _tile_keys(buckets, num_buckets, tile)
-    hist = torch.bincount(key, minlength=p * n_tiles * num_buckets)
+    live = ((buckets >= 0) & (buckets < num_buckets)).reshape(-1)
+    hist = torch.bincount(key[live], minlength=p * n_tiles * num_buckets)
     return hist.reshape(p, n_tiles, num_buckets).to(torch.int32)
+
+
+def bucket_prefix(buckets: torch.Tensor, num_buckets: int, tile: int):
+    """(P, n) int32 ids -> the plan's prefix of their per-tile histograms:
+    (base (P, n_tiles, B), totals (P, B), starts (P, B)), int32; ids
+    outside [0, B) are not counted."""
+    return hist_prefix(bucket_hist(buckets, num_buckets, tile))
 
 
 def bucket_positions(buckets: torch.Tensor, base: torch.Tensor,
@@ -131,20 +140,22 @@ def segment_boundaries(sorted_keys: torch.Tensor,
     return (sorted_keys != sentinel_val) & (sorted_keys != prev)
 
 
-def segment_accumulate(sorted_keys: torch.Tensor, weights: torch.Tensor,
-                       sentinel_val: int):
+def segment_accumulate(sorted_keys: torch.Tensor,
+                       weights: Optional[torch.Tensor], sentinel_val: int):
     """(is_new, is_end, run_totals) of every row of sorted int64 words.
 
     is_new / is_end flag the first / last element of each run of equal
     valid keys; run_totals holds the run's int32 weight sum (wrapping) at
-    its last element and 0 elsewhere.
+    its last element and 0 elsewhere. `weights` None: every valid key
+    weighs 1.
     """
     p, n = sorted_keys.shape
     dev = sorted_keys.device
     sent = torch.full((p, 1), sentinel_val, dtype=sorted_keys.dtype,
                       device=dev)
     valid = sorted_keys != sentinel_val
-    w = torch.where(valid, weights.to(torch.int64), 0)
+    w = valid.to(torch.int64) if weights is None else torch.where(
+        valid, weights.to(torch.int64), 0)
     prev = torch.cat([sent, sorted_keys[:, :-1]], 1)
     nxt = torch.cat([sorted_keys[:, 1:], sent], 1)
     is_new = valid & (sorted_keys != prev)
@@ -154,6 +165,34 @@ def segment_accumulate(sorted_keys: torch.Tensor, weights: torch.Tensor,
     sums.scatter_add_(1, seg, w)
     run_tot = torch.where(is_end, sums.gather(1, seg), 0)
     return is_new, is_end, run_tot.to(torch.int32)
+
+
+def scatter_drop(idx: torch.Tensor, src: torch.Tensor,
+                 fill: int) -> torch.Tensor:
+    """`full(fill).at[idx].set(src, mode='drop')` along dim 1, where every
+    dropped element points one past the end: scatter into one extra slot
+    and slice it off. Kept destinations are unique, so this is
+    deterministic on CUDA too."""
+    p, n = src.shape
+    buf = torch.full((p, n + 1), fill, dtype=src.dtype, device=src.device)
+    buf.scatter_(1, idx, src)
+    return buf[:, :n]
+
+
+def segment_compact(sorted_keys: torch.Tensor,
+                    weights: Optional[torch.Tensor], sentinel_val: int):
+    """The compacting mode of the accumulate sweep: (unique (P, n) keys,
+    counts (P, n) int32, num_unique (P,) int32). Run r of a row puts its
+    key and its total at slot r; slots past num_unique hold the sentinel
+    and 0."""
+    n = sorted_keys.shape[1]
+    is_new, is_end, run_tot = segment_accumulate(sorted_keys, weights,
+                                                 sentinel_val)
+    seg = torch.clamp(torch.cumsum(is_new, 1, dtype=torch.int64) - 1, min=0)
+    unique = scatter_drop(torch.where(is_new, seg, n), sorted_keys,
+                          sentinel_val)
+    counts = scatter_drop(torch.where(is_end, seg, n), run_tot, 0)
+    return unique, counts, is_new.sum(1, dtype=torch.int32)
 
 
 def _wrap32(x: int) -> int:

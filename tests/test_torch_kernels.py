@@ -1148,3 +1148,448 @@ def test_hash_insert_home_slots_on_card(bits, cap):
                 dk[r][dk[r] != sent].tolist())
         counts, _ = countstore.store_lookup(grown, st.keys)
         assert torch.equal(counts[live], st.counts[live])
+
+
+# --- row 1: the plan's prefix written by the histogram kernel -----------------
+# Where a row's (tiles, B) table fits PREFIX_MAX_CELLS, the block of the
+# row's last ticket scans the whole table in shared memory; the mirror below
+# does that scan as the kernel does (256 threads, each a chunk of
+# consecutive cells of the bucket-major, tile-major sequence).
+
+def _prefix_case(kind: str, rows: int, n: int, b_count: int, seed: int):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, b_count, size=(rows, n)).astype(np.int32)
+    if kind == "invalid":
+        ids[:, ::5] = -1
+        ids[:, 2::7] = b_count
+    elif kind == "one bucket":
+        ids[:] = b_count - 1
+    return ids
+
+
+def _jax_prefix(ids: np.ndarray, b_count: int):
+    """The JAX plan's prefix, `bucket_start + tiles_before` of
+    `bucket_hist_ref` (repro/kernels/radix_partition.py), row by row. JAX's
+    bincount clips an id of -1 into bucket 0, so every id outside [0, B)
+    goes to the JAX side as B, which it drops, as the port's kernel drops
+    every id outside [0, B); a ragged last tile is padded the same way."""
+    out = []
+    for row in ids:
+        pad = (-row.size) % ops.TILE
+        j = np.where((row >= 0) & (row < b_count), row, b_count)
+        j = np.concatenate([j, np.full(pad, b_count, np.int32)])
+        hist = jref.bucket_hist_ref(jnp.asarray(j), b_count, ops.TILE)
+        totals = hist.sum(axis=0)
+        bucket_start = jnp.concatenate(
+            [jnp.zeros((1,), jnp.int32),
+             jnp.cumsum(totals)[:-1].astype(jnp.int32)])
+        tiles_before = (jnp.cumsum(hist, axis=0) - hist).astype(jnp.int32)
+        out.append((np.asarray(bucket_start[None, :] + tiles_before),
+                    np.asarray(totals), np.asarray(bucket_start)))
+    return [np.stack(x) for x in zip(*out)]
+
+
+def _mirror_prefix_block(counts: np.ndarray):
+    """The last block's scan of one row's (T, B) counts in the kernel: the
+    counts transposed into shared memory, cell (t, b) at b * T + t, each
+    of the 256 threads stepping through (t, b) by the block's 256 cells;
+    thread j sums cells [j * per, (j + 1) * per), per odd; an exclusive
+    scan over the thread sums; each chunk written back as running bases;
+    then starts are the tile-0 bases and totals the differences of the
+    next start (the row's total for the last bucket)."""
+    threads = 256
+    t_count, b_count = counts.shape
+    flat = counts.astype(np.int64).reshape(-1)
+    n_cells = flat.size
+    table = np.zeros(n_cells, np.int64)
+    step_t, step_b = divmod(threads, b_count)
+    for j in range(threads):
+        t, b = divmod(j, b_count)
+        for c in range(j, n_cells, threads):
+            table[b * t_count + t] = flat[c]
+            t, b = t + step_t, b + step_b
+            if b >= b_count:
+                t, b = t + 1, b - b_count
+    assert (table == counts.T.reshape(-1)).all()
+    per = -(-n_cells // threads) | 1
+    chunks = [(min(j * per, n_cells), min(j * per + per, n_cells))
+              for j in range(threads)]
+    sums = [int(table[f0:f1].sum()) for f0, f1 in chunks]
+    before = np.cumsum(sums) - sums
+    for (f0, f1), run in zip(chunks, before):
+        for f in range(f0, f1):
+            table[f], run = run, run + table[f]
+    base = table.reshape(b_count, t_count).T
+    starts = base[0]
+    nxt = np.append(starts[1:], sum(sums))
+    return base, nxt - starts, starts
+
+
+def _tiles_at_limit(b_count: int) -> int:
+    """The most tiles a row may have for its (tiles, B) table to fit."""
+    from repro_torch.kernels.radix_partition import PREFIX_MAX_CELLS
+    return PREFIX_MAX_CELLS // b_count
+
+
+PREFIX_CASES = [
+    ("random", 2, 4096, 2), ("random", 3, 5000, 9), ("random", 2, 9000, 257),
+    ("random", 2, 3001, 1024), ("invalid", 3, 5000, 9),
+    ("invalid", 2, _tiles_at_limit(1024) * 1024, 1024),
+    ("random", 1, _tiles_at_limit(1024) * 1024 + 1, 1024),
+    ("random", 1, _tiles_at_limit(257) * 1024, 257),
+    ("one bucket", 1, _tiles_at_limit(257) * 1024 + 1000, 257)]
+
+
+@pytest.mark.parametrize("kind,rows,n,b_count", PREFIX_CASES)
+def test_bucket_prefix_plain_matches_jax(kind, rows, n, b_count):
+    """(base, totals, starts) equal the JAX plan's prefix at B = 2 to 1024,
+    ragged last tiles, ids of -1 and B, and rows whose (tiles, B) table
+    lies on either side of PREFIX_MAX_CELLS (at B = 1024 and 257)."""
+    ids = _prefix_case(kind, rows, n, b_count, n + b_count)
+    got = ops.bucket_prefix(torch.from_numpy(ids), b_count)
+    for g, want in zip(got, _jax_prefix(ids, b_count)):
+        np.testing.assert_array_equal(g.numpy(), want)
+
+
+@pytest.mark.parametrize("kind,rows,n,b_count", PREFIX_CASES[:6])
+def test_bucket_prefix_block_scan_mirror(kind, rows, n, b_count):
+    ids = torch.from_numpy(_prefix_case(kind, rows, n, b_count, 7))
+    hist = ops.bucket_hist(ids, b_count)
+    want = ops.bucket_prefix(ids, b_count)
+    for r in range(rows):
+        for g, w in zip(_mirror_prefix_block(hist[r].numpy()), want):
+            np.testing.assert_array_equal(g, w[r].numpy())
+
+
+def test_prefix_limit_fits_shared_memory():
+    from repro_torch.kernels.radix_partition import PREFIX_MAX_CELLS
+    assert PREFIX_MAX_CELLS * 4 <= 47 * 1024
+    assert 30 * 257 <= PREFIX_MAX_CELLS   # a scan step's radix pass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rows,n,b_count", PREFIX_CASES + [
+    ("random", 8, 30720, 257), ("invalid", 8, 61440, 9),
+    ("random", 8, _tiles_at_limit(2) * 1024, 2),
+    ("random", 2, _tiles_at_limit(2) * 1024 + 1, 2)])
+def test_bucket_prefix_kernel_matches_plain_on_card(kind, rows, n, b_count):
+    """The prefix in the kernel where a row's table fits PREFIX_MAX_CELLS
+    (one launch of bucket_prefix), else the plain counts' launch and the
+    prefix in tensor code; bit-equal to the plain version either way."""
+    from repro_torch.kernels.radix_partition import PREFIX_MAX_CELLS
+
+    dev = _cuda()
+    ids = torch.from_numpy(_prefix_case(kind, rows, n, b_count, 5))
+    ops.reset_launches()
+    got = ops.bucket_prefix(ids.to(dev), b_count)
+    torch.cuda.synchronize()
+    fits = -(-n // ops.TILE) * b_count <= PREFIX_MAX_CELLS
+    assert (ops.bucket_prefix.launches, ops.bucket_hist.launches) == (
+        (1, 0) if fits else (0, 1))
+    for g, w in zip(got, ref.bucket_prefix(ids, b_count, ops.TILE)):
+        assert torch.equal(g.cpu(), w)
+
+
+# --- row 3: one launch with a decoupled look-back, mirrored on the CPU --------
+# csrc/segment_count.cu scans (run starts, weight since the latest start)
+# over a row in one launch: tiles in ticket order, each publishing its
+# aggregate and then its inclusive prefix, found by warp 0 of later tiles
+# 32 tiles at a time. The mirror below keeps the kernel's device state (the
+# epoch and ticket word, a tag and two packed values per tile) across
+# launches, and runs the blocks interleaved in a seeded random order.
+
+_M32 = 0xFFFFFFFF
+
+
+def _combine(a, b):
+    return ((a[0] + b[0]) & _M32, b[1] if b[0] else (a[1] + b[1]) & _M32)
+
+
+def _pack(s):
+    return (s[1] << 32) | s[0]
+
+
+def _unpack(x):
+    return (x & _M32, x >> 32)
+
+
+class _LookBackState:
+    def __init__(self, tiles):
+        self.ctr = 0   # the epoch above the launch's tickets
+        self.tags = [0] * tiles
+        self.agg = [0] * tiles
+        self.inc = [0] * tiles
+
+
+def _butterfly(v):
+    """Warp 0's combine of 32 lanes' values, lane 31 the earliest tile."""
+    v = list(v)
+    o = 1
+    while o < 32:
+        v = [_combine(v[lane], v[lane ^ o]) if lane & o
+             else _combine(v[lane ^ o], v[lane]) for lane in range(32)]
+        o <<= 1
+    assert len(set(v)) == 1
+    return v[0]
+
+
+def _mirror_accumulate(state, keys, w, sent, rng, compact, resident):
+    """One launch of segment_accumulate_kernel over (rows, n) int64 words
+    and int32 weights (None: 1 a valid word), at most `resident` blocks
+    running at once. Returns the flags mode's or the compacting mode's
+    outputs (the compacting outputs' unwritten slots hold the sentinel and
+    0, as the wrapper's fills leave them)."""
+    rows, n = keys.shape
+    n_tiles = -(-n // 1024)
+    total = rows * n_tiles
+    is_new = np.zeros((rows, n), bool)
+    is_end = np.zeros((rows, n), bool)
+    run_tot = np.zeros((rows, n), np.int64)
+    unique = np.full((rows, n), sent, np.int64)
+    counts = np.zeros((rows, n), np.int64)
+    num_unique = np.full(rows, -1, np.int64)
+
+    def block():
+        word = state.ctr
+        state.ctr += 1
+        g, epoch = word & _M32, word >> 32
+        if g == total - 1:
+            state.ctr += (1 << 32) - total
+        yield
+        row, tile = divmod(g, n_tiles)
+        lo = tile * 1024
+        k = np.full(1024, sent, np.int64)
+        k[:min(1024, n - lo)] = keys[row, lo:lo + 1024]
+        prev = np.concatenate([[keys[row, lo - 1] if lo else sent], k[:-1]])
+        nxt = np.concatenate([k[1:], [keys[row, lo + 1024]
+                                      if lo + 1024 < n else sent]])
+        valid = k != sent
+        new = valid & (k != prev)
+        end = valid & (k != nxt)
+        wt = np.zeros(1024, np.int64)
+        m = min(1024, n - lo)
+        wt[:m] = 1 if w is None else w[row, lo:lo + m].astype(np.int64) & _M32
+        wt[~valid] = 0
+        items = [(int(new[i]), int(wt[i])) for i in range(1024)]
+        thread = []
+        for t in range(256):
+            s = (0, 0)
+            for i in range(4 * t, 4 * t + 4):
+                s = _combine(s, items[i])
+            thread.append(s)
+        before, agg_all = [], (0, 0)
+        for s in thread:
+            before.append(agg_all)
+            agg_all = _combine(agg_all, s)
+        tag = (epoch + 1) << 1
+        excl = (0, 0)
+        if tile == 0:
+            state.inc[g], state.tags[g] = _pack(agg_all), tag | 1
+        else:
+            state.agg[g], state.tags[g] = _pack(agg_all), tag
+            yield
+            first, top = g - tile, g - 1
+            while True:
+                ps = [top - lane for lane in range(32)]
+                while True:
+                    tags = [state.tags[p] if p >= first else 0 for p in ps]
+                    if all(p < first or (t | 1) == (tag | 1)
+                           for p, t in zip(ps, tags)):
+                        break
+                    yield
+                done = [p < first or bool(t & 1) for p, t in zip(ps, tags)]
+                v = [(0, 0) if p < first else
+                     _unpack((state.inc if d else state.agg)[p])
+                     for p, d in zip(ps, done)]
+                if any(done):
+                    stop = done.index(True)
+                    v = [x if lane <= stop else (0, 0)
+                         for lane, x in enumerate(v)]
+                excl = _combine(_butterfly(v), excl)
+                if any(done):
+                    break
+                top -= 32
+            state.inc[g], state.tags[g] = _pack(_combine(excl, agg_all)), \
+                tag | 1
+        yield
+        for t in range(256):
+            run = _combine(excl, before[t])
+            for i in range(4 * t, 4 * t + 4):
+                run = _combine(run, items[i])
+                e = lo + i
+                if e >= n:
+                    continue
+                tot = run[1] if end[i] else 0
+                if compact:
+                    if new[i]:
+                        unique[row, run[0] - 1] = k[i]
+                    if end[i]:
+                        counts[row, run[0] - 1] = tot
+                    if e == n - 1:
+                        num_unique[row] = run[0]
+                else:
+                    is_new[row, e], is_end[row, e] = new[i], end[i]
+                    run_tot[row, e] = tot
+
+    waiting, running = total, []
+    while waiting or running:
+        if waiting and (len(running) < resident
+                        and (not running or rng.random() < 0.3)):
+            running.append(block())
+            waiting -= 1
+        b = running[rng.integers(len(running))]
+        try:
+            next(b)
+        except StopIteration:
+            running.remove(b)
+    as32 = lambda x: ((x + (1 << 31)) & _M32) - (1 << 31)   # noqa: E731
+    if compact:
+        return unique, as32(counts), num_unique
+    return is_new, is_end, as32(run_tot)
+
+
+def _accum_rows(name: str, bits: int, seed: int):
+    """(keys (rows, n) uint32 / uint64, weights (rows, n) int32 or None) of
+    an accumulate case: sorted rows with sentinel tails."""
+    rows, n, nd, long_run, wkind = ACCUM_CASES[name]
+    rng = np.random.default_rng(seed)
+    dtype = np.uint32 if bits == 32 else np.uint64
+    sent = np.uint32(SENT32) if bits == 32 else np.iinfo(np.uint64).max
+    keys, w = zip(*(_sorted_runs(rng, n, nd, sent, dtype, long_run)
+                    for _ in range(rows)))
+    keys, w = np.stack(keys), np.stack(w)
+    if bits == 64:
+        keys[keys != sent] |= np.uint64(1 << 61)
+    if name == "all_sentinel":
+        keys[1] = sent
+    if wkind == "wrap":   # run sums far past 2**31
+        w = rng.integers(1 << 29, (1 << 31) - 1, size=w.shape).astype(
+            np.int32)
+    return keys, None if wkind == "ones" else w
+
+
+# name: (rows, n, distinct keys, one long run, weights)
+ACCUM_CASES = {
+    "random": (2, 9000, 3000, 0, "small"),
+    "long_run": (1, 70_000, 40, 60_000, "small"),
+    "all_sentinel": (3, 5000, 10, 0, "small"),
+    "wrap": (2, 40_000, 5, 30_000, "wrap"),
+    "ones": (2, 9000, 700, 0, "ones"),
+    "ragged": (3, 4099, 7, 0, "small"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ACCUM_CASES))
+def test_segment_accumulate_look_back_mirror(name):
+    """The mirror's flags equal the JAX kernel's (interpret mode) and its
+    compacted runs the JAX `accumulate`, over three launches on one device
+    state (a launch's stale tags must never match a later one's), blocks
+    interleaved in seeded random orders, 1 to 64 running at once. Where
+    run sums wrap int32 ('wrap'), the flags are held to the JAX kernel's
+    own oracle, `segment_accumulate_ref`: the Pallas kernel takes each
+    run's base with a cummax of its tile's running int32 sum, which is
+    right only while that sum does not wrap; the compacted runs there are
+    held to the JAX `accumulate(impl='segment_sum')`."""
+    from repro.core import sort as jsort
+
+    keys, w = _accum_rows(name, 32, 21)
+    rows, n = keys.shape
+    kt = keys.astype(np.int64)
+    wj = np.ones_like(keys, np.int32) if w is None else w
+    rng = np.random.default_rng(len(name))
+    state = _LookBackState(rows * -(-n // 1024) + 64)
+    _mirror_accumulate(state, kt[:, :n // 3 + 1], None, SENT32, rng, False,
+                       4)
+    flags = _mirror_accumulate(state, kt, w, SENT32, rng, False,
+                               int(rng.integers(1, 65)))
+    compact = _mirror_accumulate(state, kt, w, SENT32, rng, True, 64)
+    pad = (-n) % 1024   # the JAX kernel takes whole tiles of padding
+    for r in range(rows):
+        jk = jnp.asarray(np.append(keys[r], [SENT32] * pad).astype(np.uint32))
+        jw = jnp.asarray(np.append(wj[r], [0] * pad).astype(np.int32))
+        want = (jref.segment_accumulate_ref(jk, jw, SENT32) if name == "wrap"
+                else jops.segment_accumulate(jk, jw, sentinel_val=SENT32,
+                                             tile=1024))
+        for g, x in zip(flags, want):
+            np.testing.assert_array_equal(g[r], np.asarray(x)[:n])
+        acc = jsort.accumulate(jnp.asarray(keys[r]), jnp.asarray(wj[r]),
+                               sentinel_val=SENT32,
+                               impl="segment_sum" if name == "wrap"
+                               else "fused")
+        np.testing.assert_array_equal(compact[0][r], np.asarray(acc.unique))
+        np.testing.assert_array_equal(compact[1][r], np.asarray(acc.counts))
+        assert compact[2][r] == int(acc.num_unique)
+    assert state.ctr == 3 << 32   # three epochs, no ticket left taken
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("name", sorted(ACCUM_CASES))
+def test_segment_accumulate_compact_plain_matches_flags(bits, name):
+    """The compacting mode's plain version against the flags mode's:
+    run r's key and total at slot r, the sentinel and 0 past num_unique."""
+    keys, w = _accum_rows(name, bits, 23)
+    kt = W.to_torch_words(keys)[0]
+    wt = None if w is None else torch.from_numpy(w)
+    sent = W.sentinel(bits)
+    is_new, is_end, tot = ops.segment_accumulate(kt, wt, sentinel_val=sent)
+    unique, counts, num_unique = ops.segment_accumulate(
+        kt, wt, sentinel_val=sent, compact=True)
+    for r in range(kt.shape[0]):
+        nu = int(num_unique[r])
+        assert nu == int(is_new[r].sum()) == int(is_end[r].sum())
+        assert torch.equal(unique[r, :nu], kt[r][is_new[r]])
+        assert torch.equal(counts[r, :nu], tot[r][is_end[r]])
+        assert bool((unique[r, nu:] == sent).all())
+        assert bool((counts[r, nu:] == 0).all())
+
+
+def test_rows_1_and_3_wrappers_take_only_cuda_tensors():
+    """The kernel wrappers behind ops.bucket_prefix and
+    ops.segment_accumulate refuse a tensor off the card: only ops sends a
+    CPU tensor to the plain version."""
+    from repro_torch.kernels import radix_partition, segment_count
+
+    ids = torch.zeros((1, 8), dtype=torch.int32)
+    keys = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        radix_partition.bucket_prefix_cuda(ids, 2)
+    for compact in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            segment_count.segment_accumulate_cuda(keys, None, -1, compact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("name", sorted(ACCUM_CASES) + ["row_2_24"])
+def test_segment_accumulate_modes_match_plain_on_card(bits, name):
+    """Both modes of the one-launch kernel against their plain versions,
+    and sort.accumulate(impl='fused') against 'segment_sum', at the mirror's
+    cases and a row of 2**24 + 5 elements."""
+    from repro_torch.core import sort
+
+    dev = _cuda()
+    sent = W.sentinel(bits)
+    if name == "row_2_24":
+        g = torch.Generator().manual_seed(bits)
+        n = (1 << 24) + 5
+        kt = torch.sort(torch.randint(0, 1 << 22, (1, n), generator=g),
+                        dim=1).values
+        kt[:, n - n // 9:] = sent
+        wt = torch.randint(1, 6, (1, n), generator=g, dtype=torch.int32)
+    else:
+        keys, w = _accum_rows(name, bits, 29)
+        kt = W.to_torch_words(keys)[0]
+        wt = None if w is None else torch.from_numpy(w)
+    dk, dw = kt.to(dev), None if wt is None else wt.to(dev)
+    for compact in (False, True):
+        got = ops.segment_accumulate(dk, dw, sentinel_val=sent,
+                                     compact=compact)
+        torch.cuda.synchronize()
+        want = ops.segment_accumulate(kt, wt, sentinel_val=sent,
+                                      compact=compact)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_.cpu(), w_)
+    fused = sort.accumulate(dk, dw, sentinel_val=sent, impl="fused")
+    oracle = sort.accumulate(dk, dw, sentinel_val=sent, impl="segment_sum")
+    for f in fused._fields:
+        assert torch.equal(getattr(fused, f), getattr(oracle, f))

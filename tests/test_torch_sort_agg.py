@@ -78,6 +78,31 @@ def test_accumulate_matches_jax_k13(impl):
         assert int(got.num_unique[r]) == int(want.num_unique)
 
 
+@pytest.mark.parametrize("weighted", [True, False])
+def test_accumulate_fused_compacts_as_segment_sum_k13(weighted):
+    """impl='fused' (the sweep kernel's compacting mode) against the
+    two-pass 'segment_sum' and the JAX accumulate, with and without
+    weights."""
+    sw = np.sort(W13, axis=1)
+    wts = np.random.default_rng(9).integers(1, 9, size=W13.shape,
+                                            dtype=np.int32)
+    keys = W.to_torch_words(sw)[0]
+    w = _t(wts) if weighted else None
+    got = sort.accumulate(keys, w, sentinel_val=SENT32, impl="fused")
+    oracle = sort.accumulate(keys, w, sentinel_val=SENT32,
+                             impl="segment_sum")
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(oracle, f))
+    for r in range(3):
+        want = jsort.accumulate(jnp.asarray(sw[r]),
+                                jnp.asarray(wts[r]) if weighted else None,
+                                sentinel_val=SENT32)
+        _eq_words(got.unique[r], want.unique, 32)
+        np.testing.assert_array_equal(got.counts[r].numpy(),
+                                      np.asarray(want.counts))
+        assert int(got.num_unique[r]) == int(want.num_unique)
+
+
 @pytest.mark.parametrize("impl", ["radix", "argsort"])
 def test_l3_compress_decompress_matches_jax_k13(impl):
     packed, valid = aggregation.l3_compress(W.to_torch_words(W13)[0], 13,
@@ -224,6 +249,9 @@ W31 = _words(np.random.default_rng(4), 3, 1200, 31, np.uint64, SENT64,
 W21 = _words(np.random.default_rng(6), 3, 1200, 21, np.uint64, SENT64,
              distinct=100)
 
+ACC_W31 = np.random.default_rng(8).integers(1, 9, size=W31.shape,
+                                            dtype=np.int32)
+
 _BODY64 = """
 from repro.core import aggregation, fabsp, sort
 sent = int(np.iinfo(np.uint64).max)
@@ -234,6 +262,10 @@ for r in range(3):
     acc = sort.accumulate(s, sentinel_val=sent, impl="fused")
     O[f"acc{r}"] = np.stack([np.asarray(acc.unique).view(np.int64),
                              np.asarray(acc.counts, np.int64)])
+    acc = sort.accumulate(s, jnp.asarray(I["acc_w31"][r]), sentinel_val=sent)
+    O[f"accw{r}"] = np.stack([np.asarray(acc.unique).view(np.int64),
+                              np.asarray(acc.counts, np.int64)])
+    O[f"accw{r}_n"] = acc.num_unique
     for j, x in enumerate(fabsp._l3_split_dual(w, w != np.uint64(sent), 31, 2)):
         O[f"dual{r}_{j}"] = x
     p, v = aggregation.l3_compress(jnp.asarray(I["w21"][r]), 21)
@@ -246,7 +278,7 @@ for r in range(3):
 @pytest.fixture(scope="module")
 def jax64(tmp_path_factory):
     return run_jax(tmp_path_factory.mktemp("sort64"), _BODY64,
-                   {"w31": W31, "w21": W21}, x64=True)
+                   {"w31": W31, "w21": W21, "acc_w31": ACC_W31}, x64=True)
 
 
 def test_radix_sort_accumulate_matches_jax_k31(jax64):
@@ -259,6 +291,22 @@ def test_radix_sort_accumulate_matches_jax_k31(jax64):
                                       jax64[f"acc{r}"][0])
         np.testing.assert_array_equal(acc.counts[r].numpy(),
                                       jax64[f"acc{r}"][1])
+
+
+def test_accumulate_fused_weighted_matches_jax_k31(jax64):
+    """The compacting sweep with weights on 64-bit words, against
+    'segment_sum' and the JAX accumulate."""
+    s = sort.radix_sort(W.to_torch_words(W31)[0], 62, sentinel_val=-1)
+    got = sort.accumulate(s, _t(ACC_W31), sentinel_val=-1, impl="fused")
+    oracle = sort.accumulate(s, _t(ACC_W31), sentinel_val=-1)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(oracle, f))
+    for r in range(3):
+        np.testing.assert_array_equal(got.unique[r].numpy(),
+                                      jax64[f"accw{r}"][0])
+        np.testing.assert_array_equal(got.counts[r].numpy(),
+                                      jax64[f"accw{r}"][1])
+        assert int(got.num_unique[r]) == int(jax64[f"accw{r}_n"])
 
 
 def test_l3_split_dual_matches_jax_k31(jax64):
