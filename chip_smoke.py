@@ -14,7 +14,9 @@ Phases:
   3. each kernel against its plain version on the card, bit-equal (the
      insert: equal (key, count) sets and drops exactly when the plain
      version drops, with home slots given and hashed in the kernel, which
-     hash_lookup then finds, and a store_grow rehash; the flash attention
+     hash_lookup then finds, and a store_grow rehash; the lookup with home
+     slots given and hashed in the kernel, bit-equal in counts, probe
+     lengths and the batch's stats, both word widths; the flash attention
      kernels within stated tolerances,
      f32 and bf16 (the bf16 kernels on the tensor cores), head dims 15 to
      256, up to the training path's shape;
@@ -63,8 +65,12 @@ Phases:
      and share of stored keys, a store pre-filled to phase 4's distinct
      k-mers), each beside the old path's store_slots on its batch; row 1
      with its prefix at B = 2, 9 and 257, row 3 in both modes at a scan
-     step's and the store histogram's shapes; and rows 1-3's call sites,
-     make_partition_plan and sort.accumulate(impl='fused'), as whole
+     step's and the store histogram's shapes; row 5 at a query batch of
+     the full-size path, its live queries scattered and as route_lanes
+     delivers them, beside the old path (store_slots, then the kernel
+     given the slots) and with its byte and sector bounds; and the call
+     sites of rows 1-3 and 5, make_partition_plan,
+     sort.accumulate(impl='fused') and countstore.store_lookup, as whole
      calls (ms, device ms and device launches a call, in the JSON's
      `calls`);
   7. on request only: the main path and one step of phase 9's training
@@ -483,8 +489,10 @@ def check_home_slots(torch, ops, dev):
     hashes each key. 32- and 64-bit words (the top bit set), caps 1, 257,
     2**20 and one PE's full-size store: set-equal to the plain version with
     slots=None and the same drop signal; `hash_lookup` from `store_slots`
-    then finds every stored key with its count (a wrong home slot hides
-    it); and a `store_grow` rehash on the card keeps every (key, count)."""
+    and `store_lookup` (the lookup kernel's own home slots) then find every
+    stored key with its count (a wrong home slot hides it), the lookup's
+    stats counting each as a hit; and a `store_grow` rehash on the card
+    keeps every (key, count)."""
     from repro_torch import words as W
     from repro_torch.core import countstore
 
@@ -525,9 +533,17 @@ def check_home_slots(torch, ops, dev):
                       f"{cap}")
             del pt
             live = st.keys != sent
-            counts, _ = countstore.store_lookup(st, st.keys)
+            counts, _ = ops.hash_lookup(
+                st.keys, st.counts, st.keys,
+                countstore.store_slots(st.keys, cap, word_bits),
+                sentinel_val=sent)
             check(torch.equal(counts[live], st.counts[live]),
                   f"hash_lookup misses a key the kernel stored (cap {cap})")
+            stats = torch.zeros((rows, 3), dtype=torch.int64, device=dev)
+            counts, _ = countstore.store_lookup(st, st.keys, stats)
+            check(torch.equal(counts[live], st.counts[live]) and torch.equal(
+                stats[:, 0], (live & (st.counts > 0)).sum(1)),
+                f"store_lookup misses a key the kernel stored (cap {cap})")
             grown = "no rehash (the table dropped)"
             if int(dd.sum()) == 0:
                 g = countstore.store_grow(st, 2 * cap + 1)
@@ -539,52 +555,104 @@ def check_home_slots(torch, ops, dev):
                 del g
             log(f"  {word_bits}-bit rows={rows} cap={cap} n={n}: same "
                 f"(key, count) sets, drops {dd.tolist()}, every stored key "
-                f"found by hash_lookup; {grown}")
+                f"found by hash_lookup and store_lookup; {grown}")
             del st, counts, live
     torch.cuda.empty_cache()
 
 
+def _lookup_keys(torch, ref, gen, rows, n, word_bits, wrap_cap=None):
+    """(rows, n) random keys below 2**62 (64-bit words, the top bit then set
+    on every other column) or 2**30 (32-bit). With `wrap_cap`, keys whose
+    hashed home slot is one of the last three of a `wrap_cap`-slot table,
+    so their walks cross its end."""
+    def draw(m):
+        if word_bits == 32:
+            return torch.randint(0, 1 << 30, (m,), generator=gen)
+        k = torch.randint(0, 1 << 62, (m,), generator=gen)
+        k[::2] |= -(1 << 63)
+        return k
+
+    if wrap_cap is None:
+        return torch.stack([draw(n) for _ in range(rows)])
+    out = []
+    for _ in range(rows):
+        row = torch.empty((0,), dtype=torch.int64)
+        while row.numel() < n:
+            cand = draw(64 * n)
+            home = ref.home_slots(cand, wrap_cap, word_bits)
+            row = torch.cat([row, cand[home >= wrap_cap - 3]])
+        out.append(row[:n])
+    return torch.stack(out)
+
+
 def check_lookup(torch, ops, ref, gen, dev):
+    """Row 5 against its plain version (`ref.home_slots`, `ref.hash_lookup`,
+    `ref.lookup_stats`), bit-equal in counts, probe lengths and the batch's
+    stats, with home slots given and hashed in the kernel (`slots=None`),
+    in both word widths (64-bit keys with the top bit set on every other
+    one): hits, misses and sentinels; walks that wrap past the last slot;
+    a full table that misses sweep; the main path's batch. Each table is
+    built by the insert kernel from the same home slots the lookup takes."""
     from repro_torch import words as W
-    from repro_torch.core import countstore
 
     log("[kernels] hash_lookup")
     for word_bits in (32, 64):
         sent = W.sentinel(word_bits)
-        hi = (1 << 62) if word_bits == 64 else (1 << 30)
-        for rows, cap, n_keys, n_q, wrap, name in (
-                (4, 4096, 3000, 20000, False, "hits, misses, sentinels"),
-                (3, 257, 200, 600, True, "wraps past the last slot"),
-                (2, 257, 400, 1000, False, "full table, misses sweep it"),
-                (8, 1 << 20, 500_000, 1 << 20, False, "main-path batch")):
-            keys = torch.randint(0, hi, (rows, n_keys), generator=gen)
-            slot_of = ((lambda k: torch.full(k.shape, cap - 1,
-                                             dtype=torch.int32))
-                       if wrap else
-                       (lambda k: countstore.store_slots(k, cap, word_bits)))
-            tk = torch.full((rows, cap), sent, dtype=torch.int64, device=dev)
-            tc = torch.zeros((rows, cap), dtype=torch.int32, device=dev)
-            dd = torch.zeros((rows,), dtype=torch.int32, device=dev)
-            ops.hash_insert(tk, tc, keys.to(dev),
-                            torch.randint(1, 9, keys.shape, generator=gen,
-                                          dtype=torch.int32).to(dev),
-                            slot_of(keys).to(dev), sentinel_val=sent,
-                            dropped=dd)
-            pick = torch.randint(0, n_keys, (rows, n_q // 2), generator=gen)
-            q = torch.cat([keys.gather(1, pick),
-                           torch.randint(0, hi, (rows, n_q - n_q // 2),
-                                         generator=gen)], 1)
-            q[:, ::13] = sent
-            qd, sd = q.to(dev), slot_of(q).to(dev)
-            got = ops.hash_lookup(tk, tc, qd, sd, sentinel_val=sent)
-            torch.cuda.synchronize()
-            want = ref.hash_lookup(tk, tc, qd, sd, sent)
-            for g, w, what in zip(got, want, ("counts", "probes")):
-                check(torch.equal(g, w), f"hash_lookup {what} differ ({name})")
-            hits = int((got[0] > 0).sum())
-            log(f"  {word_bits}-bit rows={rows} cap={cap} n={n_q} ({name}): "
-                f"bit-equal, {hits} hits, longest walk {int(got[1].max())}")
-            del tk, tc, qd, sd, got, want
+        for hashed in (False, True):
+            for rows, cap, n_keys, n_q, wrap, name in (
+                    (4, 4096, 3000, 20000, False, "hits, misses, sentinels"),
+                    (3, 257, 200, 600, True, "wraps past the last slot"),
+                    (2, 257, 400, 1000, False, "full table, misses sweep it"),
+                    (8, 1 << 20, 500_000, 1 << 20, False, "main-path batch")):
+                draw = functools.partial(_lookup_keys, torch, ref, gen, rows,
+                                         word_bits=word_bits,
+                                         wrap_cap=cap if wrap and hashed
+                                         else None)
+                keys = draw(n_keys)
+                if hashed:
+                    slot_of = lambda k: None
+                elif wrap:
+                    slot_of = lambda k: torch.full(k.shape, cap - 1,
+                                                   dtype=torch.int32).to(dev)
+                else:
+                    slot_of = lambda k: ref.home_slots(k, cap, word_bits)
+                tk = torch.full((rows, cap), sent, dtype=torch.int64,
+                                device=dev)
+                tc = torch.zeros((rows, cap), dtype=torch.int32, device=dev)
+                dd = torch.zeros((rows,), dtype=torch.int32, device=dev)
+                kd = keys.to(dev)
+                ops.hash_insert(tk, tc, kd,
+                                torch.randint(1, 9, keys.shape, generator=gen,
+                                              dtype=torch.int32).to(dev),
+                                slot_of(kd), sentinel_val=sent, dropped=dd,
+                                word_bits=word_bits)
+                pick = torch.randint(0, n_keys, (rows, n_q // 2),
+                                     generator=gen)
+                q = torch.cat([keys.gather(1, pick), draw(n_q - n_q // 2)],
+                              1)
+                q[:, ::13] = sent
+                qd = q.to(dev)
+                sd = slot_of(qd)
+                stats = torch.zeros((rows, 3), dtype=torch.int64, device=dev)
+                got = ops.hash_lookup(tk, tc, qd, sd, sentinel_val=sent,
+                                      word_bits=word_bits, stats=stats)
+                torch.cuda.synchronize()
+                want = ref.hash_lookup(
+                    tk, tc, qd, ref.home_slots(qd, cap, word_bits)
+                    if hashed else sd, sent)
+                mode = "slots=None" if hashed else "slots given"
+                for g, w, what in zip(got, want, ("counts", "probes")):
+                    check(torch.equal(g, w),
+                          f"hash_lookup {what} differ ({name}, {mode})")
+                check(torch.equal(stats, ref.lookup_stats(*want)),
+                      f"hash_lookup stats differ ({name}, {mode})")
+                hits = int((got[0] > 0).sum())
+                log(f"  {word_bits}-bit {mode} rows={rows} cap={cap} "
+                    f"n={n_q} ({name}): bit-equal counts, probes and stats, "
+                    f"{hits} hits, longest walk {int(got[1].max())}, "
+                    f"{int(((qd < 0) & (qd != sent)).sum())} keys with the "
+                    f"top bit set")
+                del tk, tc, qd, sd, got, want
 
 
 def check_sliding_min(torch, ops, ref, gen, dev):
@@ -1439,6 +1507,7 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows,
                     else "bytes", "library_ms": lib_ms,
                     "library_device_ms": lib_dev_ms,
                     "shape": shape_of[name]})
+        return out[-1]
 
     shape_of = {
         "bucket_hist": f"ids ({rows}, {n}) int32, B={b}",
@@ -1530,13 +1599,16 @@ def kernel_times(torch, ops, ref, launches, errs, counter, sweep_rows,
     return out
 
 
-def call_sites(torch, ops):
+def call_sites(torch, ops, snap):
     """Rows 1-3's call sites as whole calls at one scan step's shapes:
     `make_partition_plan` (a radix pass, B=257, and the route, B=9) and
-    `sort.accumulate(impl='fused')` (the L3 compressor's, weights=None):
-    ms a call, device ms a call of every device record, and device
-    launches a call (kernels, fills and copies)."""
-    from repro_torch.core import sort
+    `sort.accumulate(impl='fused')` (the L3 compressor's, weights=None);
+    and row 5's, `countstore.store_lookup` of phase 6's query batch
+    against phase 8's store `snap`, alone and with the zeroed stats buffer
+    `query_counts` gives it: ms a call, device ms a call of every device
+    record, and device launches a call (kernels, fills and copies)."""
+    from repro_torch import words as W
+    from repro_torch.core import countstore, sort
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
@@ -1552,6 +1624,14 @@ def call_sites(torch, ops):
     out.append(("accumulate_fused", f"keys ({NUM_PES}, 30720) int64, "
                 f"weights=None", whole_call(torch, lambda: sort.accumulate(
                     keys, sentinel_val=-1, impl="fused"))))
+    q, _ = lookup_queries(torch, snap.keys, W.sentinel(snap.word_bits), 6)
+    shape = (f"store ({NUM_PES}, {snap.store_cap}), queries "
+             f"({NUM_PES}, {q.shape[1]}), scattered")
+    out.append(("store_lookup", shape, whole_call(
+        torch, lambda: countstore.store_lookup(snap, q))))
+    out.append(("store_lookup_stats", shape, whole_call(
+        torch, lambda: countstore.store_lookup(snap, q, torch.zeros(
+            (NUM_PES, 3), dtype=torch.int64, device=DEV)))))
     calls = []
     for name, shape, (ms, dev_ms, n_launch) in out:
         log(f"  {name} at {shape}: {ms:.4f} ms a call, {dev_ms:.4f} ms of "
@@ -1790,8 +1870,7 @@ def new_kernel_times(torch, ops, ref, counter, entry, shape_of):
     """The lookup and sliding-minimum rows, at the shapes of the counter's
     path (phase 8): one scan step's m-mers, and one query batch's probes
     of the full-size store."""
-    from repro_torch import words as W
-    from repro_torch.core import countstore, encoding, owner
+    from repro_torch.core import encoding, owner
     from repro_torch.data import genome
 
     dev = torch.device("cuda")
@@ -1824,44 +1903,127 @@ def new_kernel_times(torch, ops, ref, counter, entry, shape_of):
           rows * (n_pos + n_out) * 8 * 2,
           library_times(torch, library_pair))
 
-    # One query batch of the full-size path as each PE probes it: 2**20
-    # queries spread over 8 PEs, so each PE's received tile has
-    # 8 * 131072 slots of which about 131072 are live (half hits).
-    snap = kc._committed
-    sent = W.sentinel(snap.word_bits)
+    lookup_rows(torch, ops, ref, kc._committed, entry, shape_of,
+                runs["full"][1]["query_stats"]["probe_sum"] / (1 << 20))
+
+
+# --- phase 6, row 5: the lookup at one query batch of the full-size path ----
+
+def lookup_queries(torch, tkeys, sent, seed):
+    """One query batch of the full-size path as each PE probes it: 2**20
+    queries spread over 8 PEs, so each PE's received batch has 8 * 131072
+    slots (a 131,072-slot tile from each source PE), 131,072 of them live:
+    half stored keys of the PE's table `tkeys`, half random 62-bit words.
+    Returns (scattered, tiled): the live queries at random places of the
+    batch (the shape phase 6 has timed since the lookup was ported), and
+    the same queries laid out as `route_lanes` delivers them, each source
+    tile a live prefix followed by padding."""
     n_local = (1 << 20) // NUM_PES
     n = NUM_PES * n_local
-    g = torch.Generator(device=dev).manual_seed(6)
-    q = torch.full((NUM_PES, n), sent, dtype=torch.int64, device=dev)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.full((NUM_PES, n), sent, dtype=torch.int64, device=DEV)
     for r in range(NUM_PES):
-        stored = snap.keys[r][snap.keys[r] != sent]
+        stored = tkeys[r][tkeys[r] != sent]
         pick = torch.randint(0, stored.numel(), (n_local // 2,),
-                             generator=g, device=dev)
+                             generator=g, device=DEV)
         q[r, :n_local // 2] = stored[pick]
         q[r, n_local // 2:n_local] = torch.randint(
             0, 1 << (2 * K), (n_local - n_local // 2,), generator=g,
-            device=dev)
-        q[r] = q[r][torch.randperm(n, generator=g, device=dev)]
-    slots = countstore.store_slots(q, snap.store_cap, snap.word_bits)
-    counts, probes = ops.hash_lookup(snap.keys, snap.counts, q, slots,
-                                     sentinel_val=sent)
+            device=DEV)
+        q[r] = q[r][torch.randperm(n, generator=g, device=DEV)]
+    tiles = q.view(NUM_PES, NUM_PES, n_local)
+    first = torch.sort((tiles == sent).to(torch.int8), dim=2,
+                       stable=True).indices
+    return q, tiles.gather(2, first).view(NUM_PES, n)
+
+
+def lookup_bounds(torch, ref, q, counts, probes, cap, word_bits, sent):
+    """Row 5's bounds in bytes, from one call's outputs. The stream: each
+    batch slot's 8 B key read, its 4 B count and 4 B probe length written.
+    Bytes: the stream, each probed 8 B table key and each hit's 4 B count
+    read once. Sectors: the stream, plus 32 B for each distinct key sector
+    (4 slots) the live walks touch and each distinct count sector (8
+    slots) a hit reads. Also the byte count phase 6 gave the row before
+    its redesign (a 4 B home slot read per batch slot, 12 B per probe
+    step)."""
+    rows, n = q.shape
+    home = ref.home_slots(q, cap, word_bits).to(torch.int64)
+    base = (torch.arange(rows, device=q.device).view(-1, 1) * cap
+            ).expand_as(home)
+    steps, hit = int(probes.sum()), counts > 0
+    key_sec = []     # a sentinel query walks 0 steps
+    for d in range(int(probes.max())):
+        walked = probes > d
+        key_sec.append(((home[walked] + d) % cap + base[walked]) // 4)
+    last = (home + probes.to(torch.int64) - 1) % cap + base
+    n_key = torch.unique(torch.cat(key_sec)).numel() if key_sec else 0
+    n_count = torch.unique(last[hit] // 8).numel()
+    stream = rows * n * (8 + 4 + 4)
+    return (stream + steps * 8 + int(hit.sum()) * 4,
+            stream + 32 * (n_key + n_count),
+            rows * n * (8 + 4 + 4 + 4) + steps * (8 + 4))
+
+
+def lookup_rows(torch, ops, ref, snap, entry, shape_of, path_walk):
+    """Row 5 at one query batch of the full-size path (`lookup_queries`)
+    against phase 8's committed store: the kernel as the path calls it
+    (home slots hashed in the kernel, the batch's stats summed), at the
+    scattered layout (comparable with the rows of earlier runs) and at the
+    path's own tiled layout; beside it the old path, `store_slots` and the
+    kernel given those slots."""
+    from repro_torch import words as W
+    from repro_torch.core import countstore
+
+    sent, wb, cap = W.sentinel(snap.word_bits), snap.word_bits, snap.store_cap
+    q, tiled = lookup_queries(torch, snap.keys, sent, 6)
+    stats = torch.zeros((NUM_PES, 3), dtype=torch.int64, device=DEV)
+
+    def lookup(batch, slots=None):
+        return ops.hash_lookup(snap.keys, snap.counts, batch, slots,
+                               sentinel_val=sent, word_bits=wb, stats=stats)
+
+    counts, probes = lookup(q)
+    check(torch.equal(stats, ref.lookup_stats(counts, probes)),
+          "hash_lookup stats differ from its outputs' at the path's batch")
     live = int((q != sent).sum())
     steps, hits = int(probes.sum()), int((counts > 0).sum())
     log(f"  hash_lookup batch: {live} live queries, {hits} hits, mean walk "
         f"{steps / live:.4f} slots (the full-size path's queries: "
-        f"{runs['full'][1]['query_stats']['probe_sum'] / (1 << 20):.4f})")
+        f"{path_walk:.4f})")
+    by_bytes, by_sectors, old_bytes = lookup_bounds(
+        torch, ref, q, counts, probes, cap, wb, sent)
+    del counts, probes
     shape_of["hash_lookup"] = (
-        f"table ({NUM_PES}, {snap.store_cap}) int64+int32, queries "
-        f"({NUM_PES}, {n}), {live} live")
-    entry("hash_lookup", "src/repro_torch/csrc/hash_table.cu",
-          "src/repro/kernels/hash_table.py:195",
-          call_times(torch, lambda: ops.hash_lookup(
-              snap.keys, snap.counts, q, slots, sentinel_val=sent)),
-          time_ms(torch, lambda: ref.hash_lookup(snap.keys, snap.counts, q,
-                                                 slots, sent), reps=5),
-          NUM_PES * n * (8 + 4 + 4 + 4) + steps * (8 + 4), None)
+        f"table ({NUM_PES}, {cap}) int64+int32, queries ({NUM_PES}, "
+        f"{q.shape[1]}), {live} live, scattered; slots hashed in the kernel")
+    row = entry("hash_lookup", "src/repro_torch/csrc/hash_table.cu",
+                "src/repro/kernels/hash_table.py:195",
+                call_times(torch, lambda: lookup(q)),
+                time_ms(torch, lambda: ref.lookup_stats(*ref.hash_lookup(
+                    snap.keys, snap.counts, q, ref.home_slots(q, cap, wb),
+                    sent)), reps=5),
+                by_bytes, None)
+    row["sector_bound_ms"] = by_sectors / HBM_BYTES_PER_S * 1e3
+    row["old_bound_ms"] = old_bytes / HBM_BYTES_PER_S * 1e3
+    ms, dev_ms = call_times(torch, lambda: lookup(tiled))
+    row["tiled"] = {"ms": ms, "device_ms": dev_ms}
+    slots = countstore.store_slots(q, cap, wb)
+    slot_ms, slot_dev_ms = library_times(
+        torch, lambda: countstore.store_slots(q, cap, wb))
+    given_ms, given_dev_ms = call_times(torch, lambda: lookup(q, slots))
+    row["old_path"] = {"store_slots_ms": slot_ms,
+                       "store_slots_device_ms": slot_dev_ms,
+                       "kernel_ms": given_ms, "kernel_device_ms": given_dev_ms}
+    log(f"  hash_lookup: {row['ms']:.4f} ms a call, {row['device_ms']:.4f} "
+        f"ms on the device (scattered), {ms:.4f} / {dev_ms:.4f} ms at the "
+        f"path's tiled layout; bounds {row['bound_ms']:.5f} ms (bytes), "
+        f"{row['sector_bound_ms']:.5f} ms (sectors), old byte count "
+        f"{row['old_bound_ms']:.5f}; the old path: store_slots {slot_ms:.4f} "
+        f"ms a call, {slot_dev_ms:.4f} ms on the device, then the kernel "
+        f"given the slots {given_ms:.4f} / {given_dev_ms:.4f} ms")
     log("  hash_lookup library_ms: none, no PyTorch call walks a probe "
         "sequence")
+    del q, tiled, slots
 
 
 def flash_times(torch, ops, ref, entry, shape_of):
@@ -2113,7 +2275,7 @@ def main(argv=None) -> int:
             "kernel records of as many calls")
         record = kernel_times(torch, ops, ref, launches, errs, counter,
                               sweep_rows, insert_state)
-        calls = call_sites(torch, ops)
+        calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()
 

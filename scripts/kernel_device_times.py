@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Rows 1, 2, 3, 6 and 9 (`bucket_hist` / `bucket_prefix`,
-`bucket_positions`, `segment_accumulate`, `sliding_min`, `kmer_extract`)
-and the call sites of rows 1-3 (`make_partition_plan`,
-`sort.accumulate(impl='fused')`) timed as phase 6 of chip_smoke.py times
-them, for the port under any source tree.
+"""Rows 1, 2, 3, 5, 6 and 9 (`bucket_hist` / `bucket_prefix`,
+`bucket_positions`, `segment_accumulate`, `hash_lookup`, `sliding_min`,
+`kmer_extract`) and the call sites of rows 1-3 and 5
+(`make_partition_plan`, `sort.accumulate(impl='fused')`,
+`countstore.store_lookup`, `query.query_counts`) timed as phase 6 of
+chip_smoke.py times them, for the port under any source tree.
 
 Phase 6's two measurements (`chip_smoke.time_ms`: CUDA events around
 back-to-back calls; `chip_smoke.device_ms`: torch.profiler's kernel records)
@@ -25,13 +26,23 @@ int64 with w=25, and at the query path's windows, (2**20, 25) with w=25;
 the extraction at phase 10's shape, the Synthetic-26 read set's 2**23
 reads of 150 bp to canonical k=31 words in one launch, beside the time to
 zero its output in PyTorch (`Tensor.zero_`, the same 8 GB written: a
-floor for the writes alone, not the same function). `--rows 9` picks
-rows (1, 2, 3, 6, 9, plan, acc). With --profile, phase 7's profile of
-`count_kmers` at 2**20 reads and its launches per scan step. Prints one
-JSON line per row. Needs a CUDA card.
+floor for the writes alone, not the same function). Row 5 and the
+`lookup` call sites run against a store at the query path's state, (8,
+23592960) slots a row holding 8,388,608 random 62-bit keys (phase 8's
+distinct k-mers a PE), inserted by the kernel, at phase 6's query batch
+(`chip_smoke.lookup_queries`, scattered and tiled): the kernel as the
+tree's `countstore.store_lookup` calls it (home slots hashed in the
+kernel, or given from `store_slots` in a tree whose lookup cannot hash
+them), the kernel given `store_slots`, and `store_slots` itself; then
+`store_lookup` and a 2**20-query `query_counts` as whole calls.
+`--rows 5,lookup` picks rows (1, 2, 3, 5, 6, 9, plan, acc, lookup).
+With --profile, phase 7's profile of `count_kmers` at 2**20 reads and
+its launches per scan step. Prints one JSON line per row. Needs a CUDA
+card.
 """
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -43,8 +54,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
                     help="the directory that holds repro_torch")
-    ap.add_argument("--rows", default="1,2,3,6,9,plan,acc",
-                    help="of 1, 2, 3, 6, 9, plan and acc")
+    ap.add_argument("--rows", default="1,2,3,5,6,9,plan,acc,lookup",
+                    help="of 1, 2, 3, 5, 6, 9, plan, acc and lookup")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     wanted = set(args.rows.split(","))
@@ -126,6 +137,9 @@ def main():
             rec.update({f"{beside}_ms": lib_ms,
                         f"{beside}_device_ms": lib_dev_ms})
         print(json.dumps(rec), flush=True)
+    if wanted & {"5", "lookup"}:
+        for rec in lookup_rows(torch, cs, wanted, dev):
+            print(json.dumps({"src": args.src, **rec}), flush=True)
     if args.profile:
         per_step = cs.profile_path(torch, fabsp, genome, 1 << 20)
         print(json.dumps({"src": args.src, "name": "count_kmers_profile",
@@ -151,6 +165,82 @@ def call_sites(torch, cs, ops, sort, wanted, dev, gen):
                     lambda: sort.accumulate(keys, sentinel_val=-1,
                                             impl="fused")))
     return out
+
+
+LOOKUP_CAP = 23_592_960        # one PE's store slots on phase 8's path
+LOOKUP_FILL = 8_388_608        # its distinct k-mers, about
+
+
+def lookup_rows(torch, cs, wanted, dev):
+    """Row 5 and its call sites against a store at the query path's state;
+    yields one record per measurement."""
+    from repro_torch.core import countstore, fabsp, query
+    from repro_torch.kernels import ops, ref
+
+    st = countstore.empty_store(cs.NUM_PES, LOOKUP_CAP, 64, dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    for lo in range(0, LOOKUP_FILL, 1 << 21):
+        countstore.store_insert(st, torch.randint(
+            0, 1 << 62, (cs.NUM_PES, min(1 << 21, LOOKUP_FILL - lo)),
+            generator=g, device=dev))
+    if int(st.dropped.sum()):
+        raise AssertionError("the lookup store dropped keys on its fill")
+    snap = countstore.StoreSnapshot(gen=0, keys=st.keys, counts=st.counts,
+                                    store_cap=LOOKUP_CAP, word_bits=64)
+    q, tiled = cs.lookup_queries(torch, snap.keys, -1, 6)
+    slots = countstore.store_slots(q, LOOKUP_CAP, 64)
+    hashed = "word_bits" in inspect.signature(ops.hash_lookup).parameters
+    stats = torch.zeros((cs.NUM_PES, 3), dtype=torch.int64, device=dev)
+
+    def path_kernel(batch):
+        if hashed:
+            return lambda: ops.hash_lookup(snap.keys, snap.counts, batch,
+                                           None, sentinel_val=-1,
+                                           word_bits=64, stats=stats)
+        s = countstore.store_slots(batch, LOOKUP_CAP, 64)
+        return lambda: ops.hash_lookup(snap.keys, snap.counts, batch, s,
+                                       sentinel_val=-1)
+
+    if "5" in wanted:
+        counts, probes = ops.hash_lookup(snap.keys, snap.counts, q, slots,
+                                         sentinel_val=-1)
+        by_bytes, by_sectors, old_bytes = cs.lookup_bounds(
+            torch, ref, q, counts, probes, LOOKUP_CAP, 64, -1)
+        live = int((q != -1).sum())
+        yield {"name": "hash_lookup_batch", "live": live,
+               "hits": int((counts > 0).sum()),
+               "mean_walk": int(probes.sum()) / live,
+               "bound_ms": by_bytes / cs.HBM_BYTES_PER_S * 1e3,
+               "sector_bound_ms": by_sectors / cs.HBM_BYTES_PER_S * 1e3,
+               "old_bound_ms": old_bytes / cs.HBM_BYTES_PER_S * 1e3}
+        del counts, probes
+        timed = [("hash_lookup", f"{layout}, as store_lookup calls it",
+                  path_kernel(batch), True)
+                 for layout, batch in (("scattered", q), ("tiled", tiled))]
+        timed.append(("hash_lookup", "scattered, slots given",
+                      lambda: ops.hash_lookup(snap.keys, snap.counts, q,
+                                              slots, sentinel_val=-1), True))
+        timed.append(("store_slots", "scattered", lambda: countstore.
+                      store_slots(q, LOOKUP_CAP, 64), False))
+        for name, shape, fn, port in timed:
+            ms = cs.time_ms(torch, fn)
+            dev_ms = cs.device_ms(torch, fn, port=port)
+            yield {"name": name, "shape": shape, "ms": ms,
+                   "device_ms": dev_ms}
+    if "lookup" in wanted:
+        cfg = fabsp.DAKCConfig(k=cs.K, transport_impl="superkmer",
+                               minimizer_order="hashed",
+                               compact_impl="prefix")
+        words = q[q != -1][:1 << 20].contiguous()
+        for name, fn in (
+                ("store_lookup", lambda: countstore.store_lookup(snap, q)),
+                ("query_counts", lambda: query.query_counts(
+                    words, cfg, snap, num_pes=cs.NUM_PES))):
+            ms, dev_ms, n_launch = cs.whole_call(torch, fn)
+            yield {"name": name, "shape": "store (8, 23592960), queries "
+                   "(8, 1048576) scattered" if name == "store_lookup"
+                   else "2**20 queries, k=31 hashed super-k-mers",
+                   "ms": ms, "device_ms": dev_ms, "device_launches": n_launch}
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ dropped inserts. `store_insert` folds a batch in place (the insert kernel
 on the card, the sequential plain version on the CPU); `store_histogram`
 sorts the table into the usual `AccumResult`, so the slot layout, which
 differs between the two, never reaches a result. `store_lookup` is the
-read-only probe the query path serves from; it reads a committed
+read-only probe the query path serves from (the lookup kernel on the
+card, which also sums the batch's stats); it reads a committed
 `StoreSnapshot`, whose tensors no later call writes.
 """
 
@@ -81,15 +82,20 @@ def store_insert(store: CountStore, words: torch.Tensor,
     return store
 
 
-def store_lookup(store, words: torch.Tensor):
+def store_lookup(store, words: torch.Tensor,
+                 stats: Optional[torch.Tensor] = None):
     """Read-only probe of (P, n) words against every PE's table (a
     `CountStore` or a `StoreSnapshot`): ((P, n) int32 counts, 0 = miss
-    or sentinel padding; (P, n) int32 probe-walk lengths)."""
-    words = words.contiguous()
-    return ops.hash_lookup(store.keys, store.counts, words,
-                           store_slots(words, store.keys.shape[1],
-                                       store.word_bits),
-                           sentinel_val=W.sentinel(store.word_bits))
+    or sentinel padding; (P, n) int32 probe-walk lengths).
+
+    The home slots come from the lookup itself (`ops.hash_lookup` with no
+    slots): on the card the kernel hashes each word, so the probe is one
+    launch; on the CPU the plain version computes `store_slots`. `stats`
+    (P, 3) int64, zeroed by the caller, receives each PE's hits, probe sum
+    and longest walk (`ops.hash_lookup`)."""
+    return ops.hash_lookup(store.keys, store.counts, words.contiguous(), None,
+                           sentinel_val=W.sentinel(store.word_bits),
+                           word_bits=store.word_bits, stats=stats)
 
 
 def store_copy(store: CountStore) -> CountStore:

@@ -9,6 +9,8 @@
    in an 'i32' lane (0 marks tile padding).
 3. Probe: every PE probes its committed store in place with the read-only
    lookup kernel (`countstore.store_lookup`); count 0 is a definitive miss.
+   The kernel hashes each word's home slot and sums the batch's hits and
+   probe walks, so the stats need no reduction over the batch.
 4. Return hop: a second `route_lanes` call ships (qid, count) back to the
    PE that asked, (qid - 1) // n_local, which scatters each answer into
    request order at (qid - 1) % n_local.
@@ -114,7 +116,10 @@ def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
         capacity=n_local, word_bits=snap.word_bits, impl=cfg.partition_impl)
     rwords, rqid = rr.lanes
     rvalid = rwords != sent
-    counts, probes = countstore.store_lookup(snap, rwords)
+    # (hits, probe sum, longest walk) of each PE's live queries, summed by
+    # the lookup itself
+    lstats = torch.zeros((p, 3), dtype=torch.int64, device=dev)
+    counts, _ = countstore.store_lookup(snap, rwords, lstats)
     back = torch.div(rqid - 1, n_local, rounding_mode="floor")
     rr2 = aggregation.route_lanes(
         (rqid, counts), ("i32", "i32"), back, rvalid, num_pes=p,
@@ -125,10 +130,10 @@ def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
     dst = torch.where(bqid > 0, (bqid - 1) % n_local, n_local).to(torch.int64)
     out = torch.zeros((p, n_local + 1), dtype=torch.int32, device=dev)
     out.scatter_add_(1, dst, bcounts)
-    prb = torch.where(rvalid, probes, 0)
-    hits, psum, pmax = torch.stack([
-        ((counts > 0) & rvalid).sum(), prb.sum(),
-        prb.max().to(torch.int64)]).tolist()
+    per_pe = lstats.tolist()
+    hits = sum(r[0] for r in per_pe)
+    psum = sum(r[1] for r in per_pe)
+    pmax = max(r[2] for r in per_pe)
     stats = QueryStats(
         n_queries=nq, n_hits=hits,
         wire_bytes=p * (rr.wire_bytes + rr2.wire_bytes), probe_sum=psum,

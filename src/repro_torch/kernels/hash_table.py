@@ -22,8 +22,8 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "hash_insert_launch": (_P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _INT,
                            _P, _P),
-    "hash_lookup_launch": (_P, _P, _I64, _I64, _P, _P, _I64, _I64, _P, _P,
-                           _P),
+    "hash_lookup_launch": (_P, _P, _I64, _I64, _P, _P, _I64, _I64, _INT,
+                           _P, _P, _P, _P),
 }
 
 
@@ -64,19 +64,32 @@ def hash_insert_cuda(table_keys: torch.Tensor, table_counts: torch.Tensor,
 
 
 def hash_lookup_cuda(table_keys: torch.Tensor, table_counts: torch.Tensor,
-                     keys: torch.Tensor, slots: torch.Tensor,
-                     sentinel_val: int):
+                     keys: torch.Tensor, slots: Optional[torch.Tensor],
+                     sentinel_val: int, word_bits: int,
+                     stats: Optional[torch.Tensor] = None):
     """Probe a (P, n) batch against the (P, cap) table, read only; returns
-    ((P, n) int32 counts, (P, n) int32 probe lengths)."""
+    ((P, n) int32 counts, (P, n) int32 probe lengths). With `slots` None
+    the kernel computes each key's home slot (`countstore.store_slots` of
+    a `word_bits`-bit word). `stats` (P, 3) int64, when given, gets each
+    row's hits added to column 0, its probe sum to column 1, and column 2
+    raised to its longest walk."""
     build.check_arg(table_keys, "table_keys", torch.int64, 2)
     dev = table_keys.device
     build.check_arg(table_counts, "table_counts", torch.int32, 2, dev)
     build.check_arg(keys, "keys", torch.int64, 2, dev)
-    build.check_arg(slots, "slots", torch.int32, 2, dev)
+    if slots is not None:
+        build.check_arg(slots, "slots", torch.int32, 2, dev)
+    if stats is not None:
+        build.check_arg(stats, "stats", torch.int64, 2, dev)
     rows, cap = table_keys.shape
-    if (table_counts.shape != table_keys.shape or slots.shape != keys.shape
-            or keys.shape[0] != rows):
-        raise ValueError("table and batch shapes disagree")
+    if (table_counts.shape != table_keys.shape
+            or (slots is not None and slots.shape != keys.shape)
+            or keys.shape[0] != rows
+            or (stats is not None and tuple(stats.shape) != (rows, 3))):
+        raise ValueError("table, batch and stats shapes disagree")
+    if not 1 <= cap < (1 << 31) or word_bits not in (32, 64):
+        raise ValueError(f"capacity {cap} outside [1, 2**31) or word_bits "
+                         f"{word_bits} not 32 or 64")
     n = keys.shape[1]
     counts = torch.empty(keys.shape, dtype=torch.int32, device=dev)
     probes = torch.empty_like(counts)
@@ -84,7 +97,8 @@ def hash_lookup_cuda(table_keys: torch.Tensor, table_counts: torch.Tensor,
         lib = build.load("hash_table", _SIGNATURES)
         build.check_status(lib.hash_lookup_launch(
             table_keys.data_ptr(), table_counts.data_ptr(), rows, cap,
-            keys.data_ptr(), slots.data_ptr(), n, sentinel_val,
-            counts.data_ptr(), probes.data_ptr(), build.stream_ptr(keys)),
-            "hash_lookup")
+            keys.data_ptr(), None if slots is None else slots.data_ptr(), n,
+            sentinel_val, word_bits, counts.data_ptr(),
+            probes.data_ptr(), None if stats is None else stats.data_ptr(),
+            build.stream_ptr(keys)), "hash_lookup")
     return counts, probes

@@ -183,16 +183,36 @@ def hash_insert(table_keys: torch.Tensor, table_counts: torch.Tensor,
 
 
 def hash_lookup(table_keys: torch.Tensor, table_counts: torch.Tensor,
-                keys: torch.Tensor, slots: torch.Tensor, *,
-                sentinel_val: int):
+                keys: torch.Tensor, slots: Optional[torch.Tensor], *,
+                sentinel_val: int, word_bits: Optional[int] = None,
+                stats: Optional[torch.Tensor] = None):
     """Read-only probe of a (P, n) batch against the (P, cap) table:
-    ((P, n) int32 counts, 0 = miss; (P, n) int32 probe-walk lengths)."""
+    ((P, n) int32 counts, 0 = miss; (P, n) int32 probe-walk lengths).
+
+    `slots` (P, n) are the queries' home slots; with None, each key's home
+    slot is `ref.home_slots` of a `word_bits`-bit word, which the kernel
+    computes on the card. `stats` (P, 3) int64, zeroed by the caller, gets
+    each row's live-query hits (count > 0) and probe sum added and its
+    longest walk maxed in (`ref.lookup_stats`); on the card the kernel
+    sums them."""
+    if slots is None and word_bits is None:
+        raise ValueError("hash_lookup: slots=None needs word_bits")
     if _on_cpu(table_keys):
-        return ref.hash_lookup(table_keys, table_counts, keys, slots,
-                               sentinel_val)
-    out = hash_table.hash_lookup_cuda(table_keys, table_counts, keys,
-                                      slots.to(torch.int32).contiguous(),
-                                      sentinel_val)
+        if slots is None:
+            slots = ref.home_slots(keys, table_keys.shape[1], word_bits)
+        counts, probes = ref.hash_lookup(table_keys, table_counts, keys,
+                                         slots, sentinel_val)
+        if stats is not None:
+            part = ref.lookup_stats(counts, probes)
+            stats[:, :2] += part[:, :2]
+            stats[:, 2] = torch.maximum(stats[:, 2], part[:, 2])
+        return counts, probes
+    if slots is not None:
+        slots = slots.to(torch.int32).contiguous()
+    out = hash_table.hash_lookup_cuda(table_keys, table_counts, keys, slots,
+                                      sentinel_val,
+                                      64 if word_bits is None else word_bits,
+                                      stats)
     hash_lookup.launches += 1
     return out
 

@@ -273,6 +273,17 @@ def hash_lookup(table_keys: torch.Tensor, table_counts: torch.Tensor,
     return counts, probes
 
 
+def lookup_stats(counts: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
+    """(P, 3) int64 stats of a lookup's (P, n) outputs, row by row: the
+    hits (count > 0; a sentinel query has count 0), the probe sum and the
+    longest walk (a sentinel query has 0 probes), as `hash_lookup_cuda`
+    sums them."""
+    p = probes.to(torch.int64)
+    longest = (p.amax(1) if p.shape[1] else
+               torch.zeros(p.shape[0], dtype=torch.int64, device=p.device))
+    return torch.stack([(counts > 0).sum(1), p.sum(1), longest], 1)
+
+
 def sliding_min(vals: torch.Tensor, window: int) -> torch.Tensor:
     """(rows, n_pos) int64-carried words -> (rows, n_pos - window + 1)
     windowed minima in the UNSIGNED order of the words:

@@ -116,6 +116,33 @@ def test_stacked_stores_are_independent_rows():
                                       np.asarray(want.counts))
 
 
+@pytest.mark.parametrize("cap", [1000, 300])
+def test_store_lookup_matches_jax_k13(cap):
+    """Two batches into one store, then a lookup of their words, words
+    the store lacks and sentinels: counts and probe lengths equal the JAX
+    package's `store_lookup` (at 300 slots the store dropped, so some of
+    its own words miss), and the stats those of the JAX outputs."""
+    js = jcs.empty_store(cap, jnp.uint32)
+    ps = countstore.empty_store(1, cap, 32)
+    for batch in (A13, B13):
+        js = jcs.store_insert(js, jnp.asarray(batch[0]), jnp.asarray(batch[1]))
+        ps = _insert(ps, batch)
+    miss = _batch(5, 300, 13, np.uint32, 300)[0]
+    q = np.concatenate([A13[0], B13[0], miss])
+    jc, jp = (np.asarray(x) for x in jcs.store_lookup(js, jnp.asarray(q)))
+    stats = torch.zeros((1, 3), dtype=torch.int64)
+    counts, probes = countstore.store_lookup(
+        ps, W.to_torch_words(q[None])[0], stats)
+    np.testing.assert_array_equal(counts[0].numpy(), jc)
+    np.testing.assert_array_equal(probes[0].numpy(), jp)
+    np.testing.assert_array_equal(
+        stats[0].numpy(), [(jc > 0).sum(), jp.astype(np.int64).sum(),
+                           jp.max()])
+    if cap == 300:
+        assert int(ps.dropped[0]) > 0
+        assert ((jc[:1200] == 0) & (q[:1200] != SENT32)).any()
+
+
 # --- 64-bit words (k=31), JAX in an x64 subprocess ---------------------------
 
 A31 = _batch(3, 800, 31, np.uint64, 350)

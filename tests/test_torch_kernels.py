@@ -338,11 +338,69 @@ def _lookup_case(name, seed):
 def test_hash_lookup_kernel_matches_plain_on_card(name):
     dev = _cuda()
     tk, tc, q, slots = _lookup_case(name, 23)
-    pc, pp = ops.hash_lookup(tk, tc, q, slots, sentinel_val=SENT32)
+    ps = torch.zeros((2, 3), dtype=torch.int64)
+    pc, pp = ops.hash_lookup(tk, tc, q, slots, sentinel_val=SENT32, stats=ps)
+    ds = ps.to(dev).zero_()
     dc, dp = ops.hash_lookup(tk.to(dev), tc.to(dev), q.to(dev),
-                             slots.to(dev), sentinel_val=SENT32)
+                             slots.to(dev), sentinel_val=SENT32, stats=ds)
     torch.cuda.synchronize()
     assert torch.equal(dc.cpu(), pc) and torch.equal(dp.cpu(), pp)
+    assert torch.equal(ds.cpu(), ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1, 257, 1 << 20, 23_592_960])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_hash_lookup_no_slots_kernel_matches_plain_on_card(bits, cap):
+    """Row 5 with `slots=None` against its plain version on the card, with
+    1, 2 and 4 queries a thread: counts, probes and stats bit-equal. The
+    table is filled by the insert kernel from its own home slots (caps 1
+    and 257 fill up, so misses sweep the table and walks wrap); the
+    queries are stored keys, keys it lacks (64-bit: the top bit set on
+    every other one) and sentinels, as scattered padding and as the query
+    path's tiles, each a live prefix."""
+    from repro_torch.kernels import hash_table
+
+    dev = _cuda()
+    sent = W.sentinel(bits)
+    rng = np.random.default_rng(cap + bits)
+    n_keys = min(cap + 40, 300_000)
+    keys = W.to_torch_words(_lookup_words(rng, 2 * n_keys, bits)
+                            .reshape(2, n_keys))[0].to(dev)
+    tk = torch.full((2, cap), sent, dtype=torch.int64, device=dev)
+    tc = torch.zeros((2, cap), dtype=torch.int32, device=dev)
+    ops.hash_insert(tk, tc, keys, torch.ones_like(keys, dtype=torch.int32),
+                    None, sentinel_val=sent,
+                    dropped=torch.zeros((2,), dtype=torch.int32, device=dev),
+                    word_bits=bits)
+    n = 8 * 16384
+    miss = W.to_torch_words(_lookup_words(rng, 2 * n, bits)
+                            .reshape(2, n))[0].to(dev)
+    pick = torch.from_numpy(rng.integers(0, n_keys, size=(2, n))).to(dev)
+    q = torch.where(torch.from_numpy(rng.random((2, n)) < 0.5).to(dev),
+                    keys.gather(1, pick), miss)
+    scattered = q.clone()
+    scattered[:, ::7] = sent
+    live = (torch.arange(16384, device=dev).view(1, -1) <
+            torch.tensor([5000, 0, 16384, 1, 700, 0, 12000, 9000],
+                         device=dev).view(-1, 1)).reshape(1, n)
+    tiled = torch.where(live, q, sent)
+    for batch in (scattered, tiled):
+        want = ref.hash_lookup(tk, tc, batch, ref.home_slots(batch, cap, bits),
+                               sent)
+        want_stats = ref.lookup_stats(*want)
+        stats = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+        got = hash_table.hash_lookup_cuda(tk, tc, batch, None, sent, bits,
+                                          stats)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(stats, want_stats)
+        stats = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+        got = ops.hash_lookup(tk, tc, batch, None, sentinel_val=sent,
+                              word_bits=bits, stats=stats)
+        assert torch.equal(got[0], want[0]) and torch.equal(stats, want_stats)
+    if cap <= 257:
+        assert int(want[1].max()) == cap      # a miss swept the full table
 
 
 @pytest.mark.gpu
@@ -521,6 +579,131 @@ def test_hash_lookup_plain_matches_jax_ref():
             np.testing.assert_array_equal(probes[r].numpy(), np.asarray(jp))
         if name == "full":
             assert int(probes.max()) == 16   # a miss sweeps the whole table
+
+
+# --- row 5 with home slots hashed (`slots=None`) and the batch's stats -------
+
+def _lookup_words(rng, n, bits):
+    """n random words: 32-bit below the sentinel, 64-bit with the top bit
+    set on every other one."""
+    if bits == 32:
+        return rng.integers(0, SENT32, size=n).astype(np.uint32)
+    w = rng.integers(0, 1 << 62, size=n, dtype=np.uint64)
+    w[::2] |= np.uint64(1 << 63)
+    return w
+
+
+def _hashed_lookup_case(name, bits, seed):
+    """(table keys, counts, queries) of a lookup case on the CPU, the table
+    built by the plain insert from hashed home slots: 'sparse' (hits,
+    misses, sentinels), 'wraps' (every key's home slot one of the last
+    two, so walks cross the end) and 'full' (every slot taken: a miss
+    sweeps the table)."""
+    cap, n_keys = {"sparse": (64, 30), "wraps": (37, 12), "full": (16, 40)}[
+        name]
+    rng = np.random.default_rng(seed)
+    sent = W.sentinel(bits)
+    if name == "wraps":
+        cand = W.to_torch_words(_lookup_words(rng, 4000, bits))[0]
+        cand = cand[ref.home_slots(cand, cap, bits) >= cap - 2]
+        keys, miss = cand[:2 * n_keys].view(2, n_keys), cand[2 * n_keys:][:10]
+        miss = miss.expand(2, -1)
+    else:
+        keys = W.to_torch_words(_lookup_words(rng, 2 * n_keys, bits)
+                                .reshape(2, n_keys))[0]
+        miss = W.to_torch_words(_lookup_words(rng, 20, bits)
+                                .reshape(2, 10))[0]
+    tk = torch.full((2, cap), sent, dtype=torch.int64)
+    tc = torch.zeros((2, cap), dtype=torch.int32)
+    ops.hash_insert(tk, tc, keys, torch.ones_like(keys, dtype=torch.int32),
+                    None, sentinel_val=sent,
+                    dropped=torch.zeros((2,), dtype=torch.int32),
+                    word_bits=bits)
+    q = torch.cat([keys, miss, torch.full((2, 5), sent)], 1)
+    return tk, tc, q
+
+
+HASHED_LOOKUP_CASES = [(b, n) for b in (32, 64)
+                       for n in ("sparse", "wraps", "full")]
+
+
+@pytest.mark.parametrize("bits,name", HASHED_LOOKUP_CASES)
+def test_hash_lookup_no_slots_equals_home_slots(bits, name):
+    """`slots=None` on the CPU probes exactly as explicit `ref.home_slots`;
+    the cases reach a wrap and a sweep of a full table."""
+    tk, tc, q = _hashed_lookup_case(name, bits, 31 + bits)
+    cap, sent = tk.shape[1], W.sentinel(bits)
+    got = ops.hash_lookup(tk, tc, q, None, sentinel_val=sent, word_bits=bits)
+    want = ops.hash_lookup(tk, tc, q, ref.home_slots(q, cap, bits),
+                           sentinel_val=sent)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    counts, probes = got
+    if name == "full":
+        assert int(probes.max()) == cap
+    if name == "wraps":
+        home = ref.home_slots(q, cap, bits).to(torch.int64)
+        assert bool(((home + probes > cap) & (counts > 0)).any())
+    assert int((counts > 0).sum()) > 0
+
+
+def test_hash_lookup_no_slots_needs_word_bits():
+    tk, tc, q = _hashed_lookup_case("sparse", 32, 1)
+    with pytest.raises(ValueError, match="word_bits"):
+        ops.hash_lookup(tk, tc, q, None, sentinel_val=SENT32)
+
+
+@pytest.mark.parametrize("bits,name", HASHED_LOOKUP_CASES)
+def test_hash_lookup_stats_sum_its_outputs(bits, name):
+    """`stats` gets each row's hits, probe sum and longest walk, counted
+    here in numpy from the returned arrays; a second call adds the sums
+    and keeps the maximum."""
+    tk, tc, q = _hashed_lookup_case(name, bits, 37 + bits)
+    sent = W.sentinel(bits)
+    stats = torch.zeros((2, 3), dtype=torch.int64)
+    counts, probes = ops.hash_lookup(tk, tc, q, None, sentinel_val=sent,
+                                     word_bits=bits, stats=stats)
+    c, p = counts.numpy(), probes.numpy().astype(np.int64)
+    want = np.stack([(c > 0).sum(1), p.sum(1), p.max(1)], 1)
+    np.testing.assert_array_equal(stats.numpy(), want)
+    assert stats.dtype == torch.int64
+    ops.hash_lookup(tk, tc, q, None, sentinel_val=sent, word_bits=bits,
+                    stats=stats)
+    np.testing.assert_array_equal(stats[:, :2].numpy(), 2 * want[:, :2])
+    np.testing.assert_array_equal(stats[:, 2].numpy(), want[:, 2])
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_hash_lookup_stats_zero_for_padding(bits):
+    """A batch of sentinels (and an empty batch) reads nothing: counts and
+    probes 0, stats 0."""
+    tk, tc, _ = _hashed_lookup_case("full", bits, 3)
+    sent = W.sentinel(bits)
+    for n in (0, 700):
+        q = torch.full((2, n), sent, dtype=torch.int64)
+        stats = torch.zeros((2, 3), dtype=torch.int64)
+        counts, probes = ops.hash_lookup(tk, tc, q, None, sentinel_val=sent,
+                                         word_bits=bits, stats=stats)
+        assert not bool(counts.any()) and not bool(probes.any())
+        assert not bool(stats.any())
+
+
+@pytest.mark.parametrize("name", ["sparse", "wraps", "full"])
+def test_hash_lookup_no_slots_matches_jax_k13(name):
+    """The hashed lookup against the JAX package's `hash_lookup_ref` from
+    its own `store_slots` (32-bit words)."""
+    from repro.core import countstore as jcs
+    tk, tc, q = _hashed_lookup_case(name, 32, 41)
+    cap = tk.shape[1]
+    counts, probes = ops.hash_lookup(tk, tc, q, None, sentinel_val=SENT32,
+                                     word_bits=32)
+    for r in range(2):
+        jq = jnp.asarray(W.to_numpy_words(q[r], 32))
+        jc, jp = jref.hash_lookup_ref(
+            jnp.asarray(W.to_numpy_words(tk[r], 32)),
+            jnp.asarray(tc[r].numpy()), jq, jcs.store_slots(jq, cap), SENT32)
+        np.testing.assert_array_equal(counts[r].numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(probes[r].numpy(), np.asarray(jp))
 
 
 # --- the kernels' block layouts, mirrored on the CPU --------------------------
@@ -790,15 +973,30 @@ def _mirror_mix32(x):
     return x ^ (x >> np.uint32(16))
 
 
+def _mirror_umulhi64(a, b):
+    """CUDA's __umul64hi on uint64 arrays, from 32-bit halves."""
+    m32 = np.uint64(0xFFFFFFFF)
+    s32 = np.uint64(32)
+    a_lo, a_hi, b_lo, b_hi = a & m32, a >> s32, b & m32, b >> s32
+    hi_lo, lo_hi = a_hi * b_lo, a_lo * b_hi
+    cross = ((a_lo * b_lo) >> s32) + (hi_lo & m32) + (lo_hi & m32)
+    return a_hi * b_hi + (hi_lo >> s32) + (lo_hi >> s32) + (cross >> s32)
+
+
 def _mirror_home_slots(words: np.ndarray, cap: int, word_bits: int):
-    """hash_insert_kernel's home_slot over uint32/uint64 words."""
+    """The kernels' home_slot over uint32/uint64 words: the slot hash, then
+    the remainder from the host's inverse m = (2**64 - 1) // cap, one
+    multiply-high and one correction."""
     if word_bits == 64:
         h = _mirror_mix64(_mirror_mix64(words.astype(np.uint64))
                           ^ np.uint64(0x9E3779B97F4A7C15))
-        return (h % np.uint64(cap)).astype(np.int32)
-    h = _mirror_mix32(_mirror_mix32(words.astype(np.uint32))
-                      ^ np.uint32(0x9E3779B9))
-    return (h % np.uint32(cap)).astype(np.int32)
+    else:
+        h = _mirror_mix32(_mirror_mix32(words.astype(np.uint32))
+                          ^ np.uint32(0x9E3779B9)).astype(np.uint64)
+    c = np.uint64(cap)
+    r = h - _mirror_umulhi64(h, np.uint64(((1 << 64) - 1) // cap)) * c
+    assert (r < 2 * c).all()
+    return np.where(r >= c, r - c, r).astype(np.int32)
 
 
 HOME_CAPS = (1, 2, (1 << 31) - 1, 188_743_680)
@@ -829,6 +1027,19 @@ def _store_batch(bits):
 
 STORE64 = _store_batch(64)
 
+
+def _store_queries(words, bits):
+    """Lookup queries of a store batch: its own words (sentinels among
+    them), 300 words it lacks and 5 sentinels."""
+    rng = np.random.default_rng(bits + 1)
+    dt = np.uint32 if bits == 32 else np.uint64
+    miss = rng.integers(0, 1 << (26 if bits == 32 else 62), size=300,
+                        dtype=np.uint64).astype(dt)
+    return np.concatenate([words[0], miss, np.full(5, np.iinfo(dt).max, dt)])
+
+
+LOOKUP64 = _store_queries(STORE64[0], 64)
+
 _BODY_HOME = """
 from repro.core import countstore
 for cap in (1, 2, (1 << 31) - 1, 188_743_680):
@@ -840,13 +1051,16 @@ for cap in (1801, 300):
     O[f"st_{cap}"] = np.stack([np.asarray(s.keys).view(np.int64),
                                np.asarray(s.counts).astype(np.int64)])
     O[f"sd_{cap}"] = s.dropped
+    c, p = countstore.store_lookup(s, jnp.asarray(I["lq"]))
+    O[f"lk_{cap}"] = np.stack([np.asarray(c), np.asarray(p)])
 """
 
 
 @pytest.fixture(scope="module")
 def jax_home64(tmp_path_factory):
     return run_jax(tmp_path_factory.mktemp("home64"), _BODY_HOME,
-                   {"w64": HOME64, "sw": STORE64[0], "sc": STORE64[1]},
+                   {"w64": HOME64, "sw": STORE64[0], "sc": STORE64[1],
+                    "lq": LOOKUP64},
                    x64=True)
 
 
@@ -894,6 +1108,29 @@ def test_store_insert_no_slots_matches_jax_k31(jax_home64, cap):
 
 
 @pytest.mark.parametrize("cap", [1801, 300])
+def test_store_lookup_matches_jax_k31(jax_home64, cap):
+    """`store_lookup` passes no slots; on the CPU its counts and probe
+    lengths equal the JAX package's `store_lookup` at k=31 (300 slots: the
+    store dropped, so some of its own words miss), and its stats those of
+    the JAX outputs."""
+    from repro_torch.core import countstore
+    st = _port_store_insert(*STORE64, cap, 64)
+    stats = torch.zeros((1, 3), dtype=torch.int64)
+    counts, probes = countstore.store_lookup(
+        st, W.to_torch_words(LOOKUP64[None])[0], stats)
+    want = jax_home64[f"lk_{cap}"]
+    np.testing.assert_array_equal(counts[0].numpy(), want[0])
+    np.testing.assert_array_equal(probes[0].numpy(), want[1])
+    np.testing.assert_array_equal(
+        stats[0].numpy(), [(want[0] > 0).sum(), want[1].astype(np.int64).sum(),
+                           want[1].max()])
+    if cap == 300:
+        assert int(st.dropped[0]) > 0
+        live = LOOKUP64[:1500] != np.iinfo(np.uint64).max
+        assert ((want[0][:1500] == 0) & live).any()
+
+
+@pytest.mark.parametrize("cap", [1801, 300])
 def test_store_insert_no_slots_matches_jax_k13(cap):
     from repro.core import countstore as jcs
     words, counts = _store_batch(32)
@@ -927,6 +1164,113 @@ def test_hash_insert_no_slots_equals_home_slots(name):
         ops.hash_insert(got_k, got_c, W.to_torch_words(keys)[0],
                         torch.from_numpy(w), None, sentinel_val=SENT32,
                         dropped=got_d)
+
+
+# --- row 5: the lookup kernel's blocks, mirrored on the CPU -------------------
+# `csrc/hash_table.cu`'s hash_lookup_kernel<bits>: a block of 256 threads
+# covers 256 * 2 queries of a row, thread t taking queries lo + t and
+# lo + t + 256; a block of padding zeroes its span and returns; the
+# other blocks walk each thread's queries in lockstep from the hashed home
+# slot and add the block's (hits, probe sum, longest walk) to its row.
+
+LOOKUP_THREADS, LOOKUP_PER = 256, 2
+
+
+def _mirror_lookup(tk, tc, keys, sent, bits):
+    """The kernel's blocks over (rows, cap) table and (rows, n) query
+    int64 arrays: (counts, probes, stats, writes), writes counting how
+    often each output slot was written."""
+    rows, n = keys.shape
+    cap = tk.shape[1]
+    words = keys.view(np.uint64) if bits == 64 else keys.astype(np.uint32)
+    home = _mirror_home_slots(words, cap, bits).astype(np.int64)
+    counts = np.full((rows, n), -7, np.int32)
+    probes = np.full((rows, n), -7, np.int32)
+    writes = np.zeros((rows, n), np.int32)
+    stats = np.zeros((rows, 3), np.int64)
+    span = LOOKUP_THREADS * LOOKUP_PER
+    for r in range(rows):
+        for lo in range(0, n, span):
+            idx = (lo + np.arange(LOOKUP_THREADS)[:, None]
+                   + np.arange(LOOKUP_PER)[None, :] * LOOKUP_THREADS)
+            inb = idx < n
+            at = np.minimum(idx, n - 1)
+            key = np.where(inb, keys[r, at], sent)
+            walk = key != sent
+            if not walk.any():                       # a block of padding
+                end = min(n, lo + span)
+                counts[r, lo:end] = probes[r, lo:end] = 0
+                writes[r, lo:end] += 2
+                continue
+            slot = np.where(walk, home[r, at], 0)
+            steps = np.zeros(idx.shape, np.int64)
+            hit = np.zeros(idx.shape, bool)
+            for _ in range(cap):
+                cur = tk[r, slot]
+                steps += walk
+                found = walk & (cur == key)
+                hit |= found
+                walk = walk & ~found & (cur != sent)
+                slot = np.where(walk, (slot + 1) % cap, slot)
+                if not walk.any():
+                    break
+            count = np.where(hit, tc[r, slot], 0)
+            counts[r, idx[inb]] = count[inb]
+            probes[r, idx[inb]] = steps[inb]
+            writes[r, idx[inb]] += 2
+            stats[r] += [(count > 0).sum(), steps.sum(), 0]
+            stats[r, 2] = max(stats[r, 2], steps.max())
+    return counts, probes, stats, writes
+
+
+def _mirror_lookup_case(kind, bits, seed):
+    """'tiled': 4 tiles of 1024 queries, each a live prefix (100, 0, 1024,
+    700 long) as the query path's received batch; 'ragged': 3001 queries on
+    a 78 %-full 257-slot table (long walks, wraps, a partial last block);
+    'full': a full 16-slot table that misses sweep."""
+    rng = np.random.default_rng(seed)
+    sent = W.sentinel(bits)
+    cap, n_keys, n = {"tiled": (4096, 1400, 4096), "ragged": (257, 200, 3001),
+                      "full": (16, 40, 600)}[kind]
+    keys = W.to_torch_words(_lookup_words(rng, 2 * n_keys, bits)
+                            .reshape(2, n_keys))[0]
+    tk = torch.full((2, cap), sent, dtype=torch.int64)
+    tc = torch.zeros((2, cap), dtype=torch.int32)
+    ops.hash_insert(tk, tc, keys, torch.from_numpy(
+        rng.integers(1, 9, size=(2, n_keys)).astype(np.int32)), None,
+        sentinel_val=sent, dropped=torch.zeros((2,), dtype=torch.int32),
+        word_bits=bits)
+    miss = W.to_torch_words(_lookup_words(rng, 2 * n, bits).reshape(2, n))[0]
+    q = torch.where(torch.from_numpy(rng.random((2, n)) < 0.5),
+                    keys.gather(1, torch.from_numpy(
+                        rng.integers(0, n_keys, size=(2, n)))), miss)
+    if kind == "tiled":
+        live = torch.arange(1024).view(1, 1024) < torch.tensor(
+            [100, 0, 1024, 700]).view(4, 1)
+        q = torch.where(live.reshape(1, n), q, sent)
+    else:
+        q[:, ::7] = sent
+    return tk, tc, q
+
+
+@pytest.mark.parametrize("seed", [44, 45])
+@pytest.mark.parametrize("kind", ["tiled", "ragged", "full"])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_hash_lookup_block_mirror(kind, bits, seed):
+    """Every output slot written once, and counts, probes and stats equal
+    to the plain version's (`ref.hash_lookup` from `ref.home_slots`,
+    `ref.lookup_stats`)."""
+    tk, tc, q = _mirror_lookup_case(kind, bits, seed)
+    sent = W.sentinel(bits)
+    counts, probes, stats, writes = _mirror_lookup(
+        tk.numpy(), tc.numpy(), q.numpy(), sent, bits)
+    assert (writes == 2).all()
+    want = ref.hash_lookup(tk, tc, q, ref.home_slots(q, tk.shape[1], bits),
+                           sent)
+    np.testing.assert_array_equal(counts, want[0].numpy())
+    np.testing.assert_array_equal(probes, want[1].numpy())
+    np.testing.assert_array_equal(stats, ref.lookup_stats(*want).numpy())
+    assert int((want[0] > 0).sum()) > 0
 
 
 # --- row 9: the packed-row extraction, mirrored on the CPU --------------------
@@ -1103,9 +1447,10 @@ def test_kmer_extract_packed_window_mirror(jax_extract, i):
 def test_hash_insert_home_slots_on_card(bits, cap):
     """Row 4 with `slots=None`: the kernel's home slots. The table is set-
     equal to the plain version's with the same drop signal; every inserted
-    key is then found by `hash_lookup` from `store_slots` with its count (a
-    wrong home slot hides the key); a `store_grow` rehash on the card keeps
-    the set."""
+    key is then found with its count by `hash_lookup` from `store_slots`
+    and by `store_lookup` (the lookup kernel's own home slots), whose stats
+    count each as a hit (a wrong home slot hides the key); a `store_grow`
+    rehash on the card keeps the set."""
     from repro_torch.core import countstore
 
     dev = _cuda()
@@ -1135,9 +1480,15 @@ def test_hash_insert_home_slots_on_card(bits, cap):
                                      pt.counts[r][pocc].tolist()))
         else:   # a full table: which keys win the slots may differ
             assert len(got) == cap
-    counts, _ = countstore.store_lookup(st, st.keys)
     live = st.keys != sent
+    counts, _ = ops.hash_lookup(st.keys, st.counts, st.keys,
+                                countstore.store_slots(st.keys, cap, bits),
+                                sentinel_val=sent)
     assert torch.equal(counts[live], st.counts[live])
+    stats = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+    counts, _ = countstore.store_lookup(st, st.keys, stats)
+    assert torch.equal(counts[live], st.counts[live])
+    assert torch.equal(stats[:, 0], (live & (st.counts > 0)).sum(1))
     if int(dd.sum()) == 0:
         grown = countstore.store_grow(st, 2 * cap + 1)
         torch.cuda.synchronize()
