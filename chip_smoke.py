@@ -6,7 +6,8 @@
     python3 chip_smoke.py --phases 1,2,3,8 # ... and the incremental counter
     python3 chip_smoke.py --phases 1,2,3,9 # ... and the LM training path
     python3 chip_smoke.py --phases 1,2,3,10  # ... and the sweep kernels
-    python3 chip_smoke.py --reads 4194304  # cut phases 4 and 10's read count
+    python3 chip_smoke.py --phases 1,2,11,12 # the 2d topology and BSP
+    python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-12's read count
 
 Phases:
   1. device: require CUDA; print the card's name and power limit;
@@ -35,6 +36,20 @@ Phases:
      card, checked exactly against an independent torch.unique count;
      every kernel of count_kmers must have launched on this path;
   5. small runs at k=13 (32-bit words, 'dual') and k=21 ('packed');
+  11. the 2d topology at full size: phase 4's read set counted by 8 PEs as
+     a (2, 4) grid on the one-plan route with the compact hop 2, exact
+     against torch.unique, every PE holding phase 4's (k-mer, count) set,
+     no hop-2 drop and no retry round, fewer wire bytes than the padded
+     hop 2 at the same caps, rows 1-4 launched; then 4096-read runs of the
+     padded hop 2, the 'perhop' route (k=13), a forced 'hop2_misfit'
+     round, 'route_drop' and 'store_drop' recoveries, and KmerCounter
+     with hashed super-k-mers on a (4, 2) grid answering 2**16 queries,
+     each exact;
+  12. the BSP baseline at full size: the same read set, 8 PEs, 256 reads a
+     PE a round (4096 rounds, each ending in a host barrier), exact
+     against torch.unique and phase 4's per-PE sets, n_batches + 1 global
+     syncs, rows 1-3 launched and the store insert not; the wall time
+     beside phase 4's, and each round's time with its barrier;
   8. the incremental counter and its queries at full size: the same read
      set fed to KmerCounter (k=31, hashed super-k-mer transport, prefix
      compaction, 8 PEs) in 8 updates, finalized exactly against
@@ -76,6 +91,10 @@ Phases:
   7. on request only: the main path and one step of phase 9's training
      under torch.profiler (device time by kernel, the device's busy
      share, the main path's launches per scan step).
+
+Phases run in the order 1-5, 11, 12, 8, 9, 10, 6, 7: phases 11 and 12
+before phase 8, whose counter keeps its store until phase 6, and every
+phase whose wall time is kept before phase 10, which profiles.
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -858,21 +877,47 @@ def reference_check(torch, reads, k, res, stats, num_pes, pieces,
     return int(got_k.numel()), (ref_k[order], ref_c)
 
 
+def per_pe_sets(torch, res, num_pes):
+    """Each PE's live (k-mers, counts) of a flat per-PE AccumResult, as
+    one compact pair of tensors and the per-PE lengths."""
+    L = res.unique.numel() // num_pes
+    live = (torch.arange(L, device=res.unique.device)[None, :]
+            < res.num_unique[:, None].to(torch.int64))
+    return (res.unique.view(num_pes, L)[live].clone(),
+            res.counts.view(num_pes, L)[live].clone(),
+            res.num_unique.tolist())
+
+
+def check_same_owners(torch, got, want, what):
+    """Per-PE sets `got` (`per_pe_sets`) are exactly phase 4's, `want`."""
+    check(got[2] == want[2], f"{what}: per-PE distinct counts differ from "
+          f"phase 4's")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{what}: a PE's (k-mer, count) set differs from phase 4's")
+    log(f"  every PE holds phase 4's (k-mer, count) set ({got[2]})")
+
+
 def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
-              genome_bases, chunk_reads=256, device="cuda"):
-    spec = genome.ReadSetSpec(genome_bases=genome_bases, n_reads=n_reads,
-                              read_len=150, seed=0)
-    t0 = time.perf_counter()
-    reads = genome.sample_reads_torch(spec, device)
-    torch.cuda.synchronize()
-    log(f"  reads {tuple(reads.shape)} built on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
-    cfg = fabsp.DAKCConfig(k=k, chunk_reads=chunk_reads)
+              genome_bases, chunk_reads=256, device="cuda", cfg=None,
+              grid=None, keep_sets=False, reads=None):
+    """count_kmers (phase 4's configuration unless `cfg` is given) of the
+    Synthetic read set, exact against torch.unique. Returns (launches,
+    wall, peak, distinct, stats, the per-PE sets if `keep_sets`)."""
+    if reads is None:
+        spec = genome.ReadSetSpec(genome_bases=genome_bases,
+                                  n_reads=n_reads, read_len=150, seed=0)
+        t0 = time.perf_counter()
+        reads = genome.sample_reads_torch(spec, device)
+        torch.cuda.synchronize()
+        log(f"  reads {tuple(reads.shape)} built on the card in "
+            f"{time.perf_counter() - t0:.2f} s")
+    if cfg is None:
+        cfg = fabsp.DAKCConfig(k=k, chunk_reads=chunk_reads)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, stats = fabsp.count_kmers(reads, cfg, num_pes=num_pes,
+    res, stats = fabsp.count_kmers(reads, cfg, num_pes=num_pes, grid=grid,
                                    device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -898,7 +943,200 @@ def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
     distinct = reference_check(torch, reads, k, res, stats, num_pes, pieces)
     log(f"  exact against torch.unique: {distinct} distinct k-mers, "
         f"{stats.raw_kmers} instances ({time.perf_counter() - t0:.1f} s)")
-    return launches, wall, peak, distinct, stats
+    sets = per_pe_sets(torch, res, num_pes) if keep_sets else None
+    return launches, wall, peak, distinct, stats, sets
+
+
+# --- phase 11: the 2d topology ---------------------------------------------
+
+GRID = (2, 4)           # phase 11: 8 PEs as a (rows, cols) grid
+
+
+def padded_hop2_wire(fabsp, cfg, shape, num_pes):
+    """Wire bytes a run would move with the padded hop 2 at phase 11's
+    caps: both hops ship every bucket's full capacity. The 'dual' format
+    routes a NORMAL word lane and a HEAVY (word, i32) pair."""
+    mode, cap_n, cap_h = fabsp._plan_caps(cfg, num_pes, shape, cfg.slack)
+    check(mode == "dual", f"phase 11 expects the 'dual' format, got {mode}")
+    n_chunks = shape[0] // num_pes // cfg.chunk_reads
+    per_pe = num_pes * 2 * (cap_n * 8 + cap_h * 12)
+    return n_chunks * num_pes * per_pe
+
+
+def topology2d_phase(torch, fabsp, ops, genome, n_reads, phase4):
+    """Phase 11: count_kmers over 8 PEs as a (2, 4) grid with the compact
+    hop 2 at full size, then small runs of the other 2d settings and of the
+    fault plans. `phase4` is (wall, per-PE sets) of phase 4, or None."""
+    from repro_torch.core import resilience
+
+    rows, cols = GRID
+    log(f"[2d] Synthetic 26, {n_reads} reads of 150 bp, k=31, {NUM_PES} PEs "
+        f"as a ({rows}, {cols}) grid, oneplan route, compact hop 2")
+    cfg = fabsp.DAKCConfig(k=K, topology="2d", hop2_impl="compact")
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=n_reads,
+                              read_len=150, seed=0)
+    t0 = time.perf_counter()
+    reads = genome.sample_reads_torch(spec, DEV)
+    torch.cuda.synchronize()
+    log(f"  reads {tuple(reads.shape)} built on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches, wall, peak, distinct, stats, sets = run_count(
+        torch, fabsp, ops, genome, n_reads, K, NUM_PES, pieces=4,
+        genome_bases=1 << 26, cfg=cfg, grid=GRID, reads=reads,
+        keep_sets=phase4 is not None)
+    check(stats.hop2_dropped == 0 and stats.retry_hop2_fallback == 0,
+          "the compact hop 2 misfit at full size")
+    check(stats.retry_route_slack == 0 and stats.retry_store_rehash == 0,
+          "phase 11 ran a retry round")
+    padded = padded_hop2_wire(fabsp, cfg, tuple(reads.shape), NUM_PES)
+    check(int(stats.wire_bytes) < padded,
+          "the compact hop 2 moved no fewer bytes than the padded one")
+    log(f"  wire bytes {int(stats.wire_bytes)} against {padded} with the "
+        f"padded hop 2 at the same caps "
+        f"({int(stats.wire_bytes) / padded:.4f})")
+    for name in COUNT_KERNELS:
+        if name not in ROW1:
+            check(launches[name] > 0, f"kernel {name} did not launch on "
+                  f"phase 11's path")
+    check(sum(launches[name] for name in ROW1) > 0,
+          "row 1 did not launch on phase 11's path")
+    if phase4 is not None:
+        check_same_owners(torch, sets, phase4[1], "phase 11")
+        log(f"  [2d] wall {wall:.3f} s beside phase 4's {phase4[0]:.3f} s "
+            f"(1d); peak {peak / 1e9:.2f} GB")
+    del reads, sets
+    torch.cuda.empty_cache()
+    out = {"full": (launches, wall, peak)}
+
+    small = (
+        ("padded hop 2, k=31, (2, 4)", "padded", 31, (2, 4),
+         dict(topology="2d")),
+        ("'perhop' route, k=13, (4, 2)", "perhop", 13, (4, 2),
+         dict(topology="2d", route2d_impl="perhop")),
+        ("forced misfit: FaultPlan('hop2_misfit'), k=31, (2, 4)", "misfit",
+         31, (2, 4), dict(topology="2d", hop2_impl="compact",
+                          faults=resilience.FaultPlan("hop2_misfit"))),
+        ("FaultPlan('route_drop'), compact hop 2, k=31, (4, 2)", "route_drop",
+         31, (4, 2), dict(topology="2d", hop2_impl="compact",
+                          faults=resilience.FaultPlan("route_drop", seed=1,
+                                                      frac=0.3))),
+        ("FaultPlan('store_drop'), k=31, (2, 4)", "store_drop", 31, (2, 4),
+         dict(topology="2d", faults=resilience.FaultPlan(
+             "store_drop", seed=2, chunk=-1, frac=0.25))),
+    )
+    for title, tag, k, grid, knobs in small:
+        log(f"[2d small] {title}, 4096 reads")
+        _, _, _, _, st, _ = run_count(
+            torch, fabsp, ops, genome, 4096, k, NUM_PES, pieces=1,
+            genome_bases=1 << 16, cfg=fabsp.DAKCConfig(k=k, **knobs),
+            grid=grid)
+        out[tag] = st
+    check(out["misfit"].retry_hop2_fallback == 1
+          and out["misfit"].hop2_dropped == 0,
+          "the forced misfit did not fall back to the padded hop 2 once")
+    check(out["route_drop"].retry_route_slack >= 1,
+          "route_drop forced no slack-doubling round")
+    check(out["store_drop"].retry_store_rehash >= 1,
+          "store_drop forced no rehash round")
+
+    log("[2d small] KmerCounter, hashed super-k-mers, compact hop 2, k=31, "
+        "8 PEs as (4, 2), 2 updates, 2**16 queries")
+    sspec = genome.ReadSetSpec(genome_bases=1 << 16, n_reads=4096,
+                               read_len=150, seed=2)
+    kc, kl, kn = run_counter(
+        torch, fabsp, ops, genome,
+        fabsp.DAKCConfig(k=K, topology="2d", hop2_impl="compact",
+                         transport_impl="superkmer",
+                         minimizer_order="hashed"),
+        sspec, NUM_PES, 2, 1 << 16, 1, "2d counter", grid=(4, 2))
+    del kc
+    for name in ("sliding_min_pair", "hash_lookup"):
+        check(kl[name] > 0, f"kernel {name} did not launch on the 2d "
+              f"counter's path")
+    check(kn["query_launches"]["hash_lookup"] > 0,
+          "the 2d queries did not launch hash_lookup")
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- phase 12: the BSP baseline ----------------------------------------------
+
+BSP_BATCH_READS = 256
+
+
+def bsp_phase(torch, bsp, ops, genome, n_reads, phase4):
+    """Phase 12: the BSP baseline at full size, one host barrier a batch.
+    `phase4` is (wall, per-PE sets) of phase 4, or None."""
+    from repro_torch.core.aggregation import plan_capacity
+
+    n_batches = n_reads // NUM_PES // BSP_BATCH_READS
+    cap = plan_capacity(BSP_BATCH_READS * (150 - K + 1), NUM_PES, 1.5)
+    recv_bytes = NUM_PES * NUM_PES * n_batches * cap * 8
+    log(f"[bsp] Synthetic 26, {n_reads} reads of 150 bp, k=31, {NUM_PES} "
+        f"PEs, batch_reads={BSP_BATCH_READS}: {n_batches} rounds, cap {cap}, "
+        f"a receive buffer of {recv_bytes / 1e9:.2f} GB")
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=n_reads,
+                              read_len=150, seed=0)
+    t0 = time.perf_counter()
+    reads = genome.sample_reads_torch(spec, DEV)
+    torch.cuda.synchronize()
+    log(f"  reads {tuple(reads.shape)} built on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # time each round through its barrier (the barrier still synchronises)
+    marks = []
+    barrier = bsp._superstep_barrier
+
+    def timed_barrier(dev):
+        barrier(dev)
+        marks.append(time.perf_counter())
+
+    bsp._superstep_barrier = timed_barrier
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, stats = bsp.count_kmers(
+            reads, bsp.BSPConfig(k=K, batch_reads=BSP_BATCH_READS),
+            num_pes=NUM_PES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        bsp._superstep_barrier = barrier
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(marks) == n_batches, "a BSP round ended without its barrier")
+    rounds = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    rounds_s = marks[-1] - t0
+    log(f"  bsp.count_kmers wall {wall:.3f} s: {n_batches} rounds "
+        f"{rounds_s:.3f} s (median round with its sync "
+        f"{sorted(rounds)[len(rounds) // 2] * 1e3:.3f} ms, max "
+        f"{max(rounds) * 1e3:.3f} ms), final sort round "
+        f"{wall - rounds_s:.3f} s; max_memory_allocated {peak / 1e9:.2f} GB")
+    log(f"  stats {stats._asdict()}")
+    check(stats.num_global_syncs == n_batches + 1,
+          f"num_global_syncs {stats.num_global_syncs} != {n_batches + 1}")
+    launches = {name: launches[name] for name in COUNT_KERNELS}
+    log(f"  launches on this path {launches}")
+    for name in ("bucket_positions", "segment_accumulate"):
+        check(launches[name] > 0, f"kernel {name} did not launch on the "
+              f"BSP path")
+    check(sum(launches[name] for name in ROW1) > 0,
+          "row 1 did not launch on the BSP path")
+    check(launches["hash_insert"] == 0, "the BSP path ran the store insert")
+    t0 = time.perf_counter()
+    distinct = reference_check(torch, reads, K, res, stats, NUM_PES, 4)
+    log(f"  exact against torch.unique: {distinct} distinct k-mers, "
+        f"{stats.raw_kmers} instances ({time.perf_counter() - t0:.1f} s)")
+    if phase4 is not None:
+        check_same_owners(torch, per_pe_sets(torch, res, NUM_PES),
+                          phase4[1], "phase 12")
+        log(f"  [bsp] wall {wall:.3f} s beside DAKC's {phase4[0]:.3f} s "
+            f"(phase 4): BSP/DAKC {wall / phase4[0]:.3f}")
+    del res, reads
+    torch.cuda.empty_cache()
+    return {"wall": wall, "rounds_s": rounds_s, "peak": peak,
+            "launches": launches}
 
 
 # --- phase 8: the incremental counter and its queries ----------------------
@@ -923,7 +1161,7 @@ def make_queries(torch, reads, k, n, seed):
 
 
 def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
-                n_queries, pieces, label):
+                n_queries, pieces, label, grid=None):
     """Feed `spec`'s reads to a KmerCounter in `n_updates` equal batches,
     finalize it exactly against torch.unique, then answer `n_queries`
     point queries exactly. Returns (counter, launches, numbers)."""
@@ -936,8 +1174,7 @@ def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    kc = fabsp.KmerCounter(cfg, num_pes=num_pes)
-    t_all = time.perf_counter()
+    kc = fabsp.KmerCounter(cfg, num_pes=num_pes, grid=grid)
     walls = []
     for i in range(n_updates):
         t0 = time.perf_counter()
@@ -2166,11 +2403,11 @@ def profile_lm_step(torch):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
-                    help="phases 4 and 10's read count (a cut is printed); "
-                         "phase 8 always reads 2**23")
+                    help="phases 4, 10, 11 and 12's read count (a cut is "
+                         "printed); phase 8 always reads 2**23")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2186,7 +2423,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    from repro_torch.core import fabsp
+    from repro_torch.core import bsp, fabsp
     from repro_torch.data import genome
     from repro_torch.kernels import build, ops, ref
 
@@ -2213,18 +2450,19 @@ def main(argv=None) -> int:
             f"({time.perf_counter() - t0:.1f} s)")
 
     launches = {}
-    count_run = None
+    count_run = phase4 = None
     if 4 in phases:
         log("[full size] Synthetic 26, 150 bp reads, k=31, 8 PEs")
         if args.reads != 1 << 23:
             log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
-        launches, _, _, distinct, stats = run_count(
+        launches, count_wall, _, distinct, stats, count_sets = run_count(
             torch, fabsp, ops, genome, args.reads, K, NUM_PES, pieces=4,
-            genome_bases=1 << 26)
+            genome_bases=1 << 26, keep_sets=True)
         for name in ROW1:
             check(launches[name] > 0, f"{name} did not launch on the main "
                   f"path at full size")
         count_run = (distinct, stats, launches["hash_insert"])
+        phase4 = (count_wall, count_sets)
         torch.cuda.empty_cache()
 
     if 5 in phases:
@@ -2232,6 +2470,24 @@ def main(argv=None) -> int:
             log(f"[small] k={k}, {p} PEs, 4096 reads")
             run_count(torch, fabsp, ops, genome, 4096, k, p, pieces=1,
                       genome_bases=1 << 16)
+
+    # Phases 11 and 12 run before phase 8, whose counter keeps its store
+    # until phase 6, and before phase 10, which profiles.
+    if 11 in phases:
+        t0 = time.perf_counter()
+        if args.reads != 1 << 23:
+            log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
+        topology2d_phase(torch, fabsp, ops, genome, args.reads, phase4)
+        log(f"[2d] done ({time.perf_counter() - t0:.1f} s)")
+
+    if 12 in phases:
+        t0 = time.perf_counter()
+        if args.reads != 1 << 23:
+            log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
+        bsp_phase(torch, bsp, ops, genome, args.reads, phase4)
+        log(f"[bsp] done ({time.perf_counter() - t0:.1f} s)")
+    phase4 = None
+    torch.cuda.empty_cache()
 
     counter = None
     if 8 in phases:

@@ -7,22 +7,25 @@ under `shard_map`:
 
 - the reads are split into P contiguous shards, (P, n_local, m), and each
   shard into chunks of `chunk_reads`;
-- each scan step takes chunk i of every PE and routes it by owner PE (the
-  1d all_to_all is a transpose of the stacked tiles): either its k-mers,
+- each scan step takes chunk i of every PE and routes it by owner PE (an
+  all_to_all is a transpose of the stacked tiles): either its k-mers,
   L3-compressed ('dual', 'packed' or 'none'), or its super-k-mers
   (`transport_impl='superkmer'`), optionally compacted to their valid
-  prefix first (`compact_impl='prefix'`);
+  prefix first (`compact_impl='prefix'`), over the 1d topology or the 2d
+  one (`topology='2d'` with `grid=(rows, cols)`, the JAX mesh's shape);
 - the streaming receiver folds the decoded pairs into the per-PE count
   store; the 'stacked' oracle keeps every step's tiles and sorts them once.
 
 Running statistics stay on the device through the scan and are read once
-per round by the retry loop, which doubles the routing slack or rehashes
-the store exactly as the JAX package does. The per-PE results and every
-`DAKCStats` field equal the JAX package's.
+per round by the retry loop, which doubles the routing slack, rehashes
+the store or moves the compact hop 2 onto the padded tile exactly as the
+JAX package does; a `resilience.FaultPlan` in `cfg.faults` forces those
+rounds on demand. The per-PE results and every `DAKCStats` field equal
+the JAX package's.
 
-Settings outside the port so far (2d topology, compact hop 2, spill, fault
-injection, checkpoints) raise NotImplementedError naming the ROADMAP.md
-item that brings them.
+Settings outside the port so far (spill, checkpoints and the fault sites
+that need them) raise NotImplementedError naming the ROADMAP.md item that
+brings them.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import words as W
 from repro_torch.core import (aggregation, countstore, encoding, minimizer,
                               resilience)
 from repro_torch.core.aggregation import plan_capacity
@@ -69,7 +73,7 @@ class DAKCConfig:
     store_slack: float = 1.5
     store_capacity: Optional[int] = None
     retry: resilience.RetryPolicy = resilience.RetryPolicy()
-    faults: Optional[object] = None
+    faults: Optional[resilience.FaultPlan] = None
     spill: str = "off"
     spill_bins: Optional[int] = None
     spill_dir: Optional[str] = None
@@ -172,27 +176,38 @@ class DAKCStats(NamedTuple):
     bins_folded: int = 0
 
 
-# Settings this package does not run yet, with the ROADMAP.md section 1
-# item that brings each.
-_NOT_PORTED = (
-    ("topology", "2d", "item 9 (2d topology)"),
-    ("hop2_impl", "compact", "item 9 (compact hop 2)"),
-)
+# The ROADMAP.md item that brings what this package does not run yet: the
+# spill tier, `save`/`restore`, and the fault sites that act there
+# ('spill_write' and 'bin_corrupt', which need spill; 'ckpt_write', which
+# fires in `save`).
 _ITEM10 = "ROADMAP.md section 1, item 10 (durability, spill and serving)"
 
 
 def _refuse_out_of_slice(cfg: DAKCConfig) -> None:
-    for knob, value, item in _NOT_PORTED:
-        if getattr(cfg, knob) == value:
-            raise NotImplementedError(
-                f"{knob}={value!r} is not ported yet: ROADMAP.md section 1, "
-                f"{item}")
     if cfg.spill != "off":
+        site = ("" if cfg.faults is None
+                else f", FaultPlan site {cfg.faults.site!r}")
         raise NotImplementedError(
-            f"spill={cfg.spill!r} is not ported yet: {_ITEM10}")
-    if cfg.faults is not None:
-        raise NotImplementedError(
-            f"fault injection (faults=) is not ported yet: {_ITEM10}")
+            f"spill={cfg.spill!r}{site} is not ported yet: {_ITEM10}")
+
+
+def _topology_grid(cfg: DAKCConfig, num_pes: int,
+                   grid) -> Optional[Tuple[int, int]]:
+    """(rows, cols) of the 2d topology, or None under '1d'. The grid
+    stands in for the JAX package's two-axis mesh: PE p is (p // cols,
+    p % cols), its row-major fold."""
+    if cfg.topology != "2d":
+        if grid is not None:
+            raise ValueError(f"grid= applies to topology='2d' only, got "
+                             f"{grid!r} under {cfg.topology!r}")
+        return None
+    if grid is None:
+        raise ValueError("topology='2d' needs grid=(rows, cols)")
+    rows, cols = (int(g) for g in grid)
+    if rows < 1 or cols < 1 or rows * cols != num_pes:
+        raise ValueError(f"grid {grid!r} does not fold {num_pes} PEs "
+                         f"(rows * cols must equal num_pes)")
+    return rows, cols
 
 
 def _imbalance(fill) -> Tuple[float, int]:
@@ -253,9 +268,16 @@ def _l3_split_dual(words: torch.Tensor, valid: torch.Tensor, k: int,
 
 
 def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
-                 cap_n: int, cap_h: int, mode: str, compact_caps=None):
+                 cap_n: int, cap_h: int, mode: str, grid=None,
+                 hop2_caps=None, compact_caps=None, chunk_idx: int = 0,
+                 fault: Optional[resilience.FaultPlan] = None):
     """One scan step for every PE: (P, chunk_reads, m) codes -> k-mers or
     super-k-mers -> one `route_lanes` exchange per lane set.
+
+    `grid` is the 2d topology's (rows, cols) or None; `hop2_caps` the
+    compact hop 2's (normal, heavy) capacities or None. The super-k-mer
+    route always takes the 'oneplan' 2d route, the k-mer route
+    `cfg.route2d_impl`.
 
     `compact_caps` is the pre-route compaction plan of `_resolve_compact`,
     (compact_n, compact_h, route_cap_n, route_cap_h), or None: each lane
@@ -263,16 +285,29 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
     prefix and routes at the re-derived capacity; valid entries past the
     prefix count as routing overflow.
 
+    `fault` is an armed 'route_drop' plan (or None): its mask at scan
+    step `chunk_idx` invalidates entries of the primary lane before the
+    route, and the drops count as routing overflow.
+
     Returns (recv, (raw, sent_valid, wire_bytes, overflow, hop2_dropped,
     fill)): `raw` and `wire_bytes` are per-PE ints (the same on every PE),
     the rest (P,) or (P, P) device tensors.
     """
     k, bps = cfg.k, cfg.bits_per_symbol
     wb = encoding.word_bits(k, bps)
+    h2n, h2h = (None, None) if hop2_caps is None else hop2_caps
     cc_n, cc_h, rc_n, rc_h = ((None,) * 4 if compact_caps is None
                               else compact_caps)
 
-    def route(lanes, kinds, owners, valid, capacity, ccap, rcap):
+    def inject_drop(pvalid):
+        if fault is None or fault.site != "route_drop":
+            return pvalid, 0
+        hit = resilience.fault_mask(pvalid.shape[1], fault, chunk_idx,
+                                    pvalid.device)
+        return pvalid & ~hit, (pvalid & hit).sum(1, dtype=torch.int32)
+
+    def route(lanes, kinds, owners, valid, capacity, ccap, rcap, hop2,
+              route2d="oneplan", rederive=None):
         covf = 0
         if ccap is not None and ccap < valid.shape[1]:
             out, valid, covf = aggregation.compact_lanes(
@@ -281,7 +316,8 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
             lanes, owners, capacity = out[:-1], out[-1], rcap
         rr = aggregation.route_lanes(
             lanes, kinds, owners, valid, num_pes=num_pes, capacity=capacity,
-            word_bits=wb, impl=cfg.partition_impl)
+            word_bits=wb, grid=grid, impl=cfg.partition_impl,
+            route2d=route2d, hop2_capacity=hop2, rederive_owners=rederive)
         return rr._replace(overflow=rr.overflow + covf)
 
     if mode == "superkmer":
@@ -295,46 +331,55 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
         lanes = tuple(sk.words[..., s] for s in range(sk.words.shape[-1]))
         kinds = ("word",) * len(lanes) + ("i32",)
         owners = owner_pe(sk.minimizers, num_pes, encoding.word_bits(m, bps))
-        rr = route(lanes + (sk.lengths,), kinds, owners, sk.lengths > 0,
-                   cap_n, cc_n, rc_n)
+        sk_valid, injected = inject_drop(sk.lengths > 0)
+        rr = route(lanes + (sk.lengths,), kinds, owners, sk_valid,
+                   cap_n, cc_n, rc_n, h2n)
         return (torch.stack(rr.lanes[:-1], -1), rr.lanes[-1], None), \
-            (raw, rr.sent_valid, rr.wire_bytes, rr.overflow, rr.hop2_dropped,
-             rr.fill)
+            (raw, rr.sent_valid, rr.wire_bytes, rr.overflow + injected,
+             rr.hop2_dropped, rr.fill)
 
     words = encoding.extract_kmers(chunk, k, bps, canonical=cfg.canonical,
                                    canonical_impl=cfg.canonical_impl)
     raw = words.shape[1]
     mask = encoding.kmer_mask(k, bps)
 
-    def route_kmers(payload, counts, pvalid, capacity, ccap, rcap):
+    def kmer_owners(w):
+        return owner_pe(w & mask, num_pes, wb)
+
+    def route_kmers(payload, counts, pvalid, capacity, ccap, rcap, hop2):
         lanes = (payload,) if counts is None else (payload, counts)
         kinds = ("word",) if counts is None else ("word", "i32")
-        return route(lanes, kinds, owner_pe(payload & mask, num_pes, wb),
-                     pvalid, capacity, ccap, rcap)
+        return route(lanes, kinds, kmer_owners(payload), pvalid, capacity,
+                     ccap, rcap, hop2, cfg.route2d_impl, kmer_owners)
 
     if mode == "packed":
         payload, pvalid = aggregation.l3_compress(words, k, bps,
                                                   impl=cfg.phase2_impl)
-        rr = route_kmers(payload, None, pvalid, cap_n, cc_n, rc_n)
+        pvalid, injected = inject_drop(pvalid)
+        rr = route_kmers(payload, None, pvalid, cap_n, cc_n, rc_n, h2n)
         return (rr.lanes[0], None, None), (raw, rr.sent_valid, rr.wire_bytes,
-                                           rr.overflow, rr.hop2_dropped,
-                                           rr.fill)
+                                           rr.overflow + injected,
+                                           rr.hop2_dropped, rr.fill)
     if mode == "dual":
         valid = torch.ones(words.shape, dtype=torch.bool, device=words.device)
         nw, nv, hw, hc, hv = _l3_split_dual(words, valid, k, bps,
                                             impl=cfg.phase2_impl)
-        rn = route_kmers(nw, None, nv, cap_n, cc_n, rc_n)
-        rh = route_kmers(hw, hc, hv, cap_h, cc_h, rc_h)
+        nv, injected = inject_drop(nv)
+        rn = route_kmers(nw, None, nv, cap_n, cc_n, rc_n, h2n)
+        rh = route_kmers(hw, hc, hv, cap_h, cc_h, rc_h, h2h)
         return (rn.lanes[0], rh.lanes[0], rh.lanes[1]), \
             (raw, rn.sent_valid + rh.sent_valid,
-             rn.wire_bytes + rh.wire_bytes, rn.overflow + rh.overflow,
+             rn.wire_bytes + rh.wire_bytes,
+             rn.overflow + rh.overflow + injected,
              rn.hop2_dropped + rh.hop2_dropped, rn.fill + rh.fill)
     if mode != "none":
         raise ValueError(f"unknown l3_mode {mode!r}")
-    valid = torch.ones(words.shape, dtype=torch.bool, device=words.device)
-    rr = route_kmers(words, None, valid, cap_n, cc_n, rc_n)
+    valid, injected = inject_drop(
+        torch.ones(words.shape, dtype=torch.bool, device=words.device))
+    rr = route_kmers(words, None, valid, cap_n, cc_n, rc_n, h2n)
     return (rr.lanes[0], None, None), (raw, rr.sent_valid, rr.wire_bytes,
-                                       rr.overflow, rr.hop2_dropped, rr.fill)
+                                       rr.overflow + injected,
+                                       rr.hop2_dropped, rr.fill)
 
 
 def _recv_pairs(recv, *, cfg: DAKCConfig, mode: str):
@@ -381,12 +426,33 @@ def _phase2(recvs, *, cfg: DAKCConfig, mode: str) -> AccumResult:
     return accumulate(keys, w, sentinel_val=sent, impl=accum_impl)
 
 
+def _drop_inserts(store: countstore.CountStore, kmers: torch.Tensor,
+                  cnts: torch.Tensor, fault: resilience.FaultPlan,
+                  chunk_idx: int) -> torch.Tensor:
+    """The 'store_drop' site: zero the masked inserts of one scan step
+    (with `fault.fill`, only on PEs whose store holds at least that share
+    of its slots, compared in float32 as the JAX package does) and charge
+    them to `store.dropped`. Returns the counts to insert."""
+    hit = resilience.fault_mask(kmers.shape[1], fault, chunk_idx,
+                                kmers.device)[None, :]
+    if fault.fill > 0:
+        occupied = (store.keys != W.sentinel(store.word_bits)).sum(1)
+        level = float(np.float32(fault.fill * store.keys.shape[1]))
+        hit = hit & (occupied.to(torch.float32) >= level)[:, None]
+    drop = hit & (cnts > 0)
+    store.dropped.add_(drop.sum(1, dtype=torch.int32))
+    return torch.where(drop, 0, cnts)
+
+
 def _stream_fold(chunks: torch.Tensor, store: Optional[countstore.CountStore],
                  *, cfg: DAKCConfig, num_pes: int, cap_n: int, cap_h: int,
-                 mode: str, compact_caps=None):
+                 mode: str, grid=None, hop2_caps=None, compact_caps=None,
+                 fault: Optional[resilience.FaultPlan] = None):
     """The Phase-1 scan: route chunk i of every PE, then fold the decoded
     receive tiles into the count store (the streaming receiver), or keep
-    them for `_phase2` when `store` is None (the stacked oracle).
+    them for `_phase2` when `store` is None (the stacked oracle). An armed
+    'route_drop' `fault` rides into `_phase1_step`, a 'store_drop' one
+    into `_drop_inserts`.
 
     chunks: (P, n_chunks, chunk_reads, m). No host sync happens here: the
     running stats stay on the device. Returns (store or the list of receive
@@ -405,12 +471,15 @@ def _stream_fold(chunks: torch.Tensor, store: Optional[countstore.CountStore],
     for i in range(n_chunks):
         recv, (raw, sent_w, wire, ovf, h2, fl) = _phase1_step(
             chunks[:, i], cfg=cfg, num_pes=num_pes, cap_n=cap_n,
-            cap_h=cap_h, mode=mode, compact_caps=compact_caps)
+            cap_h=cap_h, mode=mode, grid=grid, hop2_caps=hop2_caps,
+            compact_caps=compact_caps, chunk_idx=i, fault=fault)
         if store is None:
             recvs.append(recv)
         else:
             kmers, cnts = _recv_pairs(recv, cfg=cfg, mode=mode)
             del recv
+            if fault is not None and fault.site == "store_drop":
+                cnts = _drop_inserts(store, kmers, cnts, fault, i)
             countstore.store_insert(store, kmers, cnts)
         raw_t += raw
         wire_t += wire
@@ -448,13 +517,14 @@ def _flat(result: AccumResult) -> AccumResult:
 
 def _local_count(reads_local: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
                  cap_n: int, cap_h: int, store_cap: int, mode: str,
-                 compact_caps=None):
+                 grid=None, hop2_caps=None, compact_caps=None, fault=None):
     """One round: every PE's scan, then its histogram (of the store, or of
     the stacked receive tiles). Returns the flat per-PE AccumResult and the
     round's stats (`_round_stats`)."""
     chunks = _chunked(reads_local, cfg.chunk_reads)
     kw = dict(cfg=cfg, num_pes=num_pes, cap_n=cap_n, cap_h=cap_h, mode=mode,
-              compact_caps=compact_caps)
+              grid=grid, hop2_caps=hop2_caps, compact_caps=compact_caps,
+              fault=fault)
     if cfg.receiver_impl == "stacked":
         recvs, fold_stats = _stream_fold(chunks, None, **kw)
         result = _phase2(recvs, cfg=cfg, mode=mode)
@@ -691,13 +761,58 @@ def _resolve_compact(cfg: DAKCConfig, num_pes: int, shape, slack: float,
     return cc_n, cc_h, rc_n, rc_h
 
 
-def _compact_estimate(reads: torch.Tensor, cfg: DAKCConfig, num_pes: int,
-                      shape, slack: float):
-    """The sample `_resolve_compact` plans from (once per call or batch;
-    retry rounds re-plan on it), or None when compaction is off."""
-    if not _compact_engaged(cfg):
+def _hop2_engaged(cfg: DAKCConfig) -> bool:
+    """Whether the compact hop 2 applies to this config at all."""
+    return (cfg.topology == "2d" and cfg.hop2_impl == "compact"
+            and cfg.route2d_impl == "oneplan")
+
+
+def _resolve_hop2_caps(cfg: DAKCConfig, num_pes: int, shape, slack: float,
+                       est: Tuple[int, int, int, int]
+                       ) -> Optional[Tuple[int, int]]:
+    """(normal, heavy) compact hop-2 capacities, or None where the compact
+    hop 2 does not engage: the measured valid estimate spread over the PEs
+    with the slack, a power of two of at least 64, at most the hop-1
+    capacity (where compact equals padded). The estimate does not depend
+    on the slack, so a retry round re-plans on it without reading the data
+    again."""
+    if not _hop2_engaged(cfg):
         return None
-    mode = _plan_caps(cfg, num_pes, shape, slack)[0]
+    _, cap_n, cap_h = _plan_caps(cfg, num_pes, shape, slack)
+    est_n, est_h = est[:2]
+
+    def cap2(cap, est_lane):
+        return min(cap, max(64, _pow2ceil(
+            plan_capacity(max(est_lane, 1), num_pes, slack))))
+
+    return cap2(cap_n, est_n), cap2(cap_h, est_h) if cap_h else 0
+
+
+def _retry_hop2_caps(cfg: DAKCConfig, num_pes: int, shape,
+                     ctrl: resilience.RetryController,
+                     est) -> Optional[Tuple[int, int]]:
+    """Compact hop-2 capacities of the controller's current round, None
+    once it runs on the padded tile. An armed 'hop2_misfit' fault forces a
+    1-slot tile, which no hop-1 fill fits: the padded fallback on
+    demand."""
+    if ctrl.hop2_padded:
+        return None
+    caps = _resolve_hop2_caps(cfg, num_pes, shape, ctrl.slack, est)
+    plan = cfg.faults
+    if (caps is not None and plan is not None
+            and plan.site == "hop2_misfit" and plan.fires(ctrl.attempts)):
+        caps = (1, 1 if caps[1] else 0)
+    return caps
+
+
+def _valid_estimate(reads: torch.Tensor, cfg: DAKCConfig, num_pes: int,
+                    shape, hop2: bool):
+    """The measured valid-slot sample (`_chunk_valid_estimate`) that the
+    compact hop 2 (when `hop2`, it engages) and the pre-route compaction
+    plan from, taken once per call or batch; None when neither engages."""
+    if not (hop2 or _compact_engaged(cfg)):
+        return None
+    mode = _plan_caps(cfg, num_pes, shape, cfg.slack)[0]
     return _chunk_valid_estimate(reads, cfg, mode, shape, num_pes)
 
 
@@ -756,13 +871,16 @@ def _split(reads: torch.Tensor, num_pes: int) -> torch.Tensor:
     return reads.reshape(num_pes, n_reads // num_pes, m)
 
 
-def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, device=None
-                ) -> Tuple[AccumResult, DAKCStats]:
+def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
+                device=None) -> Tuple[AccumResult, DAKCStats]:
     """Distributed asynchronous k-mer counting (DAKC) of P PEs on one device.
 
     reads: (n_reads, m) uint8 symbol codes (numpy array or tensor); PE p
            owns rows [p * n_local, (p + 1) * n_local), and n_local must
            divide by cfg.chunk_reads.
+    grid: (rows, cols) with rows * cols == num_pes under topology='2d'
+           (the JAX mesh's shape; PE p is (p // cols, p % cols)); None
+           under '1d'.
     device: None runs on the CUDA card (and raises without one); tests
            pass "cpu".
     Returns the per-PE AccumResult laid out as the JAX package's: unique
@@ -771,23 +889,30 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, device=None
 
     Overflow rounds run through `cfg.retry`: a routing overflow replays at
     doubled slack, a full count store replays at doubled capacity (a
-    rehash round); the per-cause round counts come back in `retry_*`.
+    rehash round), a compact hop-2 misfit replays on the padded tile; the
+    per-cause round counts come back in `retry_*`.
     """
     _refuse_out_of_slice(cfg)
+    grid = _topology_grid(cfg, num_pes, grid)
     reads = _as_device_reads(reads, resolve_device(device))
     local = _split(reads, num_pes)
     shape = tuple(reads.shape)
     store_cap = _resolve_store_capacity(reads, cfg, num_pes)
-    est = _compact_estimate(reads, cfg, num_pes, shape, cfg.slack)
+    engaged = _hop2_engaged(cfg)
+    est = _valid_estimate(reads, cfg, num_pes, shape, engaged)
     ctrl = resilience.RetryController(cfg.retry, slack=cfg.slack,
-                                      store_cap=store_cap, hop2_padded=True)
+                                      store_cap=store_cap,
+                                      hop2_padded=not engaged)
     while True:
         mode, cap_n, cap_h = _plan_caps(cfg, num_pes, shape, ctrl.slack)
+        hop2_caps = _retry_hop2_caps(cfg, num_pes, shape, ctrl, est)
         compact_caps = (None if est is None else _resolve_compact(
             cfg, num_pes, shape, ctrl.slack, est))
         result, raw_stats = _local_count(
             local, cfg=cfg, num_pes=num_pes, cap_n=cap_n, cap_h=cap_h,
-            store_cap=ctrl.store_cap, mode=mode, compact_caps=compact_caps)
+            store_cap=ctrl.store_cap, mode=mode, grid=grid,
+            hop2_caps=hop2_caps, compact_caps=compact_caps,
+            fault=resilience.active_trace_fault(cfg.faults, ctrl.attempts))
         stats = _host_stats(raw_stats)
         if not ctrl.observe(route_dropped=stats.overflow,
                             store_dropped=stats.store_overflow,
@@ -808,7 +933,10 @@ class KmerCounter:
 
     Each update runs through `cfg.retry`: a routing overflow doubles the
     slack for this and later batches, a full store rehashes into doubled
-    capacity and the batch replays. The JAX package replays from its
+    capacity and the batch replays, and a compact hop-2 misfit moves this
+    and later batches onto the padded tile. A 'update_fail' fault plan
+    raises `resilience.InjectedFault` from its update before anything
+    commits. The JAX package replays from its
     immutable committed arrays; this store updates in place, so every
     attempt inserts into a copy of the committed store (`store_copy`),
     which becomes the committed store when the batch folds cleanly. The
@@ -819,18 +947,24 @@ class KmerCounter:
 
     Store capacity starts from `cfg.store_capacity`, else from the first
     batch's sample estimate ('sample') or its instance bound ('bound').
-    `save`/`restore`, spill and fault injection are not ported yet.
+    `grid` is as in `count_kmers`. `save`/`restore` and spill are not
+    ported yet.
     """
 
-    def __init__(self, cfg: DAKCConfig, *, num_pes: int, device=None):
+    def __init__(self, cfg: DAKCConfig, *, num_pes: int, grid=None,
+                 device=None):
         if cfg.receiver_impl != "stream":
             raise ValueError("KmerCounter requires receiver_impl='stream'")
         _refuse_out_of_slice(cfg)
         self._cfg = cfg
         self._num_pes = num_pes
+        self._grid = _topology_grid(cfg, num_pes, grid)
         self._dev = resolve_device(device)
         self._wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
         self._slack = cfg.slack
+        # once a batch's hop-1 fills miss the compact hop-2 tile, the
+        # stream stays on the padded tile, as the doubled slack stays
+        self._hop2_padded = False
         self._store_cap: Optional[int] = cfg.store_capacity
         self._store: Optional[countstore.CountStore] = None
         self._distinct_est: Optional[int] = None
@@ -894,25 +1028,36 @@ class KmerCounter:
         """Fold one (n_reads, m) batch into the store; returns this batch's
         stats (the clean round's, with its replay counts in retry_*)."""
         cfg, p = self._cfg, self._num_pes
+        plan = cfg.faults
+        if (plan is not None and plan.site == "update_fail"
+                and self._n_updates == plan.update_n):
+            # the preemption drill: die before anything commits
+            raise resilience.InjectedFault(
+                f"injected failure at update #{self._n_updates} "
+                f"(FaultPlan site='update_fail')")
         reads = _as_device_reads(reads, self._dev)
         chunks = _chunked(_split(reads, p), cfg.chunk_reads)
         if self._store is None:
             self._alloc(reads)
         shape = tuple(reads.shape)
-        est = _compact_estimate(reads, cfg, p, shape, self._slack)
+        engaged = _hop2_engaged(cfg) and not self._hop2_padded
+        est = _valid_estimate(reads, cfg, p, shape, engaged)
         ctrl = resilience.RetryController(
             cfg.retry, slack=self._slack, store_cap=self._store_cap,
-            hop2_padded=True, history=self._rounds)
+            hop2_padded=not engaged, history=self._rounds)
         while True:
             if ctrl.store_cap != self._store_cap:
                 self._grow(ctrl.store_cap)   # rehash round; then replay
             mode, cap_n, cap_h = _plan_caps(cfg, p, shape, ctrl.slack)
+            hop2_caps = _retry_hop2_caps(cfg, p, shape, ctrl, est)
             compact_caps = (None if est is None else _resolve_compact(
                 cfg, p, shape, ctrl.slack, est))
             work, fold_stats = _stream_fold(
                 chunks, countstore.store_copy(self._store), cfg=cfg,
                 num_pes=p, cap_n=cap_n, cap_h=cap_h, mode=mode,
-                compact_caps=compact_caps)
+                grid=self._grid, hop2_caps=hop2_caps,
+                compact_caps=compact_caps,
+                fault=resilience.active_trace_fault(plan, ctrl.attempts))
             raw_stats = _round_stats(p, work.dropped, fold_stats)
             stats = _host_stats(raw_stats)
             if not ctrl.observe(route_dropped=stats.overflow,
@@ -923,6 +1068,8 @@ class KmerCounter:
         self._store = work
         self._slack = ctrl.slack
         self._rounds = ctrl.rounds
+        if _hop2_engaged(cfg):
+            self._hop2_padded = ctrl.hop2_padded
         for cause, n in ctrl.counts.items():
             self._retries[cause] += n
         self._n_updates += 1
@@ -962,7 +1109,8 @@ class KmerCounter:
         if snap is None:
             raise RuntimeError("KmerCounter.count before any update")
         counts, stats = query.query_counts(kmers, self._cfg, snap,
-                                           num_pes=self._num_pes)
+                                           num_pes=self._num_pes,
+                                           grid=self._grid)
         self.last_query_stats = stats
         return counts
 
@@ -971,6 +1119,7 @@ class KmerCounter:
         return self.count(kmers) > 0
 
     def save(self, *args, **kwargs):
+        """Not ported yet; with it, FaultPlan site 'ckpt_write'."""
         raise NotImplementedError(
             f"KmerCounter.save is not ported yet: {_ITEM10}")
 

@@ -9,6 +9,8 @@ the unsigned product's low 64 bits.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch import words as W
@@ -73,3 +75,12 @@ def owner_pe(kmers: torch.Tensor, num_pes: int,
     if num_pes & (num_pes - 1) == 0:
         return (h & (num_pes - 1)).to(torch.int32)
     return W.umod(h, num_pes, word_bits).to(torch.int32)
+
+
+def owner_pe_2d(kmers: torch.Tensor, rows: int, cols: int,
+                word_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Owner of each k-mer on a rows x cols PE grid, as (row, col) int32:
+    the flat owner `owner_pe(kmers, rows * cols)` folded row-major, so PE
+    p is (p // cols, p % cols)."""
+    flat = owner_pe(kmers, rows * cols, word_bits)
+    return flat // cols, flat % cols

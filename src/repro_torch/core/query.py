@@ -92,11 +92,16 @@ def pack_queries(kmers, cfg, device=None) -> torch.Tensor:
 
 
 def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
-                 num_pes: int) -> Tuple[np.ndarray, QueryStats]:
+                 num_pes: int, grid=None) -> Tuple[np.ndarray, QueryStats]:
     """Batched lookup of `kmers` against a committed store snapshot of
     `num_pes` PEs. Returns ((n,) int32 counts in request order, 0 = never
     counted; QueryStats), exact for any batch: hits, misses, duplicates,
-    the empty batch."""
+    the empty batch.
+
+    `grid` is the counter's 2d (rows, cols) or None: both hops then take
+    the 'oneplan' 2d route. The query id is built from the row-major PE
+    index, which the 2d route folds owners into, so answers come back to
+    the PE that asked under either topology."""
     dev = snap.keys.device
     p = num_pes
     words = pack_queries(kmers, cfg, dev)
@@ -113,7 +118,8 @@ def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
                       fabsp._ownership_word_bits(cfg))
     rr = aggregation.route_lanes(
         (q, qid), ("word", "i32"), owners, valid, num_pes=p,
-        capacity=n_local, word_bits=snap.word_bits, impl=cfg.partition_impl)
+        capacity=n_local, word_bits=snap.word_bits, grid=grid,
+        impl=cfg.partition_impl, route2d="oneplan")
     rwords, rqid = rr.lanes
     rvalid = rwords != sent
     # (hits, probe sum, longest walk) of each PE's live queries, summed by
@@ -123,7 +129,8 @@ def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
     back = torch.div(rqid - 1, n_local, rounding_mode="floor")
     rr2 = aggregation.route_lanes(
         (rqid, counts), ("i32", "i32"), back, rvalid, num_pes=p,
-        capacity=n_local, word_bits=snap.word_bits, impl=cfg.partition_impl)
+        capacity=n_local, word_bits=snap.word_bits, grid=grid,
+        impl=cfg.partition_impl, route2d="oneplan")
     bqid, bcounts = rr2.lanes
     # qids are unique, so each live answer owns its slot; padding (qid 0)
     # goes to one extra slot that is cut off

@@ -1,13 +1,33 @@
-"""The retry engine of the counting path (counterpart of the retry half of
-`repro.core.resilience`).
+"""The retry engine of the counting path and its fault injection
+(counterpart of `repro.core.resilience`, without the disk sites' drills).
 
 `RetryPolicy` holds the per-cause caps, growth factors and the total round
 budget; `RetryController` holds the state of one call: the call site runs an
 attempt, feeds its drop counters to `observe()`, and either replays (the
 controller grew the right knob and recorded the round) or returns. A
 give-up raises `CapacityExhausted` or `RetryBudgetExceeded` with the
-bounded round history. Fault injection is not ported yet (ROADMAP.md
-section 1, item 10).
+bounded round history.
+
+`FaultPlan` (on `DAKCConfig.faults`) injects one seeded, deterministic
+fault at a named site:
+
+- 'route_drop': drop a seeded fraction of a chunk's routed entries,
+  charged as routing overflow (a slack-doubling round);
+- 'store_drop': drop a seeded fraction of a chunk's store inserts,
+  optionally only once the store holds `fill` of its capacity, charged as
+  store overflow (a rehash round); streaming receiver only;
+- 'hop2_misfit': force the compact hop-2 tile to 1 slot, so the round
+  falls back to the padded tile;
+- 'update_fail': raise `InjectedFault` from the Nth `KmerCounter.update`
+  before anything commits;
+- 'ckpt_write', 'spill_write', 'bin_corrupt': the checkpoint and spill
+  drills, whose targets (`KmerCounter.save`, the spill tier) are not
+  ported yet (ROADMAP.md section 1, item 10).
+
+A fault that stops firing after `rounds` attempts lets the retry engine
+recover the fault-free histogram; a persistent one drives the give-ups.
+The masks are a pure function of (seed, site, element index, chunk index)
+through the 32-bit avalanche mixer, bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,11 +36,21 @@ import collections
 import dataclasses
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
+import torch
+
+from repro_torch.core import owner
+
 # Retry causes -- the three overflow disciplines of the counting pipeline.
 ROUTE_SLACK = "route-slack"
 STORE_REHASH = "store-rehash"
 HOP2_FALLBACK = "hop2-padded-fallback"
 CAUSES = (ROUTE_SLACK, STORE_REHASH, HOP2_FALLBACK)
+
+# Named fault sites: the first two are masks inside the scan, the rest act
+# on the host.
+TRACE_SITES = ("route_drop", "store_drop")
+SITES = TRACE_SITES + ("hop2_misfit", "update_fail", "ckpt_write",
+                       "spill_write", "bin_corrupt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +140,82 @@ class RehashInvariantBroken(RetryError):
     def __init__(self, msg: str, rounds, counts=None, dropped: int = 0):
         super().__init__(msg, rounds, counts)
         self.dropped = int(dropped)
+
+
+class InjectedFault(RuntimeError):
+    """Raised by the host-side fault sites ('update_fail')."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """Seeded deterministic fault injection: one named site per plan.
+
+    Hashable and frozen, as it rides the frozen `DAKCConfig`.
+
+    site:       one of `SITES` (see the module docstring).
+    seed:       drives the in-trace drop masks.
+    chunk:      scan step the in-trace sites fire at (-1: every step).
+    frac:       fraction of eligible entries dropped at that step.
+    fill:       'store_drop' only: fire only once the store holds at least
+                this fraction of its capacity.
+    rounds:     how many attempts of one call or batch the fault fires for;
+                1 faults the first round only, a large value persists.
+    update_n:   'update_fail' only: which `KmerCounter.update` call dies.
+    fail_after: 'ckpt_write' / 'spill_write' only (not ported yet).
+    bin:        'bin_corrupt' only (not ported yet).
+    """
+    site: str
+    seed: int = 0
+    chunk: int = 0
+    frac: float = 0.5
+    fill: float = 0.0
+    rounds: int = 1
+    update_n: int = 0
+    fail_after: int = 0
+    bin: int = 0
+
+    def __post_init__(self):
+        if self.site not in SITES:
+            raise ValueError(f"unknown fault site {self.site!r}; "
+                             f"sites are {SITES}")
+        if not 0.0 < self.frac <= 1.0:
+            raise ValueError(f"frac must be in (0, 1], got {self.frac}")
+        if not 0.0 <= self.fill < 1.0:
+            raise ValueError(f"fill must be in [0, 1), got {self.fill}")
+        if self.rounds < 1 or self.update_n < 0 or self.fail_after < 0 \
+                or self.bin < 0:
+            raise ValueError(
+                "rounds must be >= 1; update_n/fail_after/bin >= 0")
+
+    def fires(self, attempt: int) -> bool:
+        """Whether the fault is armed for the given 0-based attempt."""
+        return attempt < self.rounds
+
+
+def active_trace_fault(plan: Optional[FaultPlan],
+                       attempt: int) -> Optional[FaultPlan]:
+    """The plan, iff it has an in-trace site armed for this attempt."""
+    if plan is not None and plan.site in TRACE_SITES and plan.fires(attempt):
+        return plan
+    return None
+
+
+# Per-site salts decorrelate the masks of sites sharing one seed.
+_SITE_SALT = {"route_drop": 0x9E3779B9, "store_drop": 0x85EBCA6B}
+
+
+def fault_mask(n: int, plan: FaultPlan, chunk_idx: int,
+               device=None) -> torch.Tensor:
+    """(n,) bool: the seeded drop mask of an in-trace site at scan step
+    `chunk_idx`, all False off the plan's step (unless chunk=-1). Element
+    i is hit iff mix32(i ^ salt) < frac * 2**32, in uint32 arithmetic
+    carried on int64 as `owner._mix32` does."""
+    if plan.chunk >= 0 and chunk_idx != plan.chunk:
+        return torch.zeros((n,), dtype=torch.bool, device=device)
+    salt = (plan.seed * 0x9E3779B9 + _SITE_SALT[plan.site]) & 0xFFFFFFFF
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    thresh = min(int(plan.frac * 4294967296.0), 4294967295)
+    return owner._mix32(idx ^ salt) < thresh
 
 
 class RetryController:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import repro_torch
 from repro_torch import words
-from repro_torch.core import (aggregation, countstore, encoding, fabsp,
+from repro_torch.core import (aggregation, bsp, countstore, encoding, fabsp,
                               minimizer, owner, query, resilience, serial,
                               sort)
 from repro_torch.data import genome
@@ -67,6 +67,16 @@ assert int(ops.radix_hist(srt, 0, 4, srt.shape[1]).sum()) == srt.numel()
 acc = sort.accumulate(srt, sentinel_val=encoding.sentinel(13),
                       boundaries_impl="kernel")
 assert int(acc.counts.sum()) == st.raw_kmers
+res2, st2 = fabsp.count_kmers(
+    reads, fabsp.DAKCConfig(k=13, chunk_reads=8, topology="2d",
+                            hop2_impl="compact",
+                            faults=resilience.FaultPlan("hop2_misfit")),
+    num_pes=4, grid=(2, 2), device="cpu")
+assert st2.retry_hop2_fallback == 1 and torch.equal(res2.counts.sum(),
+                                                    res.counts.sum())
+res3, st3 = bsp.count_kmers(reads, bsp.BSPConfig(k=13, batch_reads=8),
+                            num_pes=2, device="cpu")
+assert int(res3.counts.sum()) == st.raw_kmers and st3.num_global_syncs == 5
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -137,10 +147,7 @@ def test_attention_with_a_kv_cache_raises():
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(topology="2d"),
     dict(spill="auto", spill_dir="unused"),
-    dict(faults=object()),
-    dict(hop2_impl="compact"),
 ], ids=lambda d: next(iter(d)))
 def test_settings_outside_the_slice_raise(knobs):
     cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, **knobs)
@@ -149,10 +156,60 @@ def test_settings_outside_the_slice_raise(knobs):
         fabsp.count_kmers(reads, cfg, num_pes=1, device="cpu")
 
 
+@pytest.mark.parametrize("grid", [None, (2, 3), (3, 2), (0, 6)],
+                         ids=["missing", "2x3", "3x2", "0x6"])
+def test_2d_needs_a_grid_that_folds_the_pes(grid):
+    cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, topology="2d")
+    reads = torch.zeros((32, 30), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="grid"):
+        fabsp.count_kmers(reads, cfg, num_pes=4, grid=grid, device="cpu")
+    with pytest.raises(ValueError, match="grid"):
+        fabsp.KmerCounter(cfg, num_pes=4, grid=grid, device="cpu")
+
+
+def test_1d_refuses_a_grid():
+    cfg = fabsp.DAKCConfig(k=13, chunk_reads=8)
+    with pytest.raises(ValueError, match="grid"):
+        fabsp.count_kmers(torch.zeros((16, 30), dtype=torch.uint8), cfg,
+                          num_pes=2, grid=(1, 2), device="cpu")
+
+
+def test_compact_hop2_under_1d_equals_padded():
+    """As in the JAX package, 'compact' applies to the 2d 'oneplan' route
+    only; under 1d it is accepted and changes nothing."""
+    from repro_torch.data import genome
+
+    reads = genome.sample_reads(genome.ReadSetSpec(
+        genome_bases=512, n_reads=64, read_len=30, seed=1))
+    runs = [fabsp.count_kmers(
+        reads, fabsp.DAKCConfig(k=13, chunk_reads=8, hop2_impl=h),
+        num_pes=4, device="cpu") for h in ("padded", "compact")]
+    (pres, pst), (cres, cst) = runs
+    assert torch.equal(pres.unique, cres.unique) and pst == cst
+
+
+def test_spill_fault_sites_are_refused_by_validation():
+    from repro_torch.core import resilience
+
+    for site in ("spill_write", "bin_corrupt"):
+        with pytest.raises(ValueError, match="spill"):
+            fabsp.DAKCConfig(k=13, faults=resilience.FaultPlan(site))
+        cfg = fabsp.DAKCConfig(k=13, spill="auto", spill_dir="unused",
+                               faults=resilience.FaultPlan(site))
+        with pytest.raises(NotImplementedError, match="item 10"):
+            fabsp.count_kmers(torch.zeros((16, 30), dtype=torch.uint8), cfg,
+                              num_pes=1, device="cpu")
+
+
 @pytest.mark.parametrize("case", ["spill", "faults", "save"])
 def test_counter_durability_and_spill_raise_item_10(case):
+    """'faults': a 'ckpt_write' plan counts as usual and reaches the save
+    refusal, as its site fires only in `save`."""
+    from repro_torch.core import resilience
+
     knobs = {"spill": dict(spill="always", spill_dir="unused"),
-             "faults": dict(faults=object()), "save": {}}[case]
+             "faults": dict(faults=resilience.FaultPlan("ckpt_write")),
+             "save": {}}[case]
     cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, **knobs)
     with pytest.raises(NotImplementedError, match="item 10"):
         kc = fabsp.KmerCounter(cfg, num_pes=1, device="cpu")
