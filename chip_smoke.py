@@ -7,7 +7,9 @@
     python3 chip_smoke.py --phases 1,2,3,9 # ... and the LM training path
     python3 chip_smoke.py --phases 1,2,3,10  # ... and the sweep kernels
     python3 chip_smoke.py --phases 1,2,11,12 # the 2d topology and BSP
-    python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-12's read count
+    python3 chip_smoke.py --phases 1,2,8,13  # the counter, its durability,
+                                             # spill tier and serving
+    python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13's read count
 
 Phases:
   1. device: require CUDA; print the card's name and power limit;
@@ -57,6 +59,21 @@ Phases:
      runs of the k-mer transport (k=13), the 'plain' minimizer order (the
      sliding minimum in the updates and at the query shape) and a rehash
      round;
+  13. durability, spill and serving at phase 8's size: phase 8's counter
+     saved (bytes and seconds) and restored onto 8 PEs in place (every PE
+     holding phase 8's set) and onto 4 PEs (the elastic reshard), each
+     finalized exactly; the same read set in 16 updates under
+     spill='auto' with a store ceiling the stream outgrows, so the tier
+     engages after an in-core commit, drained exactly (spilled_bytes,
+     update and drain times, peak memory); the kill drill: a checkpoint
+     with the tier engaged, a torn segment write in the next update,
+     restore onto 4 PEs, replay and drain, exact; the restored in-core
+     counter and the spilled one as two tenants of a StoreRegistry, 2**20
+     queries each in 64 requests through one QueryService.flush, exact,
+     cold and with a bin cache that holds every bin (queries/s), and a
+     refusing tenant beside them; 4096-read drills of 'ckpt_write',
+     'bin_corrupt', spill on a (2, 4) grid and count_kmers(spill=
+     'always'); rows 1-5 and 7 must launch on the phase's path;
   9. the LM training path: qwen1.5-0.5b at full width and depth trains 10
      steps of 4 x 4096 tokens under attn_impl='flash_train' (bf16 compute,
      the flash forward and backward kernels in every layer); then, from
@@ -92,9 +109,12 @@ Phases:
      under torch.profiler (device time by kernel, the device's busy
      share, the main path's launches per scan step).
 
-Phases run in the order 1-5, 11, 12, 8, 9, 10, 6, 7: phases 11 and 12
-before phase 8, whose counter keeps its store until phase 6, and every
-phase whose wall time is kept before phase 10, which profiles.
+Phases run in the order 1-5, 11, 12, 8, 13, 9, 10, 6, 7: phases 11 and
+12 before phase 8, whose counter keeps its store until phase 6; phase 13
+after phase 8, whose counter and histogram it reads, freeing what it made
+before phase 9; and every phase whose wall time is kept before phase 10,
+which profiles. The `kernels` record gives each row's launches on phase
+13's path beside the full run's (`launches_phase13`).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -1161,10 +1181,11 @@ def make_queries(torch, reads, k, n, seed):
 
 
 def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
-                n_queries, pieces, label, grid=None):
+                n_queries, pieces, label, grid=None, keep_sets=False):
     """Feed `spec`'s reads to a KmerCounter in `n_updates` equal batches,
     finalize it exactly against torch.unique, then answer `n_queries`
-    point queries exactly. Returns (counter, launches, numbers)."""
+    point queries exactly. Returns (counter, launches, numbers); with
+    `keep_sets`, numbers["sets"] holds the per-PE (k-mer, count) sets."""
     t0 = time.perf_counter()
     reads = genome.sample_reads_torch(spec, "cuda")
     torch.cuda.synchronize()
@@ -1215,6 +1236,7 @@ def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
     t0 = time.perf_counter()
     distinct, (ref_k, ref_c) = reference_check(
         torch, reads, cfg.k, res, stats, num_pes, pieces, keep=True)
+    sets = per_pe_sets(torch, res, num_pes) if keep_sets else None
     del res, reads
     idx = torch.clamp(torch.searchsorted(ref_k, queries),
                       max=ref_k.numel() - 1)
@@ -1232,7 +1254,8 @@ def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
                "finalize_s": t_fin, "query_wall_s": t_q,
                "queries_per_s": n_queries / t_q, "peak_bytes": peak,
                "query_launches": query_launches,
-               "query_stats": qstats._asdict(), "stats": stats}
+               "query_stats": qstats._asdict(), "stats": stats,
+               "sets": sets}
     return kc, launches, numbers
 
 
@@ -1247,7 +1270,8 @@ def counter_phase(torch, fabsp, ops, genome):
     spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=1 << 23,
                               read_len=150, seed=0)
     kc, launches, numbers = run_counter(torch, fabsp, ops, genome, cfg, spec,
-                                        NUM_PES, 8, 1 << 20, 4, "full size")
+                                        NUM_PES, 8, 1 << 20, 4, "full size",
+                                        keep_sets=True)
     for name in ("hash_lookup", "sliding_min_pair", "hash_insert",
                  "bucket_hist", "bucket_prefix", "bucket_positions",
                  "segment_accumulate"):
@@ -1285,6 +1309,379 @@ def counter_phase(torch, fabsp, ops, genome):
     check(out["rehash"][1]["stats"].retry_store_rehash > 0,
           "the rehash case ran no rehash round")
     return kc, out
+
+
+# --- phase 13: durability, spill and serving at full size -------------------
+
+# The spill run: phase 8's read set in SPILL_UPDATES updates under
+# spill='auto': SPILL_HEAD's reads first, the rest in near-equal multiples
+# of 2048 (8 PEs x 256-read chunks). The stores start at SPILL_STORE_CAP
+# slots a PE, and the rehash ladder doubles a store while it is at most
+# SPILL_CEILING, so 2**22 slots is its last rung. Under the minimizer
+# ownership the PEs' distinct k-mers differ by several per cent: after the
+# first update they hold about 2.1M each, so some PEs overflow 2**21
+# slots, one rehash round doubles the store, and the update commits in
+# core; after the second about 4.1M, so some overflow 2**22 and the ladder
+# gives up: the tier engages there and exports the committed pairs (about
+# 16.7M). Once a PE's table is full the insert drops an absent key only
+# after probing every slot, so each failed round costs its dropped items
+# times the table's slots (PERF.md section 7): the heads are cut so that
+# only about 150K keys overflow each time.
+SPILL_UPDATES = 16
+SPILL_HEAD = (159744, 217088)
+SPILL_STORE_CAP = 1 << 21
+SPILL_CEILING = 1 << 21
+SPILL_SAVE_AT = 12
+SPILL_KILL_AFTER = 40
+SERVE_QUERIES = 1 << 20       # a tenant, in SERVE_REQUESTS requests
+SERVE_REQUESTS = 32
+PHASE13_DIR = os.path.join(HERE, "build", "chip_smoke_phase13")
+# Rows 1-5 and 7: what phase 13's path must launch.
+PHASE13_KERNELS = ("bucket_positions", "segment_accumulate", "hash_insert",
+                   "hash_lookup", "sliding_min_pair")
+
+
+def global_hist(torch, res, num_pes):
+    """The (k-mer, count) pairs of a per-PE AccumResult, ascending."""
+    keys, counts, _ = per_pe_sets(torch, res, num_pes)
+    order = torch.argsort(keys)
+    return keys[order], counts[order]
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def answers(torch, hist, queries):
+    """Each query's count in the ascending histogram `hist` (0 = absent)."""
+    keys, counts = hist
+    idx = torch.clamp(torch.searchsorted(keys, queries), max=keys.numel() - 1)
+    return torch.where(keys[idx] == queries, counts[idx], 0).to(torch.int32)
+
+
+def durability_phase(torch, fabsp, ops, genome, counter, phase8, n_reads,
+                     card):
+    """Phase 13: phase 8's counter checkpointed and restored onto 8 and 4
+    PEs; the same read set through the spill tier, engaged mid-stream; the
+    kill drill (a torn segment write, restore onto 4 PEs, replay); two
+    tenants served through QueryService, cold and warm; small drills.
+    Every histogram and answer is checked exactly. Returns the launches of
+    the phase's path."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from repro_torch import words as W
+    from repro_torch.core import minimizer, query, resilience, spill
+    from repro_torch.launch.kc_serve import QueryService, StoreRegistry
+    from repro_torch.train import checkpoint
+
+    shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+    os.makedirs(PHASE13_DIR)
+    numbers = {"card": card, "n_reads": n_reads}
+    sets8 = phase8["sets"]
+    want8 = torch.argsort(sets8[0])
+    want8 = (sets8[0][want8], sets8[1][want8])
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=1 << 23,
+                              read_len=150, seed=0)
+    reads = genome.sample_reads_torch(spec, "cuda")[:n_reads]
+    ops.reset_launches()
+
+    def exact(res, stats, p, what, full):
+        """`res` of p PEs against phase 8's histogram (`full`) or, for a
+        cut read count, against torch.unique of the phase's reads."""
+        if full:
+            got = global_hist(torch, res, p)
+            check(torch.equal(got[0], want8[0])
+                  and torch.equal(got[1], want8[1]),
+                  f"{what}: the histogram differs from phase 8's")
+            check(int(got[1].sum()) == stats.raw_kmers,
+                  f"{what}: sum(counts) != raw_kmers")
+            log(f"  [{what}] exact against phase 8's histogram "
+                f"({got[0].numel()} distinct k-mers)")
+            return got
+        distinct = reference_check(torch, reads, K, res, stats, p, 4)
+        log(f"  [{what}] exact against torch.unique ({distinct} distinct)")
+        return global_hist(torch, res, p)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 1. checkpoint and restore, in place and elastic
+    cfg8 = counter._cfg
+    ck8 = os.path.join(PHASE13_DIR, "ckpt8")
+    path, t_save = timed(lambda: counter.save(ck8, step=8))
+    numbers["save_s"], numbers["save_bytes"] = t_save, dir_bytes(path)
+    log(f"  [save] phase 8's counter: {numbers['save_bytes']} bytes on "
+        f"disk in {t_save:.3f} s ({card})")
+    r8, numbers["restore8_s"] = timed(lambda: fabsp.KmerCounter.restore(
+        ck8, cfg8, num_pes=NUM_PES))
+    res, st = r8.finalize()
+    got = per_pe_sets(torch, res, NUM_PES)
+    check(got[2] == sets8[2] and torch.equal(got[0], sets8[0])
+          and torch.equal(got[1], sets8[1]),
+          "the 8-PE restore's per-PE sets differ from phase 8's")
+    log(f"  [restore 8 PEs] {numbers['restore8_s']:.3f} s; every PE holds "
+        f"phase 8's (k-mer, count) set ({card})")
+    del r8, res, got
+    r4, numbers["restore4_s"] = timed(lambda: fabsp.KmerCounter.restore(
+        ck8, cfg8, num_pes=4))
+    res, st = r4.finalize()
+    incore_hist = exact(res, st, 4, "restore 4 PEs", True)
+    log(f"  [restore 4 PEs] elastic reshard {numbers['restore4_s']:.3f} s, "
+        f"{r4.store_capacity} slots a PE ({card})")
+    del res
+    torch.cuda.empty_cache()
+
+    # 2. the spill tier, engaged mid-stream
+    full = n_reads == 1 << 23
+    bins_dir = os.path.join(PHASE13_DIR, "bins")
+    os.makedirs(bins_dir)
+    slot = minimizer.slot_bytes(K, cfg8.minimizer_len)
+    est = (n_reads * minimizer.expected_superkmers(1, 150, K,
+                                                   cfg8.minimizer_len)
+           * slot + int(want8[0].numel()) * 12)
+    free = shutil.disk_usage(bins_dir).free
+    log(f"  [spill] expect about {est / 1e9:.2f} GB of segments; "
+        f"{free / 1e9:.1f} GB free under {bins_dir}")
+    check(free >= 2 * est, f"phase 13 needs {2 * est} bytes free under "
+          f"{bins_dir}, has {free}")
+    cfg13 = dataclasses.replace(
+        cfg8, store_capacity=SPILL_STORE_CAP, spill="auto",
+        spill_dir=bins_dir,
+        retry=resilience.RetryPolicy(store_cap_ceiling=SPILL_CEILING))
+    unit = NUM_PES * cfg8.chunk_reads
+    head = list(np.cumsum((0,) + SPILL_HEAD))
+    n_tail = SPILL_UPDATES - len(SPILL_HEAD)
+    rest = (n_reads - head[-1]) // unit
+    check(rest >= n_tail, f"phase 13 needs more than {head[-1]} reads for "
+          f"its spill run, got {n_reads}")
+    bounds = head[:-1] + [head[-1] + unit * (rest * i // n_tail)
+                          for i in range(n_tail + 1)]
+    batches = [reads[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+    ck13 = os.path.join(PHASE13_DIR, "ckpt_spill")
+    log(f"  [spill] {SPILL_UPDATES} updates: {SPILL_HEAD} reads, then "
+        f"{n_tail} of {batches[-2].shape[0]}-{batches[-1].shape[0]}; "
+        f"store_capacity={SPILL_STORE_CAP}, store_cap_ceiling="
+        f"{SPILL_CEILING}, spill='auto'")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kc = fabsp.KmerCounter(cfg13, num_pes=NUM_PES)
+    walls, engaged, rehashed, committed = [], None, 0, 0
+    for i in range(SPILL_UPDATES):
+        if i == SPILL_SAVE_AT:
+            kc.save(ck13, step=i)
+        st, wall = timed(lambda: kc.update(batches[i]))
+        walls.append(wall)
+        if engaged is None and kc._spill is not None:
+            engaged = i
+        if engaged is None:
+            rehashed += st.retry_store_rehash
+            per_pe = (kc._store.keys != W.sentinel(kc._wb)).sum(1).tolist()
+            committed = sum(per_pe)
+            log(f"  update {i}: distinct k-mers a PE {per_pe} in "
+                f"{kc.store_capacity} slots")
+        log(f"  update {i}: {wall:.3f} s, {'spilled' if kc._spill else 'in '
+            'core'}, spilled_bytes {st.spilled_bytes}, retries "
+            f"{st.retry_route_slack}/{st.retry_store_rehash}/"
+            f"{st.retry_hop2_fallback}")
+    check(engaged is not None and 1 <= engaged < SPILL_SAVE_AT,
+          f"the tier engaged at update {engaged}, not after an in-core "
+          f"commit and before update {SPILL_SAVE_AT}")
+    exported = sum(s["n"] for s in kc._spill.state()["segments"]
+                   if s["kind"] == "pairs")
+    check(rehashed >= 1, "no rehash round ran before the tier engaged")
+    check(exported == committed > 0, f"the engage exported {exported} "
+          f"pairs, the committed store held {committed}")
+    log(f"  [spill] {rehashed} rehash round(s) in core; the engage exported "
+        f"the {exported} committed (k-mer, count) pairs")
+    (res, st), t_drain = timed(kc.finalize)
+    peak = torch.cuda.max_memory_allocated()
+    spill_hist = exact(res, st, NUM_PES, "spill 8 PEs", full)
+    segs = kc._spill.state()["segments"]
+    nonempty = len({s["bin"] for s in segs if s["n"] > 0})
+    check(st.spilled_bins >= 1 and st.bins_folded == nonempty,
+          f"spilled_bins {st.spilled_bins}, bins_folded {st.bins_folded}, "
+          f"non-empty bins {nonempty}")
+    numbers.update(
+        engaged_at=engaged, rehash_rounds=rehashed, exported=exported,
+        n_bins=kc._spill.n_bins, segments=len(segs),
+        spilled_bytes=st.spilled_bytes, spill_update_s=sum(walls),
+        spill_updates=walls, engage_update_s=walls[engaged],
+        drain_s=t_drain, spill_peak_bytes=peak,
+        phase8_update_s=phase8["update_wall_s"], spill_stats=st._asdict())
+    log(f"  [spill] engaged at update {engaged} into {kc._spill.n_bins} bins"
+        f" ({len(segs)} segments); spilled_bytes {st.spilled_bytes}; "
+        f"updates {sum(walls):.3f} s, the engaging one {walls[engaged]:.3f}"
+        f" s (phase 8's 8 in-core updates "
+        f"{phase8['update_wall_s']:.3f} s); drain {t_drain:.3f} s; peak "
+        f"{peak / 1e9:.2f} GB ({card})")
+    del res, kc
+    torch.cuda.empty_cache()
+
+    # 3. the kill drill: torn segment write, restore onto 4 PEs, replay
+    kf = fabsp.KmerCounter.restore(ck13, dataclasses.replace(
+        cfg13, faults=resilience.FaultPlan(site="spill_write",
+                                           fail_after=SPILL_KILL_AFTER)),
+        num_pes=NUM_PES)
+    try:
+        kf.update(batches[SPILL_SAVE_AT])
+        check(False, "the spill_write fault did not fire")
+    except resilience.InjectedFault as e:
+        log(f"  [kill] update {SPILL_SAVE_AT} died: {e}")
+    del kf
+    kc4, t_r = timed(lambda: fabsp.KmerCounter.restore(ck13, cfg13,
+                                                       num_pes=4))
+    listed = {s["file"] for s in kc4._spill.state()["segments"]}
+    on_disk = {f for f in os.listdir(bins_dir) if f.endswith((".npz", ".tmp"))}
+    check(on_disk == listed and kc4._n_updates == SPILL_SAVE_AT,
+          "the restore did not prune to the checkpoint's manifest")
+    walls = [timed(lambda: kc4.update(b))[1]
+             for b in batches[SPILL_SAVE_AT:]]
+    (res, st), t_drain4 = timed(kc4.finalize)
+    spill_hist = exact(res, st, 4, "kill drill 4 PEs", full)
+    numbers.update(kill_restore_s=t_r, kill_replay_s=sum(walls),
+                   kill_drain_s=t_drain4)
+    log(f"  [kill] restored onto 4 PEs in {t_r:.3f} s, replayed "
+        f"{len(walls)} updates in {sum(walls):.3f} s, drain "
+        f"{t_drain4:.3f} s ({card})")
+    del res
+    torch.cuda.empty_cache()
+
+    # 4. serving: the in-core and the spilled tenant through QueryService
+    queries = make_queries(torch, reads, K, SERVE_QUERIES, seed=13)
+    q_np = W.to_numpy_words(queries, 64)
+    want = {"incore": answers(torch, incore_hist, queries).cpu().numpy(),
+            "spilled": answers(torch, spill_hist, queries).cpu().numpy()}
+    parts = np.array_split(np.arange(SERVE_QUERIES), SERVE_REQUESTS)
+    registry = StoreRegistry(num_pes=4)
+    registry.register("incore", r4)
+    registry.register("spilled", kc4)
+    service = QueryService(registry)
+
+    def serve(tenants, tag):
+        """Every tenant's queries in SERVE_REQUESTS requests, interleaved,
+        one flush; exact; returns {tenant: queries/s}."""
+        order = [(t, j) for j in range(SERVE_REQUESTS) for t in tenants]
+        idx = [service.submit(t, q_np[parts[j]]) for t, j in order]
+        out, t_flush = timed(service.flush)
+        rates = {}
+        for (t, j), i in zip(order, idx):
+            counts, rs = out[i]
+            check(np.array_equal(counts, want[t.split("_")[0]][parts[j]]),
+                  f"{tag}: a {t} answer differs")
+            rates[t] = SERVE_QUERIES / rs.seconds
+        log(f"  [{tag}] {len(order)} requests in one flush, {t_flush:.3f} s;"
+            f" all answers exact; queries/s "
+            f"{ {t: round(r, 1) for t, r in rates.items()} } ({card})")
+        return rates
+
+    numbers["cold_qps"] = serve(("incore", "spilled"), "serve cold")
+    qs, cache = kc4.last_query_stats, kc4._bin_cache
+    numbers["cold_query_stats"] = qs._asdict()
+    numbers["cold_cache"] = [cache.hits, cache.misses, cache.evictions]
+    log(f"  spilled tenant: bins_probed {qs.bins_probed}, bin_folds "
+        f"{qs.bin_folds}, cache hits {cache.hits} misses {cache.misses} "
+        f"evictions {cache.evictions} (budget {cfg13.query_bin_cache_bytes})")
+    ck_serve = os.path.join(PHASE13_DIR, "ckpt_serve")
+    kc4.save(ck_serve, step=SPILL_UPDATES)
+    del kc4, cache
+    warm = fabsp.KmerCounter.restore(ck_serve, dataclasses.replace(
+        cfg13, query_bin_cache_bytes=1 << 40), num_pes=4)
+    registry.register("spilled", warm)
+    torch.cuda.empty_cache()
+    rates = [serve(("spilled",), f"serve spilled, {tag}")["spilled"]
+             for tag in ("folding every bin", "warm")]
+    qs, cache = warm.last_query_stats, warm._bin_cache
+    check(qs.bin_folds == 0 and cache.evictions == 0,
+          "the warm flush folded a bin")
+    numbers["warm_qps"] = {"spilled_first": rates[0], "spilled": rates[1]}
+    numbers["warm_cache"] = [cache.hits, cache.misses, cache.evictions]
+    log(f"  warm: bins_probed {qs.bins_probed}, bin_folds {qs.bin_folds}, "
+        f"cache hits {cache.hits} misses {cache.misses}; spilled queries/s "
+        f"cold {numbers['cold_qps']['spilled']:.1f}, warm {rates[1]:.1f}")
+    registry.register("strict", fabsp.KmerCounter.restore(
+        ck_serve, dataclasses.replace(cfg13, spill_query="refuse"),
+        num_pes=4))
+    i0 = service.submit("incore", q_np[parts[0]])
+    i1 = service.submit("strict", q_np[parts[0]])
+    i2 = service.submit("incore", q_np[parts[1]])
+    out = service.flush()
+    check(isinstance(out[i1], query.QueryUnavailable)
+          and np.array_equal(out[i0][0], want["incore"][parts[0]])
+          and np.array_equal(out[i2][0], want["incore"][parts[1]]),
+          "the refusing tenant was not isolated")
+    log("  [refuse] the strict tenant's requests got QueryUnavailable; "
+        "the in-core tenant's answers kept")
+    del registry, service, warm, r4, queries, incore_hist, spill_hist
+    torch.cuda.empty_cache()
+
+    # 5. small drills, 4096 reads
+    sreads = genome.sample_reads_torch(genome.ReadSetSpec(
+        genome_bases=1 << 16, n_reads=4096, read_len=150, seed=3), "cuda")
+    ckd = os.path.join(PHASE13_DIR, "ckpt_small")
+    half = sreads.shape[0] // 2
+    kc = fabsp.KmerCounter(cfg8, num_pes=NUM_PES)
+    kc.update(sreads[:half])
+    kc.save(ckd, step=0)
+    kc.update(sreads[half:])
+    kf = fabsp.KmerCounter.restore(ckd, dataclasses.replace(
+        cfg8, faults=resilience.FaultPlan(site="ckpt_write", fail_after=1)),
+        num_pes=NUM_PES)
+    try:
+        kf.save(ckd, step=1)
+        check(False, "the ckpt_write fault did not fire")
+    except resilience.InjectedFault:
+        pass
+    check(checkpoint.latest_step(ckd) == 0, "a torn checkpoint is latest")
+    kr = fabsp.KmerCounter.restore(ckd, cfg8, num_pes=NUM_PES)
+    kr.update(sreads[half:])
+    a, b = (per_pe_sets(torch, c.finalize()[0], NUM_PES) for c in (kr, kc))
+    check(a[2] == b[2] and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "the replay after a torn checkpoint differs")
+    log("  [ckpt_write] torn step 1 left step 0 latest; its restore and "
+        "replay are exact")
+    kc = fabsp.KmerCounter(dataclasses.replace(
+        cfg8, spill="always", spill_bins=4,
+        spill_dir=os.path.join(PHASE13_DIR, "corrupt"),
+        faults=resilience.FaultPlan(site="bin_corrupt", bin=2)),
+        num_pes=NUM_PES)
+    kc.update(sreads)
+    try:
+        kc.finalize()
+        check(False, "the bin_corrupt fault did not fire")
+    except spill.SpillCorrupt as e:
+        check(e.bin == 2 and "bin 2" in str(e), f"SpillCorrupt names {e}")
+        log(f"  [bin_corrupt] {e}")
+    for title, knobs, grid in (
+            ("spill on a (2, 4) grid", dict(topology="2d",
+                                            hop2_impl="compact"), (2, 4)),
+            ("count_kmers(spill='always')", {}, None)):
+        cfg = dataclasses.replace(
+            cfg8, spill="always", spill_bins=8,
+            spill_dir=os.path.join(PHASE13_DIR, "small"), **knobs)
+        res, st = fabsp.count_kmers(sreads, cfg, num_pes=NUM_PES, grid=grid)
+        distinct = reference_check(torch, sreads, K, res, st, NUM_PES, 1)
+        check(st.bins_folded == st.spilled_bins >= 1, f"{title}: bins")
+        log(f"  [{title}] exact against torch.unique ({distinct} distinct, "
+            f"{st.bins_folded} bins)")
+    del kc, kr, res, sreads, reads, batches
+
+    launches = ops.launch_counts()
+    for name in PHASE13_KERNELS:
+        check(launches[name] > 0, f"kernel {name} did not launch on phase "
+              f"13's path")
+    check(launches["bucket_hist"] + launches["bucket_prefix"] > 0,
+          "row 1 did not launch on phase 13's path")
+    log(f"  launches on phase 13's path {launches}")
+    log(json.dumps({"phase13": numbers}, default=str))
+    shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+    return launches
 
 
 # --- phase 10: the sweep kernels through their entry points ----------------
@@ -2403,11 +2800,12 @@ def profile_lm_step(torch):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
-                    help="phases 4, 10, 11 and 12's read count (a cut is "
-                         "printed); phase 8 always reads 2**23")
+                    help="phases 4, 10, 11 and 12's read count, and phase "
+                         "13's spill run's (a cut is printed); phase 8 "
+                         "always reads 2**23")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2499,6 +2897,30 @@ def main(argv=None) -> int:
         launches["sliding_min"] = runs["plain"][0]["sliding_min"]
         log(f"[counter] done ({time.perf_counter() - t0:.1f} s)")
 
+    # Phase 13 reads phase 8's counter and histogram, and frees what it
+    # made before phase 9.
+    phase13_launches = None
+    if 13 in phases:
+        check(counter is not None, "phase 13 needs phase 8")
+        t0 = time.perf_counter()
+        n13 = min(args.reads, 1 << 23)
+        check(n13 % 2048 == 0 and n13 >= sum(SPILL_HEAD)
+              + 2048 * (SPILL_UPDATES - len(SPILL_HEAD)),
+              f"phase 13's read count {n13} does not split into "
+              f"{SPILL_UPDATES} updates of 8 PEs x 256-read chunks")
+        log("[durability] phase 8's counter checkpointed and restored; the "
+            "same read set through the spill tier; the kill drill; "
+            "two tenants served; small drills")
+        if n13 != 1 << 23:
+            log(f"  CUT: the spill run reads {n13} instead of {1 << 23}")
+        phase13_launches = durability_phase(
+            torch, fabsp, ops, genome, counter[0], counter[1]["full"][1],
+            n13, smi[0])
+        log(f"[durability] done ({time.perf_counter() - t0:.1f} s)")
+    if counter is not None:
+        counter[1]["full"][1]["sets"] = None
+    torch.cuda.empty_cache()
+
     if 9 in phases:
         t0 = time.perf_counter()
         lm_launches, _ = lm_phase(torch, ops)
@@ -2531,6 +2953,9 @@ def main(argv=None) -> int:
             "kernel records of as many calls")
         record = kernel_times(torch, ops, ref, launches, errs, counter,
                               sweep_rows, insert_state)
+        for e in record:
+            e["launches_phase13"] = (None if phase13_launches is None
+                                     else phase13_launches[e["name"]])
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()

@@ -36,13 +36,17 @@ class StoreSnapshot(NamedTuple):
     The JAX package's snapshot relies on its arrays being immutable. Here
     the store updates in place, so the counter publishes tensors that it
     never writes again: each update inserts into a copy of the committed
-    store, and a rehash builds new tensors.
+    store, and a rehash builds new tensors. `spill_state` is a copy of the
+    spill writer's manifest at the commit (None while the tier is off):
+    the live manifest grows with later commits, sealed segment files
+    never change.
     """
     gen: int                 # commit counter
     keys: torch.Tensor       # (P, store_cap) int64 words
     counts: torch.Tensor     # (P, store_cap) int32
     store_cap: int
     word_bits: int
+    spill_state: Optional[dict] = None
 
 
 def empty_store(num_pes: int, capacity: int, word_bits: int,

@@ -23,9 +23,16 @@ JAX package does; a `resilience.FaultPlan` in `cfg.faults` forces those
 rounds on demand. The per-PE results and every `DAKCStats` field equal
 the JAX package's.
 
-Settings outside the port so far (spill, checkpoints and the fault sites
-that need them) raise NotImplementedError naming the ROADMAP.md item that
-brings them.
+`KmerCounter` also carries the counter's durability and its out-of-core
+tier, as the JAX package's does: `save` / `restore` checkpoint the store
+and every sticky knob through `train.checkpoint` (restoring onto another
+PE count, or another ownership family, re-routes every live entry: the
+elastic reshard), and `cfg.spill` moves the counts into disk bins
+(`core.spill`) once the rehash ladder runs out of device memory
+('auto') or from the start ('always'); `finalize` then drains the bins
+and `count` serves them through the spilled-bin query tier
+(`query.query_spilled_counts`). `count_kmers` with a spill setting runs
+one such counter.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import torch
 
 from repro_torch import words as W
 from repro_torch.core import (aggregation, countstore, encoding, minimizer,
-                              resilience)
+                              resilience, spill)
 from repro_torch.core.aggregation import plan_capacity
 from repro_torch.core.owner import owner_pe
 from repro_torch.core.sort import (AccumResult, accumulate, radix_sort,
@@ -174,21 +181,6 @@ class DAKCStats(NamedTuple):
     spilled_bins: int = 0
     spilled_bytes: int = 0
     bins_folded: int = 0
-
-
-# The ROADMAP.md item that brings what this package does not run yet: the
-# spill tier, `save`/`restore`, and the fault sites that act there
-# ('spill_write' and 'bin_corrupt', which need spill; 'ckpt_write', which
-# fires in `save`).
-_ITEM10 = "ROADMAP.md section 1, item 10 (durability, spill and serving)"
-
-
-def _refuse_out_of_slice(cfg: DAKCConfig) -> None:
-    if cfg.spill != "off":
-        site = ("" if cfg.faults is None
-                else f", FaultPlan site {cfg.faults.site!r}")
-        raise NotImplementedError(
-            f"spill={cfg.spill!r}{site} is not ported yet: {_ITEM10}")
 
 
 def _topology_grid(cfg: DAKCConfig, num_pes: int,
@@ -447,12 +439,12 @@ def _drop_inserts(store: countstore.CountStore, kmers: torch.Tensor,
 def _stream_fold(chunks: torch.Tensor, store: Optional[countstore.CountStore],
                  *, cfg: DAKCConfig, num_pes: int, cap_n: int, cap_h: int,
                  mode: str, grid=None, hop2_caps=None, compact_caps=None,
-                 fault: Optional[resilience.FaultPlan] = None):
+                 fault: Optional[resilience.FaultPlan] = None, sink=None):
     """The Phase-1 scan: route chunk i of every PE, then fold the decoded
-    receive tiles into the count store (the streaming receiver), or keep
-    them for `_phase2` when `store` is None (the stacked oracle). An armed
-    'route_drop' `fault` rides into `_phase1_step`, a 'store_drop' one
-    into `_drop_inserts`.
+    receive tiles into the count store (the streaming receiver), hand
+    them to `sink` (the spill tier), or keep them for `_phase2` when
+    neither is given (the stacked oracle). An armed 'route_drop' `fault`
+    rides into `_phase1_step`, a 'store_drop' one into `_drop_inserts`.
 
     chunks: (P, n_chunks, chunk_reads, m). No host sync happens here: the
     running stats stay on the device. Returns (store or the list of receive
@@ -473,7 +465,9 @@ def _stream_fold(chunks: torch.Tensor, store: Optional[countstore.CountStore],
             chunks[:, i], cfg=cfg, num_pes=num_pes, cap_n=cap_n,
             cap_h=cap_h, mode=mode, grid=grid, hop2_caps=hop2_caps,
             compact_caps=compact_caps, chunk_idx=i, fault=fault)
-        if store is None:
+        if sink is not None:
+            sink(recv)
+        elif store is None:
             recvs.append(recv)
         else:
             kmers, cnts = _recv_pairs(recv, cfg=cfg, mode=mode)
@@ -816,21 +810,100 @@ def _valid_estimate(reads: torch.Tensor, cfg: DAKCConfig, num_pes: int,
     return _chunk_valid_estimate(reads, cfg, mode, shape, num_pes)
 
 
+# Words a piece when `_ownership_keys` recomputes minimizers: each word
+# unpacks to k int64 base codes, so a reshard or engage-time export of
+# hundreds of millions of words runs in pieces of this many.
+_OWNERSHIP_PIECE = 1 << 20
+
+
 def _ownership_keys(words: torch.Tensor, cfg: DAKCConfig) -> torch.Tensor:
     """The word `owner_pe` hashes for stored k-mer words (any shape): the
     masked word itself, or under the super-k-mer transport the k-mer's
     minimizer, recomputed from its bases (base j at bit bps*(k-1-j)) by the
-    sliding minimum the sender ran. Its width is `_ownership_word_bits`."""
+    sliding minimum the sender ran, `_OWNERSHIP_PIECE` words at a time.
+    Its width is `_ownership_word_bits`."""
     k, bps = cfg.k, cfg.bits_per_symbol
     w = words & encoding.kmer_mask(k, bps)
     if cfg.transport_impl != "superkmer":
         return w
     shifts = torch.arange(k - 1, -1, -1, device=words.device) * bps
-    codes = (w[..., None] >> shifts) & ((1 << bps) - 1)
-    return minimizer.window_minimizers(
-        codes[..., None, :], k, cfg.minimizer_len, bps,
-        canonical=cfg.canonical, canonical_impl=cfg.canonical_impl,
-        order=cfg.minimizer_order)[..., 0, 0]
+    flat = w.reshape(-1)
+    out = torch.empty_like(flat)
+    for lo in range(0, flat.numel(), _OWNERSHIP_PIECE):
+        piece = flat[lo:lo + _OWNERSHIP_PIECE]
+        codes = (piece[:, None] >> shifts) & ((1 << bps) - 1)
+        out[lo:lo + piece.numel()] = minimizer.window_minimizers(
+            codes[:, None, :], k, cfg.minimizer_len, bps,
+            canonical=cfg.canonical, canonical_impl=cfg.canonical_impl,
+            order=cfg.minimizer_order)[:, 0, 0]
+    return out.reshape(words.shape)
+
+
+def _reshard_round(keys: torch.Tensor, counts: torch.Tensor, *,
+                   cfg: DAKCConfig, num_pes: int, grid, route_cap: int,
+                   store_cap: int, word_bits: int):
+    """One elastic-reshard round (the JAX package's `_reshard_executable`):
+    every PE routes its (P, n_local) slice of (key, count) records to their
+    owners under this counter's PE count and ownership, in one
+    `route_lanes` exchange, and folds what it receives into a fresh store
+    of `store_cap` slots. Returns (store, route drops, store drops), the
+    drops summed over PEs for the caller's retry controller."""
+    sent = W.sentinel(word_bits)
+    valid = (keys != sent) & (counts > 0)
+    owners = owner_pe(_ownership_keys(keys, cfg), num_pes,
+                      _ownership_word_bits(cfg))
+    rr = aggregation.route_lanes(
+        (keys, counts), ("word", "i32"), owners, valid, num_pes=num_pes,
+        capacity=route_cap, word_bits=word_bits, grid=grid,
+        impl=cfg.partition_impl, route2d="oneplan")
+    del owners, valid
+    store = countstore.empty_store(num_pes, store_cap, word_bits,
+                                   keys.device)
+    countstore.store_insert(store, rr.lanes[0], rr.lanes[1])
+    return store, int(rr.overflow.sum()), int(store.dropped.sum())
+
+
+def _spill_lanes(recv, *, cfg: DAKCConfig, mode: str, n_bins: int):
+    """One scan step's receive tiles as the spill tier's flat lanes (the
+    JAX package's `_spill_route_executable`), each record given its bin on
+    the card: the slot's recovered minimizer under the super-k-mer
+    transport (`minimizer.superkmer_minimizers`), else the masked k-mer,
+    through `spill.bin_of`. Returns super-k-mer words (N, S), int32
+    lengths and bins; or k-mers (N,), int32 counts and bins."""
+    k, bps = cfg.k, cfg.bits_per_symbol
+    if mode == "superkmer":
+        words, lengths, _ = recv
+        minz = minimizer.superkmer_minimizers(
+            words, k, cfg.minimizer_len, bps, canonical=cfg.canonical,
+            canonical_impl=cfg.canonical_impl, order=cfg.minimizer_order)
+        return (words.reshape(-1, words.shape[-1]),
+                lengths.reshape(-1).to(torch.int32),
+                spill.bin_of(minz, n_bins,
+                             _ownership_word_bits(cfg)).reshape(-1))
+    kmers, cnts = _recv_pairs(recv, cfg=cfg, mode=mode)
+    return (kmers.reshape(-1), cnts.reshape(-1).to(torch.int32),
+            spill.bin_of(kmers & encoding.kmer_mask(k, bps), n_bins,
+                         encoding.word_bits(k, bps)).reshape(-1))
+
+
+# Checkpoint compatibility: the fingerprint's fields decide what a stored
+# word means (a mismatch cannot be repaired, so restore refuses); the
+# ownership tag's decide which PE owns a word (a mismatch, like another
+# PE count, makes the restore reshard).
+_FINGERPRINT_FIELDS = ("k", "bits_per_symbol", "canonical")
+
+
+def _cfg_fingerprint(cfg: DAKCConfig) -> dict:
+    return {f: getattr(cfg, f) for f in _FINGERPRINT_FIELDS}
+
+
+def _ownership_tag(cfg: DAKCConfig) -> dict:
+    sk = cfg.transport_impl == "superkmer"
+    return {"transport_impl": cfg.transport_impl,
+            "minimizer_len": cfg.minimizer_len if sk else None,
+            # the order decides which m-mer wins a window, so it is part
+            # of the ownership family
+            "minimizer_order": cfg.minimizer_order if sk else None}
 
 
 def _host_stats(raw_stats) -> DAKCStats:
@@ -890,9 +963,23 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
     Overflow rounds run through `cfg.retry`: a routing overflow replays at
     doubled slack, a full count store replays at doubled capacity (a
     rehash round), a compact hop-2 misfit replays on the padded tile; the
-    per-cause round counts come back in `retry_*`.
+    per-cause round counts come back in `retry_*`. With `cfg.spill` on,
+    the call is one `KmerCounter` update and its drain.
     """
-    _refuse_out_of_slice(cfg)
+    if cfg.spill != "off":
+        # The out-of-core path runs one incremental counter (an update and
+        # its drain), so the spill tier lives in one place for both entry
+        # points.
+        kc = KmerCounter(cfg, num_pes=num_pes, grid=grid, device=device)
+        ustats = kc.update(reads)
+        result, fstats = kc.finalize()
+        return result, ustats._replace(
+            retry_route_slack=fstats.retry_route_slack,
+            retry_store_rehash=fstats.retry_store_rehash,
+            retry_hop2_fallback=fstats.retry_hop2_fallback,
+            spilled_bins=fstats.spilled_bins,
+            spilled_bytes=fstats.spilled_bytes,
+            bins_folded=fstats.bins_folded)
     grid = _topology_grid(cfg, num_pes, grid)
     reads = _as_device_reads(reads, resolve_device(device))
     local = _split(reads, num_pes)
@@ -923,7 +1010,7 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
 
 class KmerCounter:
     """Incremental DAKC: fold batches of reads into one persistent store
-    (counterpart of `repro.core.fabsp.KmerCounter`, in core).
+    (counterpart of `repro.core.fabsp.KmerCounter`).
 
     `update(reads)` runs the counting pipeline for one batch and folds it
     into the per-PE count store; `finalize()` sorts the store into the
@@ -945,17 +1032,34 @@ class KmerCounter:
     rehashes and failed rounds, at the cost of one more store in memory
     while an update runs.
 
+    Durability: `save()` checkpoints the committed store and every sticky
+    knob (slack, hop-2 fallback, store capacity, totals, round history,
+    the spill manifest) through `train.checkpoint`; `restore()` rebuilds a
+    counter mid-stream, loading the store in place, or re-routing every
+    live entry when the PE count or the ownership family differs.
+
+    The spill tier (`cfg.spill`): 'always' spills from the first batch;
+    'auto' counts in core until the rehash ladder reaches
+    `cfg.retry.store_cap_ceiling`, then exports the committed store into
+    disk bins and replays that batch out of core. From then on each batch
+    routes as usual and its receive lanes go to bin segments
+    (`spill.SpillWriter`), committed only when the batch routed cleanly;
+    the resident store shrinks to `_SPILL_STORE_CAP` slots a PE, and
+    `finalize()` drains the bins one at a time through the reshard's fold.
+
     Store capacity starts from `cfg.store_capacity`, else from the first
     batch's sample estimate ('sample') or its instance bound ('bound').
-    `grid` is as in `count_kmers`. `save`/`restore` and spill are not
-    ported yet.
+    `grid` is as in `count_kmers`.
     """
+
+    # Once the tier engages, the resident store only has to exist for
+    # `save`, `finalize` and the query tier's first stage: 8 slots a PE.
+    _SPILL_STORE_CAP = 8
 
     def __init__(self, cfg: DAKCConfig, *, num_pes: int, grid=None,
                  device=None):
         if cfg.receiver_impl != "stream":
             raise ValueError("KmerCounter requires receiver_impl='stream'")
-        _refuse_out_of_slice(cfg)
         self._cfg = cfg
         self._num_pes = num_pes
         self._grid = _topology_grid(cfg, num_pes, grid)
@@ -967,6 +1071,8 @@ class KmerCounter:
         self._hop2_padded = False
         self._store_cap: Optional[int] = cfg.store_capacity
         self._store: Optional[countstore.CountStore] = None
+        # the first batch's sampled distinct estimate; sizes the spill
+        # bins and rides the checkpoint
         self._distinct_est: Optional[int] = None
         # lifetime totals across updates (host ints)
         self._raw = 0
@@ -976,9 +1082,15 @@ class KmerCounter:
         self._retries = {c: 0 for c in resilience.CAUSES}
         self._n_updates = 0
         self._rounds: list = []
+        # the spill tier, None until it engages
+        self._spill: Optional[spill.SpillWriter] = None
+        self._bins_folded = 0
         self.last_query_stats = None
         self._gen = 0
         self._committed: Optional[countstore.StoreSnapshot] = None
+        # the spilled-bin query tier's LRU of folded bins
+        # (`query.BinShardCache`), made on first use
+        self._bin_cache = None
 
     @property
     def store_capacity(self) -> Optional[int]:
@@ -1018,17 +1130,25 @@ class KmerCounter:
 
     def _publish(self) -> None:
         """Publish the committed store as the generation `count()` serves:
-        one reference assignment, of tensors no later call writes."""
+        one reference assignment, of tensors no later call writes, with a
+        copy of the spill manifest as it stands."""
         self._gen += 1
         self._committed = countstore.StoreSnapshot(
             gen=self._gen, keys=self._store.keys, counts=self._store.counts,
-            store_cap=self._store_cap, word_bits=self._wb)
+            store_cap=self._store_cap, word_bits=self._wb,
+            spill_state=None if self._spill is None else self._spill.state())
 
     def update(self, reads) -> DAKCStats:
         """Fold one (n_reads, m) batch into the store; returns this batch's
-        stats (the clean round's, with its replay counts in retry_*)."""
-        cfg, p = self._cfg, self._num_pes
-        plan = cfg.faults
+        stats (the clean round's, with its replay counts in retry_*).
+
+        Under `cfg.spill` the batch may go to the disk tier instead:
+        'always' from the first batch on; 'auto' once the rehash ladder
+        gives up (`CapacityExhausted` for the store), when the committed
+        store is exported to bins and this batch replays through the tier
+        (nothing counts twice: the committed store is untouched until a
+        batch folds cleanly)."""
+        plan = self._cfg.faults
         if (plan is not None and plan.site == "update_fail"
                 and self._n_updates == plan.update_n):
             # the preemption drill: die before anything commits
@@ -1036,6 +1156,27 @@ class KmerCounter:
                 f"injected failure at update #{self._n_updates} "
                 f"(FaultPlan site='update_fail')")
         reads = _as_device_reads(reads, self._dev)
+        if self._spill is None and self._cfg.spill == "always":
+            self._engage_spill()
+        if self._spill is not None:
+            return self._spill_update(reads)
+        try:
+            return self._incore_update(reads)
+        except resilience.CapacityExhausted as e:
+            if (self._cfg.spill != "auto"
+                    or e.cause != resilience.STORE_REHASH):
+                raise
+            # the ladder's rounds and replays stay in the history, so a
+            # later give-up still shows why the tier engaged
+            self._rounds = list(e.rounds)
+            for cause, n in e.counts.items():
+                self._retries[cause] += n
+            self._engage_spill()
+            return self._spill_update(reads)
+
+    def _incore_update(self, reads: torch.Tensor) -> DAKCStats:
+        cfg, p = self._cfg, self._num_pes
+        plan = cfg.faults
         chunks = _chunked(_split(reads, p), cfg.chunk_reads)
         if self._store is None:
             self._alloc(reads)
@@ -1076,14 +1217,229 @@ class KmerCounter:
         self._raw += stats.raw_kmers
         self._sent += stats.sent_words
         self._wire_bytes += int(stats.wire_bytes)
-        fill = raw_stats[6].to(torch.int64).cpu().numpy()
-        self._fill = fill if self._fill is None else self._fill + fill
+        self._add_fill(raw_stats[6])
         self._publish()
         return _stamp_retries(stats, ctrl.counts)
 
+    def _add_fill(self, fill: torch.Tensor) -> None:
+        fill = fill.to(torch.int64).cpu().numpy()
+        self._fill = fill if self._fill is None else self._fill + fill
+
+    # --- the spill tier (core/spill.py) --------------------------------------
+
+    def _spill_fault(self) -> Optional[resilience.FaultPlan]:
+        plan = self._cfg.faults
+        if plan is not None and plan.site in ("spill_write", "bin_corrupt"):
+            return plan
+        return None
+
+    def _engage_spill(self) -> None:
+        """Stand up the spill writer; if a committed store exists, export
+        its live (key, count) entries into their bins. Either way the
+        resident store becomes `_SPILL_STORE_CAP` empty slots a PE: from
+        here on batches spill and `finalize()` drains the bins."""
+        cfg = self._cfg
+        n_bins = cfg.spill_bins
+        if n_bins is None:
+            # each bin's drain-time fold near the capacity the ladder
+            # could afford
+            n_bins = spill.auto_bins(self._distinct_est, self._num_pes,
+                                     self._store_cap, cfg.store_slack)
+        meta = {"transport": cfg.transport_impl, "k": cfg.k,
+                "bits_per_symbol": cfg.bits_per_symbol,
+                "canonical": cfg.canonical,
+                "minimizer_len": cfg.minimizer_len,
+                "minimizer_order": cfg.minimizer_order}
+        self._spill = spill.SpillWriter(
+            cfg.spill_dir, n_bins, meta=meta,
+            flush_bytes=cfg.spill_flush_bytes, fault=self._spill_fault())
+        if self._store is not None:
+            keys = self._store.keys.reshape(-1)
+            counts = self._store.counts.reshape(-1)
+            live = (keys != W.sentinel(self._wb)) & (counts > 0)
+            k_live = keys[live]
+            if k_live.numel():
+                bins = spill.bin_of(_ownership_keys(k_live, cfg), n_bins,
+                                    _ownership_word_bits(cfg))
+                self._spill.add_pairs(bins.cpu().numpy(),
+                                      W.to_numpy_words(k_live, self._wb),
+                                      counts[live].cpu().numpy())
+            del keys, counts, live, k_live
+            self._spill.commit()
+        # the tier owns the counts now: release the pressured store
+        self._store_cap = self._SPILL_STORE_CAP
+        self._alloc_store()
+
+    def _absorb_spill(self, host_lanes, mode: str) -> None:
+        """Hand one chunk's host lanes to the writer as numpy, without the
+        tile padding (length 0 or count 0)."""
+        if mode == "superkmer":
+            words, lengths, bins = host_lanes
+            lengths = lengths.numpy()
+            live = lengths > 0
+            self._spill.add_superkmers(
+                bins.numpy()[live], W.to_numpy_words(words, self._wb)[live],
+                lengths[live])
+        else:
+            kmers, cnts, bins = host_lanes
+            cnts = cnts.numpy()
+            live = cnts > 0
+            self._spill.add_pairs(bins.numpy()[live],
+                                  W.to_numpy_words(kmers, self._wb)[live],
+                                  cnts[live])
+
+    def _spill_update(self, reads: torch.Tensor) -> DAKCStats:
+        """The partition phase's update: each chunk's exchange runs on the
+        card as in core (hop 2 padded, no compaction), its receive lanes
+        get their bins there (`_spill_lanes`) and stream to the host
+        through the bounded copier into bin segments. Nothing enters the
+        manifest until the whole batch routed cleanly (a routing overflow
+        aborts the pending segments and replays at doubled slack), so a
+        replay never spills twice."""
+        cfg, p = self._cfg, self._num_pes
+        w = self._spill
+        chunks = _chunked(_split(reads, p), cfg.chunk_reads)
+        shape = tuple(reads.shape)
+        ctrl = resilience.RetryController(
+            cfg.retry, slack=self._slack,
+            store_cap=self._store_cap or self._SPILL_STORE_CAP,
+            hop2_padded=True, history=self._rounds)
+        while True:
+            w.begin_batch()
+            mode, cap_n, cap_h = _plan_caps(cfg, p, shape, ctrl.slack)
+            copier = spill.AsyncHostCopier(cfg.spill_host_budget_bytes)
+
+            def sink(recv):
+                lanes = _spill_lanes(recv, cfg=cfg, mode=mode,
+                                     n_bins=w.n_bins)
+                for host in copier.submit(lanes):
+                    self._absorb_spill(host, mode)
+
+            _, fold_stats = _stream_fold(
+                chunks, None, cfg=cfg, num_pes=p, cap_n=cap_n, cap_h=cap_h,
+                mode=mode, grid=self._grid, sink=sink,
+                fault=resilience.active_trace_fault(cfg.faults,
+                                                    ctrl.attempts))
+            for host in copier.drain():
+                self._absorb_spill(host, mode)
+            raw_stats = _round_stats(
+                p, torch.zeros((p,), dtype=torch.int32, device=reads.device),
+                fold_stats)
+            stats = _host_stats(raw_stats)
+            if not ctrl.observe(route_dropped=stats.overflow,
+                                hop2_dropped=stats.hop2_dropped):
+                w.commit()             # seal this batch into the manifest
+                break
+            w.abort_batch()            # its pending segments die with it
+        self._slack = ctrl.slack
+        self._rounds = ctrl.rounds
+        for cause, n in ctrl.counts.items():
+            self._retries[cause] += n
+        self._n_updates += 1
+        self._raw += stats.raw_kmers
+        self._sent += stats.sent_words
+        self._wire_bytes += int(stats.wire_bytes)
+        self._add_fill(raw_stats[6])
+        self._publish()
+        stats = stats._replace(spilled_bins=w.spilled_bins,
+                               spilled_bytes=w.spilled_bytes,
+                               bins_folded=self._bins_folded)
+        return _stamp_retries(stats, ctrl.counts)
+
+    def _bin_pairs(self, b: int, segments=None):
+        """One bin's committed records as (keys, int32 counts) on the
+        card, or None for an empty bin: the segment files are read (and
+        checked) on the host, then decoded on the card, super-k-mer slots
+        back to their k-mers. `segments` pins the manifest view (a
+        snapshot's `spill_state['segments']`); None reads the live one."""
+        cfg, dev = self._cfg, self._dev
+        keys_l, cnts_l = [], []
+        for kind, arrays in self._spill.read_bin(b, segments=segments):
+            if kind == "pairs":
+                keys_l.append(W.to_torch_words(arrays["keys"], dev)[0])
+                cnts_l.append(torch.from_numpy(
+                    arrays["counts"].astype(np.int32)).to(dev))
+                continue
+            words = W.to_torch_words(arrays["words"], dev)[0]
+            lengths = torch.from_numpy(
+                arrays["lengths"].astype(np.int32)).to(dev)
+            kk, cc = minimizer.superkmer_to_kmers(
+                words, lengths, cfg.k, cfg.minimizer_len,
+                cfg.bits_per_symbol, canonical=cfg.canonical,
+                canonical_impl=cfg.canonical_impl)
+            live = cc > 0
+            keys_l.append(kk[live])
+            cnts_l.append(cc[live])
+        if not keys_l:
+            return None
+        return torch.cat(keys_l), torch.cat(cnts_l)
+
+    def _drain_bins(self) -> Tuple[AccumResult, int]:
+        """The fold phase: each bin's records (checked on read ->
+        `spill.SpillCorrupt`) are routed to their owners and folded
+        (`_fold_pairs`), then sorted into per-PE histograms; each PE's
+        runs of all bins, sorted in the words' unsigned order, make the
+        usual AccumResult. Bins partition k-mer space, so this is the
+        exact histogram. It runs at this counter's PE count: a spilled run
+        restored onto another P drains there."""
+        p = self._num_pes
+        sent = W.sentinel(self._wb)
+        total_bits = encoding.kmer_bits(self._cfg.k,
+                                        self._cfg.bits_per_symbol)
+        shard_u = [[] for _ in range(p)]
+        shard_c = [[] for _ in range(p)]
+        folded = 0
+        for b in range(self._spill.n_bins):
+            pairs = self._bin_pairs(b)
+            if pairs is None:
+                continue
+            store, _ = self._fold_pairs(*pairs)
+            del pairs
+            res = countstore.store_histogram(store, total_bits=total_bits,
+                                             impl=self._cfg.phase2_impl)
+            del store
+            for s, n in enumerate(res.num_unique.tolist()):
+                shard_u[s].append(res.unique[s, :n].clone())
+                shard_c[s].append(res.counts[s, :n].clone())
+            del res
+            folded += 1
+        width = max([sum(x.numel() for x in shard_u[s]) for s in range(p)]
+                    + [1])
+        out_u = torch.full((p, width), sent, dtype=torch.int64,
+                           device=self._dev)
+        out_c = torch.zeros((p, width), dtype=torch.int32, device=self._dev)
+        out_n = torch.zeros((p,), dtype=torch.int32, device=self._dev)
+        for s in range(p):
+            if not shard_u[s]:
+                continue
+            uu, cc = sort_with_weights(torch.cat(shard_u[s])[None, :],
+                                       torch.cat(shard_c[s])[None, :])
+            n = uu.shape[1]
+            out_u[s, :n] = uu[0]
+            out_c[s, :n] = cc[0]
+            out_n[s] = n
+        return AccumResult(unique=out_u.reshape(-1),
+                           counts=out_c.reshape(-1), num_unique=out_n), folded
+
     def finalize(self) -> Tuple[AccumResult, DAKCStats]:
         """Sort the store into the per-PE histogram (callable more than
-        once; updates may follow). The stats are the lifetime totals."""
+        once; updates may follow). With the spill tier engaged this is the
+        drain (`_drain_bins`), in the same layout. The stats are the
+        lifetime totals."""
+        lmm, p99 = (_imbalance(self._fill) if self._fill is not None
+                    else (0.0, 0))
+        stats = DAKCStats(
+            overflow=0, sent_words=self._sent,
+            wire_bytes=np.int64(self._wire_bytes), raw_kmers=self._raw,
+            num_global_syncs=3, store_overflow=0, load_max_over_mean=lmm,
+            owner_fill_p99=p99)
+        if self._spill is not None:
+            result, folded = self._drain_bins()
+            self._bins_folded = folded
+            stats = stats._replace(spilled_bins=self._spill.spilled_bins,
+                                   spilled_bytes=self._spill.spilled_bytes,
+                                   bins_folded=folded)
+            return result, _stamp_retries(stats, self._retries)
         if self._store is None:
             raise RuntimeError("KmerCounter.finalize before any update")
         result = countstore.store_histogram(
@@ -1091,26 +1447,36 @@ class KmerCounter:
             total_bits=encoding.kmer_bits(self._cfg.k,
                                           self._cfg.bits_per_symbol),
             impl=self._cfg.phase2_impl)
-        lmm, p99 = _imbalance(self._fill)
-        stats = DAKCStats(
-            overflow=0, sent_words=self._sent,
-            wire_bytes=np.int64(self._wire_bytes), raw_kmers=self._raw,
-            num_global_syncs=3, store_overflow=0, load_max_over_mean=lmm,
-            owner_fill_p99=p99)
         return _flat(result), _stamp_retries(stats, self._retries)
 
     def count(self, kmers) -> np.ndarray:
         """Per-query occurrence counts from the last committed store, in
         request order (0 = never counted): (n,) packed words or (n, k) base
         codes (`query.pack_queries`). Read only; the batch's
-        `query.QueryStats` lands in `last_query_stats`."""
+        `query.QueryStats` lands in `last_query_stats`.
+
+        A committed generation with the spill tier engaged is served by the
+        spilled-bin tier (`query.query_spilled_counts`: the resident store,
+        then each touched bin folded on demand into a byte-bounded LRU),
+        or, under `spill_query='refuse'`, refused with
+        `query.QueryUnavailable`. The dispatch reads the committed
+        snapshot, not the live tier: an engage whose first spilled batch
+        died leaves the committed histogram in core."""
         from repro_torch.core import query
         snap = self._committed
         if snap is None:
             raise RuntimeError("KmerCounter.count before any update")
-        counts, stats = query.query_counts(kmers, self._cfg, snap,
-                                           num_pes=self._num_pes,
-                                           grid=self._grid)
+        if snap.spill_state is not None:
+            if self._cfg.spill_query == "refuse":
+                raise query.QueryUnavailable(
+                    "the counter's committed generation has an engaged "
+                    "spill tier and cfg.spill_query='refuse' opts out of "
+                    "the spilled-bin query tier's on-demand folds")
+            counts, stats = query.query_spilled_counts(self, snap, kmers)
+        else:
+            counts, stats = query.query_counts(kmers, self._cfg, snap,
+                                               num_pes=self._num_pes,
+                                               grid=self._grid)
         self.last_query_stats = stats
         return counts
 
@@ -1118,12 +1484,189 @@ class KmerCounter:
         """Batched membership: `count(kmers) > 0`, request order."""
         return self.count(kmers) > 0
 
-    def save(self, *args, **kwargs):
-        """Not ported yet; with it, FaultPlan site 'ckpt_write'."""
-        raise NotImplementedError(
-            f"KmerCounter.save is not ported yet: {_ITEM10}")
+    # --- durability ----------------------------------------------------------
+
+    def save(self, ckpt_dir: Optional[str] = None, step: int = 0, *,
+             saver=None, keep: int = 3):
+        """Checkpoint the committed store and every sticky knob.
+
+        The store goes as the JAX package's flat (P * cap,) uint32/uint64
+        keys and int32 counts, through `train.checkpoint`: staged, then
+        renamed, so a crash mid-write (or an armed
+        `FaultPlan(site='ckpt_write')`) leaves the latest complete
+        checkpoint as it was. Pass `ckpt_dir` for a blocking save (returns
+        the checkpoint's directory) or `saver=AsyncSaver(...)` to write on
+        its thread (returns None; its `wait()` raises a failed write)."""
+        if self._store is None:
+            raise RuntimeError("KmerCounter.save before any update")
+        if (ckpt_dir is None) == (saver is None):
+            raise ValueError("pass exactly one of ckpt_dir / saver")
+        from repro_torch.train import checkpoint as ckpt_lib
+        trees = {"store": {
+            "keys": W.to_numpy_words(self._store.keys.reshape(-1), self._wb),
+            "counts": self._store.counts.reshape(-1).cpu().numpy()}}
+        extra = {
+            "format": 1,
+            "fingerprint": _cfg_fingerprint(self._cfg),
+            "ownership": _ownership_tag(self._cfg),
+            "num_pes": self._num_pes,
+            "store_cap": self._store_cap,
+            "slack": self._slack,
+            "hop2_padded": self._hop2_padded,
+            "raw": self._raw,
+            "sent": self._sent,
+            "wire_bytes": self._wire_bytes,
+            "n_updates": self._n_updates,
+            "distinct_est": self._distinct_est,
+            "retries": dict(self._retries),
+            # a run killed mid-spill restores with the checkpoint's view of
+            # the committed bins, and a give-up after the restore shows the
+            # rounds before it
+            "rounds": resilience.rounds_to_json(self._rounds),
+            "spill": None if self._spill is None else self._spill.state(),
+        }
+        if saver is not None:
+            saver.save(step, trees, extra=extra)
+            return None
+        plan = self._cfg.faults
+        fault = plan if (plan is not None
+                         and plan.site == "ckpt_write") else None
+        return ckpt_lib.save(ckpt_dir, step, trees, extra=extra, keep=keep,
+                             fault=fault)
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        raise NotImplementedError(
-            f"KmerCounter.restore is not ported yet: {_ITEM10}")
+    def restore(cls, ckpt_dir: str, cfg: DAKCConfig, *, num_pes: int,
+                grid=None, device=None,
+                step: Optional[int] = None) -> "KmerCounter":
+        """Rebuild a counter mid-stream from a checkpoint (the latest
+        complete step unless `step` is given), on `device` (None: the
+        card).
+
+        With the saved PE count and ownership family (transport, minimizer
+        length and order), the store loads in place. Otherwise this is an
+        elastic reshard: every live (key, count) entry is routed to its
+        owner under `num_pes` in one `route_lanes` exchange and folded
+        into a fresh store (`_fold_pairs`); counts merge exactly. `cfg`
+        must match the saved fingerprint (k, bits_per_symbol, canonical),
+        else `ValueError`. A checkpoint with the spill tier engaged needs
+        a spill cfg and the bins' `spill_dir`; its manifest is attached,
+        and segment files it does not list are deleted."""
+        from repro_torch.train import checkpoint as ckpt_lib
+        if step is None:
+            step = ckpt_lib.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no complete checkpoint under {ckpt_dir}")
+        wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
+        dt = np.uint64 if wb == 64 else np.uint32
+        templates = {"store": {"keys": np.zeros(0, dt),
+                               "counts": np.zeros(0, np.int32)}}
+        trees, extra = ckpt_lib.restore(ckpt_dir, step, templates)
+        saved_fp = extra["fingerprint"]
+        want_fp = _cfg_fingerprint(cfg)
+        if saved_fp != want_fp:
+            raise ValueError(
+                f"checkpoint fingerprint {saved_fp} is incompatible with "
+                f"cfg {want_fp}: the stored words would be reinterpreted")
+        self = cls(cfg, num_pes=num_pes, grid=grid, device=device)
+        self._raw = int(extra["raw"])
+        self._sent = int(extra["sent"])
+        self._wire_bytes = int(extra["wire_bytes"])
+        self._n_updates = int(extra["n_updates"])
+        de = extra.get("distinct_est")
+        self._distinct_est = None if de is None else int(de)
+        saved_retries = extra.get("retries", {})
+        self._retries = {c: int(saved_retries.get(c, 0))
+                         for c in resilience.CAUSES}
+        self._slack = float(extra["slack"])
+        self._hop2_padded = bool(extra["hop2_padded"])
+        self._rounds = resilience.rounds_from_json(extra.get("rounds"))
+        sp = extra.get("spill")
+        if sp is not None:
+            if cfg.spill == "off" or cfg.spill_dir is None:
+                raise ValueError(
+                    "checkpoint has an engaged spill tier; restoring it "
+                    "needs a cfg with spill enabled and the spill_dir the "
+                    "bins live under")
+            # spill_bins=None adopts the checkpoint's partition; a pinned
+            # count must match it (bins partition k-mer space)
+            if (cfg.spill_bins is not None
+                    and int(sp["n_bins"]) != cfg.spill_bins):
+                raise ValueError(
+                    f"checkpoint spilled into {sp['n_bins']} bins; "
+                    f"cfg.spill_bins={cfg.spill_bins} would repartition "
+                    f"k-mer space mid-run")
+            self._spill = spill.SpillWriter.attach(
+                cfg.spill_dir, sp, flush_bytes=cfg.spill_flush_bytes,
+                fault=self._spill_fault())
+        keys_np = np.asarray(trees["store"]["keys"], dtype=dt)
+        counts_np = np.asarray(trees["store"]["counts"], dtype=np.int32)
+        if (num_pes == int(extra["num_pes"])
+                and extra["ownership"] == _ownership_tag(cfg)):
+            self._store_cap = int(extra["store_cap"])
+            self._store = countstore.store_from_numpy(
+                keys_np, counts_np, num_pes, device=self._dev)
+        else:
+            keys = W.to_torch_words(keys_np, self._dev)[0]
+            del keys_np
+            self._reshard_from(keys, torch.from_numpy(counts_np).to(self._dev))
+        self._publish()
+        return self
+
+    def _fold_pairs(self, keys: torch.Tensor, counts: torch.Tensor, *,
+                    store_cap: Optional[int] = None, sticky: bool = False):
+        """Route (key, count) records on the card to their owner PEs and
+        fold them into a fresh store: the one fold behind the elastic
+        restore (`_reshard_from`), the drain (`_drain_bins`) and the query
+        tier's bin folds.
+
+        The records, padded to P * n_local, go out in one `_reshard_round`;
+        an overflow on either side retries through `cfg.retry` as any round
+        does, each attempt into a fresh store. n_local and the default
+        store capacity are powers of two, as in the JAX package (a
+        restored `store_cap` rides the next checkpoint). `sticky=True`
+        keeps the controller's final slack (the restore); its rounds and
+        replays are recorded either way. Returns (store, store_cap)."""
+        p = self._num_pes
+        sent = W.sentinel(self._wb)
+        live = int(((keys != sent) & (counts > 0)).sum())
+        if store_cap is None:
+            store_cap = _pow2ceil(plan_capacity(max(live, 1), p,
+                                                self._cfg.store_slack))
+        n_local = _pow2ceil(max(1, -(-keys.shape[0] // p)))
+        gk = torch.full((p * n_local,), sent, dtype=torch.int64,
+                        device=keys.device)
+        gc = torch.zeros((p * n_local,), dtype=torch.int32,
+                         device=keys.device)
+        gk[:keys.shape[0]] = keys
+        gc[:counts.shape[0]] = counts
+        gk, gc = gk.view(p, n_local), gc.view(p, n_local)
+        ctrl = resilience.RetryController(
+            self._cfg.retry, slack=self._slack, store_cap=store_cap,
+            hop2_padded=True, history=self._rounds)
+        while True:
+            store_cap = ctrl.store_cap   # a fresh store each attempt
+            store, route_drop, store_drop = _reshard_round(
+                gk, gc, cfg=self._cfg, num_pes=p, grid=self._grid,
+                route_cap=plan_capacity(n_local, p, ctrl.slack),
+                store_cap=store_cap, word_bits=self._wb)
+            if not ctrl.observe(route_dropped=route_drop,
+                                store_dropped=store_drop):
+                break
+            del store
+        if sticky:
+            self._slack = ctrl.slack
+        self._rounds = ctrl.rounds
+        for cause, n in ctrl.counts.items():
+            self._retries[cause] += n
+        return store, store_cap
+
+    def _reshard_from(self, keys: torch.Tensor, counts: torch.Tensor) -> None:
+        """Re-route saved (key, count) entries onto this counter's
+        ownership (`_fold_pairs`) and commit the folded store."""
+        if self._store_cap is None:
+            live = int(((keys != W.sentinel(self._wb)) & (counts > 0)).sum())
+            self._store_cap = _pow2ceil(plan_capacity(
+                max(live, 1), self._num_pes, self._cfg.store_slack))
+        self._store, self._store_cap = self._fold_pairs(
+            keys, counts, store_cap=self._store_cap, sticky=True)

@@ -19,8 +19,16 @@ Both hops route at capacity n_local, the per-PE padded query count, the
 pow2 ceiling of nq / P: a sender has no more than n_local items, so no
 bucket overflows and a query never needs a retry round.
 
-The spilled-bin tier (`query_spilled_counts`, `BinShardCache`) comes with
-the spill tier, ROADMAP.md section 1 item 10.
+The spilled-bin tier (`query_spilled_counts`): a counter whose spill tier
+is engaged keeps its counts in disk bins beside a vestigial store, so a
+query runs in two stages. Stage 1 is the probe above against the
+snapshot's store. Stage 2 bins the query words by the writer's own key
+(`spill.bin_of` of the ownership word), folds each touched bin on demand
+through the counter's fold (`KmerCounter._fold_pairs`, the drain's
+engine), probes it the same way and adds the residuals. Folded bins live
+in a byte-bounded LRU (`BinShardCache`, `DAKCConfig.query_bin_cache_bytes`)
+versioned by the snapshot's segment list, so a later commit misses
+cleanly. Bins partition k-mer space, so the sum is the exact count.
 """
 
 from __future__ import annotations
@@ -31,14 +39,15 @@ import numpy as np
 import torch
 
 from repro_torch import words as W
-from repro_torch.core import aggregation, countstore, encoding, fabsp
+from repro_torch.core import aggregation, countstore, encoding, fabsp, spill
 from repro_torch.core.owner import owner_pe
 
 
 class QueryUnavailable(RuntimeError):
-    """The counter declines to serve its committed generation (raised by
-    the spilled-bin tier under `spill_query='refuse'`, which comes with the
-    spill tier)."""
+    """The counter declines to serve: its committed generation has an
+    engaged spill tier and the config opted out of the spilled-bin tier's
+    on-demand folds (`spill_query='refuse'`). Typed, so a serving harness
+    can refuse the tenant's requests and keep the others'."""
 
 
 class QueryStats(NamedTuple):
@@ -50,12 +59,58 @@ class QueryStats(NamedTuple):
     probe_max: int      # deepest single probe walk
     n_local: int        # per-PE padded query slots (the shape bucket)
     batch_fill: float   # n_queries / (n_local * P)
-    bins_probed: int = 0  # spilled-bin tier only: 0 in core
-    bin_folds: int = 0
+    bins_probed: int = 0  # spilled-bin tier: distinct disk bins probed
+    bin_folds: int = 0    # ... of which needed a fold (LRU misses)
 
     @property
     def probe_avg(self) -> float:
         return self.probe_sum / max(1, self.n_queries)
+
+
+class BinShardCache:
+    """Byte-bounded LRU of folded spill bins.
+
+    One entry per bin: the (P, cap) keys and counts its records folded
+    into, costing `P * cap * (word + int32)` bytes with the word at its
+    width in the store (4 bytes for k <= 16), as the JAX package charges:
+    the int64 carrier of a 32-bit word is not charged, so the same budget
+    evicts the same bins under either package. An entry is versioned
+    by the snapshot's segment files of that bin, so a later commit (new
+    segments) misses instead of serving a stale fold. Past `budget_bytes`
+    the oldest entries go, the newest always stays (a budget below one
+    bin still serves; every touch then folds again). `hits`, `misses`
+    and `evictions` count what happened."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget_bytes = int(budget_bytes)
+        self._entries = {}   # bin -> (version, keys, counts, nbytes)
+        self._order = []     # LRU order, oldest first
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, b: int, version):
+        e = self._entries.get(b)
+        if e is None or e[0] != version:
+            self.misses += 1
+            return None
+        self.hits += 1
+        self._order.remove(b)
+        self._order.append(b)
+        return e[1], e[2]
+
+    def put(self, b: int, version, keys: torch.Tensor,
+            counts: torch.Tensor, word_bits: int) -> None:
+        nbytes = keys.numel() * (word_bits // 8 + counts.element_size())
+        if b in self._entries:
+            self._order.remove(b)
+        self._entries[b] = (version, keys, counts, nbytes)
+        self._order.append(b)
+        total = sum(e[3] for e in self._entries.values())
+        while total > self.budget_bytes and len(self._order) > 1:
+            oldest = self._order.pop(0)
+            total -= self._entries.pop(oldest)[3]
+            self.evictions += 1
 
 
 def pack_queries(kmers, cfg, device=None) -> torch.Tensor:
@@ -146,3 +201,71 @@ def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
         wire_bytes=p * (rr.wire_bytes + rr2.wire_bytes), probe_sum=psum,
         probe_max=pmax, n_local=n_local, batch_fill=nq / (n_local * p))
     return out[:, :n_local].reshape(-1)[:nq].cpu().numpy(), stats
+
+
+def query_spilled_counts(kc, snap: countstore.StoreSnapshot, kmers
+                         ) -> Tuple[np.ndarray, QueryStats]:
+    """Two-stage lookup against a spill-engaged generation `snap` of the
+    counter `kc` (its cfg, PEs, fold and bin cache). Returns (counts,
+    QueryStats) as `query_counts` does: request order, exact for any
+    batch.
+
+    Stage 1 probes the snapshot's resident store. Stage 2 bins the query
+    words with the writer's key (`spill.bin_of` of
+    `fabsp._ownership_keys`: under the super-k-mer transport a k-mer's
+    recomputed minimizer is the minimizer its super-k-mer was binned by),
+    folds each touched bin of the snapshot's manifest view (`BinShardCache`,
+    else `kc._fold_pairs` of `kc._bin_pairs`), probes the queries that
+    bin owns, and adds the residuals."""
+    cfg, p, grid = kc._cfg, kc._num_pes, kc._grid
+    dev = snap.keys.device
+    words = pack_queries(kmers, cfg, dev)
+    nq = int(words.shape[0])
+    counts, stats = query_counts(words, cfg, snap, num_pes=p, grid=grid)
+    counts = counts.copy()       # residuals accumulate in place
+    sp = snap.spill_state
+    n_bins = int(sp["n_bins"])
+    by_bin = {}
+    for seg in sp["segments"]:
+        by_bin.setdefault(int(seg["bin"]), []).append(seg)
+    wire = stats.wire_bytes
+    probe_sum, probe_max = stats.probe_sum, stats.probe_max
+    bins_probed = bin_folds = 0
+    if nq and by_bin:
+        cache = kc._bin_cache
+        if cache is None or cache.budget_bytes != cfg.query_bin_cache_bytes:
+            cache = kc._bin_cache = BinShardCache(cfg.query_bin_cache_bytes)
+        qbins = spill.bin_of(fabsp._ownership_keys(words, cfg), n_bins,
+                             fabsp._ownership_word_bits(cfg)).cpu().numpy()
+        for b in np.unique(qbins):
+            segs = by_bin.get(int(b))
+            if not segs:
+                continue         # no committed records: the residual is 0
+            version = tuple(s["file"] for s in segs)
+            shard = cache.get(int(b), version)
+            if shard is None:
+                pairs = kc._bin_pairs(int(b), segments=segs)
+                if pairs is None:
+                    continue
+                store, _ = kc._fold_pairs(*pairs)
+                del pairs
+                shard = (store.keys, store.counts)
+                cache.put(int(b), version, *shard, snap.word_bits)
+                bin_folds += 1
+            idx = np.nonzero(qbins == b)[0]
+            sub, sstats = query_counts(
+                words[torch.from_numpy(idx).to(dev)], cfg,
+                countstore.StoreSnapshot(
+                    gen=snap.gen, keys=shard[0], counts=shard[1],
+                    store_cap=shard[0].shape[1], word_bits=snap.word_bits),
+                num_pes=p, grid=grid)
+            counts[idx] += sub
+            wire += sstats.wire_bytes
+            probe_sum += sstats.probe_sum
+            probe_max = max(probe_max, sstats.probe_max)
+            bins_probed += 1
+    return counts, QueryStats(
+        n_queries=nq, n_hits=int((counts > 0).sum()), wire_bytes=wire,
+        probe_sum=probe_sum, probe_max=probe_max, n_local=stats.n_local,
+        batch_fill=stats.batch_fill, bins_probed=bins_probed,
+        bin_folds=bin_folds)

@@ -1,5 +1,5 @@
 """The retry engine of the counting path and its fault injection
-(counterpart of `repro.core.resilience`, without the disk sites' drills).
+(counterpart of `repro.core.resilience`).
 
 `RetryPolicy` holds the per-cause caps, growth factors and the total round
 budget; `RetryController` holds the state of one call: the call site runs an
@@ -20,9 +20,14 @@ fault at a named site:
   falls back to the padded tile;
 - 'update_fail': raise `InjectedFault` from the Nth `KmerCounter.update`
   before anything commits;
-- 'ckpt_write', 'spill_write', 'bin_corrupt': the checkpoint and spill
-  drills, whose targets (`KmerCounter.save`, the spill tier) are not
-  ported yet (ROADMAP.md section 1, item 10).
+- 'ckpt_write': tear a leaf file of `KmerCounter.save` after
+  `fail_after` complete leaves and raise `InjectedFault` before the
+  checkpoint's rename;
+- 'spill_write': tear the spill tier's segment write after `fail_after`
+  complete writes and raise `InjectedFault` (nothing enters the
+  manifest);
+- 'bin_corrupt': flip bytes in a sealed segment of bin `bin` once it is
+  committed, so the drain or a query raises `spill.SpillCorrupt`.
 
 A fault that stops firing after `rounds` attempts lets the retry engine
 recover the fault-free histogram; a persistent one drives the give-ups.
@@ -143,7 +148,8 @@ class RehashInvariantBroken(RetryError):
 
 
 class InjectedFault(RuntimeError):
-    """Raised by the host-side fault sites ('update_fail')."""
+    """Raised by the host-side fault sites ('update_fail', 'ckpt_write',
+    'spill_write')."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +167,9 @@ class FaultPlan:
     rounds:     how many attempts of one call or batch the fault fires for;
                 1 faults the first round only, a large value persists.
     update_n:   'update_fail' only: which `KmerCounter.update` call dies.
-    fail_after: 'ckpt_write' / 'spill_write' only (not ported yet).
-    bin:        'bin_corrupt' only (not ported yet).
+    fail_after: 'ckpt_write' / 'spill_write' only: complete leaf or
+                segment writes before the torn one.
+    bin:        'bin_corrupt' only: the bin whose sealed segment is hit.
     """
     site: str
     seed: int = 0
@@ -319,3 +326,17 @@ class RetryController:
         if HOP2_FALLBACK in causes:
             self.hop2_padded = True
         return tuple(causes)
+
+
+def rounds_to_json(rounds: Iterable[RetryRound]) -> List[list]:
+    """Round history as JSON-serializable lists (checkpoint `extra`)."""
+    return [list(r) for r in rounds]
+
+
+def rounds_from_json(data) -> List[RetryRound]:
+    """Inverse of `rounds_to_json` (`causes` back to a tuple)."""
+    out = []
+    for row in data or []:
+        r = RetryRound(*row)
+        out.append(r._replace(causes=tuple(r.causes)))
+    return out

@@ -11,6 +11,7 @@ stream, sorted and accumulated on its own.
   run-total kernel once, compacting in it; 'segment_sum' is the two-pass
   oracle, whose run-start flags come from a tensor expression or the
   boundary kernel.
+- `merge_accum`: two accumulated results merged into one.
 
 Words are int64 (see `repro_torch.words`). The radix passes read logical
 digits and the oracle sorts in unsigned order, so both see the same order
@@ -144,3 +145,39 @@ def accumulate(sorted_keys: torch.Tensor,
         < num_unique[:, None]
     counts = torch.where(live, counts, 0).to(torch.int32)
     return AccumResult(unique=unique, counts=counts, num_unique=num_unique)
+
+
+def merge_accum(a: AccumResult, b: AccumResult, *, sentinel_val: int,
+                impl: str = "radix",
+                total_bits: Optional[int] = None) -> AccumResult:
+    """Merge two accumulated results into one (the serving path's merge of
+    per-shard outputs): concatenate each row's keys and counts, sort, and
+    accumulate again. Takes (n,) results, as the JAX package's, or stacked
+    (P, n) rows, merged row by row.
+
+    'radix' (default) runs the partition and run-sweep kernels (rows 1-3
+    on the card); `total_bits` defaults to the words' full width, which
+    the sentinel gives (0xFFFFFFFF: 32, -1: 64). 'argsort' is the
+    comparison-sort oracle, in the words' unsigned order. Bit-identical
+    results."""
+    flat = a.unique.dim() == 1
+    keys = torch.cat([a.unique, b.unique], -1)
+    w = torch.cat([a.counts, b.counts], -1)
+    if flat:
+        keys, w = keys[None, :], w[None, :]
+    if impl == "radix":
+        if total_bits is None:
+            total_bits = 32 if sentinel_val == W.sentinel(32) else 64
+        keys, w = sort_with_weights(keys, w, impl="radix",
+                                    total_bits=total_bits,
+                                    sentinel_val=sentinel_val)
+        out = accumulate(keys, w, sentinel_val=sentinel_val, impl="fused")
+    elif impl == "argsort":
+        keys, w = sort_with_weights(keys, w)
+        out = accumulate(keys, w, sentinel_val=sentinel_val)
+    else:
+        raise ValueError(f"unknown merge impl {impl!r}")
+    if flat:
+        return AccumResult(unique=out.unique[0], counts=out.counts[0],
+                           num_unique=out.num_unique[0])
+    return out

@@ -61,3 +61,76 @@ def run_jax_many(tmp_dir, jobs: dict, inputs=None, **kw) -> dict:
                                   x64=x64, **kw)
                 for name, (body, x64) in jobs.items()}
         return {name: f.result() for name, f in futs.items()}
+
+
+# Helpers of the durability, spill and serving tests (test_torch_checkpoint,
+# test_torch_spill, test_torch_durability, test_torch_serve).
+
+JAX_HELPERS = """
+import json
+from jax.sharding import Mesh
+
+def put(key, tup):
+    O[key] = np.array([float(x) for x in tup], np.float64)
+
+def res_out(key, res):
+    O[key + "_u"], O[key + "_c"] = res.unique, res.counts
+    O[key + "_n"] = res.num_unique
+
+def mesh_of(p, grid=None):
+    if grid is None:
+        return Mesh(np.array(jax.devices()[:p]), ("pe",)), ("pe",)
+    return (Mesh(np.array(jax.devices()[:p]).reshape(grid), ("row", "col")),
+            ("row", "col"))
+"""
+
+
+def assert_stats(got, want):
+    """A port stats NamedTuple against the JAX one `put` saved."""
+    assert len(got) == len(want)
+    for field, g, w in zip(got._fields, got, want):
+        assert float(g) == w, field
+
+
+def assert_result(res, word_bits, jax_out, key):
+    """A port AccumResult against the JAX one `res_out` saved."""
+    from repro_torch import words as W
+    np.testing.assert_array_equal(W.to_numpy_words(res.unique, word_bits),
+                                  jax_out[key + "_u"])
+    np.testing.assert_array_equal(res.counts.cpu().numpy(),
+                                  jax_out[key + "_c"])
+    np.testing.assert_array_equal(res.num_unique.cpu().numpy(),
+                                  jax_out[key + "_n"])
+
+
+def histogram(res, num_pes) -> dict:
+    """{word: count} of a port AccumResult of `num_pes` PEs."""
+    import torch
+    L = res.unique.numel() // num_pes
+    live = torch.arange(L)[None, :] < res.num_unique[:, None]
+    return dict(zip(res.unique.view(num_pes, L)[live].tolist(),
+                    res.counts.view(num_pes, L)[live].tolist()))
+
+
+def segments_of(spill_dir) -> list:
+    """The committed segments of a spill directory's manifest, without the
+    CRC (np.savez stamps each zip entry with the time)."""
+    import json
+    with open(os.path.join(str(spill_dir), "manifest.json")) as f:
+        man = json.load(f)
+    return [{k: v for k, v in s.items() if k != "crc"}
+            for s in man["segments"]]
+
+
+def assert_same_segments(dir_a, dir_b):
+    """Two spill directories list the same segments (bin, kind, n, bytes,
+    file name) and hold the same arrays in each."""
+    sa, sb = segments_of(dir_a), segments_of(dir_b)
+    assert sa == sb
+    for seg in sa:
+        with np.load(os.path.join(str(dir_a), seg["file"])) as za, \
+                np.load(os.path.join(str(dir_b), seg["file"])) as zb:
+            assert sorted(za.files) == sorted(zb.files)
+            for name in za.files:
+                assert za[name].dtype == zb[name].dtype, name
+                np.testing.assert_array_equal(za[name], zb[name])

@@ -1,6 +1,16 @@
 """The port stands alone: it imports no JAX and nothing of `repro`, runs on
 the card unless the caller asks for the CPU, refuses what is outside its
-slice, and `chip_smoke.py` fails without a card or without the repo."""
+slice, and `chip_smoke.py` fails without a card or without the repo.
+
+Three tests keep the names they had while the port refused spill, save
+and restore, and now check that those settings run:
+- `test_settings_outside_the_slice_raise[spill]`: `count_kmers` under
+  spill='auto' engages the tier and is exact;
+- `test_spill_fault_sites_are_refused_by_validation`: the spill fault
+  sites are refused without spill (its ValueError half) and fire with it;
+- `test_counter_durability_and_spill_raise_item_10[spill|faults|save]`:
+  a spilled counter restores from its checkpoint, a 'ckpt_write' plan
+  fires in `save`, and a saved counter restores in place."""
 
 import os
 import re
@@ -35,7 +45,7 @@ import repro_torch
 from repro_torch import words
 from repro_torch.core import (aggregation, bsp, countstore, encoding, fabsp,
                               minimizer, owner, query, resilience, serial,
-                              sort)
+                              sort, spill)
 from repro_torch.data import genome
 from repro_torch.kernels import build, hash_table, ops, radix_partition, ref
 from repro_torch.kernels import minimizer as kminimizer
@@ -43,7 +53,8 @@ from repro_torch.kernels import flash_attention, segment_count
 from repro_torch.kernels import kmer_extract, radix_hist
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data import tokens
-from repro_torch.launch import train
+from repro_torch.launch import kc_serve, train
+from repro_torch.train import checkpoint
 from repro_torch.models import attention, convert, layers, model
 from repro_torch.train import optimizer, train_step
 out = train.train("qwen1.5-0.5b", reduced=True, steps=2, batch=2, seq=16,
@@ -77,6 +88,7 @@ assert st2.retry_hop2_fallback == 1 and torch.equal(res2.counts.sum(),
 res3, st3 = bsp.count_kmers(reads, bsp.BSPConfig(k=13, batch_reads=8),
                             num_pes=2, device="cpu")
 assert int(res3.counts.sum()) == st.raw_kmers and st3.num_global_syncs == 5
+kc_serve.run_demo(device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -147,13 +159,25 @@ def test_attention_with_a_kv_cache_raises():
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(spill="auto", spill_dir="unused"),
+    dict(spill="auto", store_capacity=8),
 ], ids=lambda d: next(iter(d)))
-def test_settings_outside_the_slice_raise(knobs):
-    cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, **knobs)
-    reads = torch.zeros((16, 30), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fabsp.count_kmers(reads, cfg, num_pes=1, device="cpu")
+def test_settings_outside_the_slice_raise(knobs, tmp_path):
+    """Named for when spill raised: spill='auto' now runs through
+    count_kmers exactly (a store of 8 slots engages the tier)."""
+    from repro_torch.core import resilience, serial
+    from repro_torch.data import genome
+
+    cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, spill_dir=str(tmp_path),
+                           retry=resilience.RetryPolicy(store_cap_ceiling=8),
+                           **knobs)
+    reads = genome.sample_reads(genome.ReadSetSpec(
+        genome_bases=512, n_reads=16, read_len=30, seed=1))
+    res, st = fabsp.count_kmers(reads, cfg, num_pes=1, device="cpu")
+    want = serial.count_kmers_serial(torch.from_numpy(reads), 13)
+    n = int(res.num_unique[0])
+    assert torch.equal(res.unique[:n], want.unique[0, :n])
+    assert torch.equal(res.counts[:n], want.counts[0, :n])
+    assert st.spilled_bins >= 1 and st.bins_folded == st.spilled_bins
 
 
 @pytest.mark.parametrize("grid", [None, (2, 3), (3, 2), (0, 6)],
@@ -188,33 +212,58 @@ def test_compact_hop2_under_1d_equals_padded():
     assert torch.equal(pres.unique, cres.unique) and pst == cst
 
 
-def test_spill_fault_sites_are_refused_by_validation():
-    from repro_torch.core import resilience
+def test_spill_fault_sites_are_refused_by_validation(tmp_path):
+    """Named for when every spill site was refused: without spill they
+    still are; with it they fire, a torn segment write raising
+    InjectedFault and a corrupted bin SpillCorrupt."""
+    from repro_torch.core import resilience, spill
 
-    for site in ("spill_write", "bin_corrupt"):
+    reads = torch.randint(0, 4, (16, 30), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(0))
+    for site, raised in (("spill_write", resilience.InjectedFault),
+                         ("bin_corrupt", spill.SpillCorrupt)):
         with pytest.raises(ValueError, match="spill"):
             fabsp.DAKCConfig(k=13, faults=resilience.FaultPlan(site))
-        cfg = fabsp.DAKCConfig(k=13, spill="auto", spill_dir="unused",
+        cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, spill="auto",
+                               spill_dir=str(tmp_path / site), spill_bins=1,
+                               store_capacity=8,
+                               retry=resilience.RetryPolicy(
+                                   store_cap_ceiling=8),
                                faults=resilience.FaultPlan(site))
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fabsp.count_kmers(torch.zeros((16, 30), dtype=torch.uint8), cfg,
-                              num_pes=1, device="cpu")
+        with pytest.raises(raised):
+            fabsp.count_kmers(reads, cfg, num_pes=1, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["spill", "faults", "save"])
-def test_counter_durability_and_spill_raise_item_10(case):
-    """'faults': a 'ckpt_write' plan counts as usual and reaches the save
-    refusal, as its site fires only in `save`."""
+def test_counter_durability_and_spill_raise_item_10(case, tmp_path):
+    """Named for when durability and spill raised; they now run: 'spill'
+    counts out of core and restores from its checkpoint; 'faults', a
+    'ckpt_write' plan, counts as usual and fires in `save`, leaving no
+    checkpoint; 'save' restores the counter in place."""
     from repro_torch.core import resilience
+    from repro_torch.train import checkpoint
 
-    knobs = {"spill": dict(spill="always", spill_dir="unused"),
+    knobs = {"spill": dict(spill="always", spill_dir=str(tmp_path / "bins")),
              "faults": dict(faults=resilience.FaultPlan("ckpt_write")),
              "save": {}}[case]
     cfg = fabsp.DAKCConfig(k=13, chunk_reads=8, **knobs)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        kc = fabsp.KmerCounter(cfg, num_pes=1, device="cpu")
-        kc.update(torch.zeros((16, 30), dtype=torch.uint8))
-        kc.save("unused")
+    reads = torch.randint(0, 4, (16, 30), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(1))
+    kc = fabsp.KmerCounter(cfg, num_pes=1, device="cpu")
+    kc.update(reads)
+    res, st = kc.finalize()
+    assert int(res.counts.sum()) == st.raw_kmers == 16 * 18
+    ck = str(tmp_path / "ckpt")
+    if case == "faults":
+        with pytest.raises(resilience.InjectedFault):
+            kc.save(ck)
+        assert checkpoint.latest_step(ck) is None
+        return
+    kc.save(ck)
+    kc2 = fabsp.KmerCounter.restore(ck, cfg, num_pes=1, device="cpu")
+    res2, _ = kc2.finalize()
+    assert torch.equal(res2.unique, res.unique)
+    assert torch.equal(res2.counts, res.counts)
 
 
 def test_config_validation_matches_jax():

@@ -103,6 +103,43 @@ def test_accumulate_fused_compacts_as_segment_sum_k13(weighted):
         assert int(got.num_unique[r]) == int(want.num_unique)
 
 
+def _acc_rows(words, seed):
+    """(unique, counts, num_unique) rows of weighted sorted words."""
+    sw = np.sort(words, axis=1)
+    wts = np.random.default_rng(seed).integers(1, 9, size=sw.shape,
+                                               dtype=np.int32)
+    return sw, wts
+
+
+@pytest.mark.parametrize("impl", ["radix", "argsort"])
+def test_merge_accum_matches_jax_k13(impl):
+    """Two accumulated results merged, flat (n,) as the JAX package's and
+    as stacked rows."""
+    sa, wa = _acc_rows(W13, 3)
+    sb, wb = _acc_rows(W13[::-1].copy(), 4)
+    ta = sort.accumulate(W.to_torch_words(sa)[0], _t(wa),
+                         sentinel_val=SENT32)
+    tb = sort.accumulate(W.to_torch_words(sb)[0], _t(wb),
+                         sentinel_val=SENT32)
+    rows = sort.merge_accum(ta, tb, sentinel_val=SENT32, impl=impl)
+    for r in range(3):
+        ja, jb = (jsort.accumulate(jnp.asarray(s[r]), jnp.asarray(w[r]),
+                                   sentinel_val=SENT32)
+                  for s, w in ((sa, wa), (sb, wb)))
+        want = jsort.merge_accum(ja, jb, sentinel_val=SENT32, impl=impl)
+        pick = lambda t: sort.AccumResult(t.unique[r], t.counts[r],
+                                          t.num_unique[r])
+        flat = sort.merge_accum(pick(ta), pick(tb), sentinel_val=SENT32,
+                                impl=impl)
+        for got in (flat, pick(rows)):
+            _eq_words(got.unique, want.unique, 32)
+            np.testing.assert_array_equal(got.counts.numpy(),
+                                          np.asarray(want.counts))
+            assert int(got.num_unique) == int(want.num_unique)
+    with pytest.raises(ValueError):
+        sort.merge_accum(ta, tb, sentinel_val=SENT32, impl="sort")
+
+
 @pytest.mark.parametrize("impl", ["radix", "argsort"])
 def test_l3_compress_decompress_matches_jax_k13(impl):
     packed, valid = aggregation.l3_compress(W.to_torch_words(W13)[0], 13,
@@ -252,6 +289,21 @@ W21 = _words(np.random.default_rng(6), 3, 1200, 21, np.uint64, SENT64,
 ACC_W31 = np.random.default_rng(8).integers(1, 9, size=W31.shape,
                                             dtype=np.int32)
 
+
+def _merge_side(rng, pool, n, pad):
+    """One sorted accumulated result of 64-bit words: unique words of
+    `pool` (top bit set in half of it), weights, sentinel padding."""
+    u = np.sort(rng.choice(pool, size=n, replace=False))
+    c = rng.integers(1, 99, size=n).astype(np.int32)
+    return (np.concatenate([u, np.full(pad, SENT64, np.uint64)]),
+            np.concatenate([c, np.zeros(pad, np.int32)]), n)
+
+
+_POOL = np.random.default_rng(10).integers(0, 1 << 63, 600, dtype=np.uint64)
+_POOL[::2] |= np.uint64(1 << 63)
+MA = _merge_side(np.random.default_rng(11), _POOL, 300, 40)
+MB = _merge_side(np.random.default_rng(12), _POOL, 250, 90)
+
 _BODY64 = """
 from repro.core import aggregation, fabsp, sort
 sent = int(np.iinfo(np.uint64).max)
@@ -272,13 +324,26 @@ for r in range(3):
     O[f"packed{r}"], O[f"pvalid{r}"] = p, v
     k, c = aggregation.l3_decompress(p, 21)
     O[f"unk{r}"], O[f"unc{r}"] = k, c
+side = lambda t: sort.AccumResult(jnp.asarray(I[t + "_u"]),
+                                  jnp.asarray(I[t + "_c"]),
+                                  jnp.int32(I[t + "_n"]))
+for impl in ("radix", "argsort"):
+    m = sort.merge_accum(side("ma"), side("mb"), sentinel_val=sent,
+                         impl=impl)
+    O["merge_" + impl] = np.stack([np.asarray(m.unique).view(np.int64),
+                                   np.asarray(m.counts, np.int64)])
+    O["merge_" + impl + "_n"] = m.num_unique
 """
 
 
 @pytest.fixture(scope="module")
 def jax64(tmp_path_factory):
+    sides = {f"{t}_{f}": np.asarray(v) for t, side in (("ma", MA),
+                                                        ("mb", MB))
+             for f, v in zip("ucn", side)}
     return run_jax(tmp_path_factory.mktemp("sort64"), _BODY64,
-                   {"w31": W31, "w21": W21, "acc_w31": ACC_W31}, x64=True)
+                   {"w31": W31, "w21": W21, "acc_w31": ACC_W31, **sides},
+                   x64=True)
 
 
 def test_radix_sort_accumulate_matches_jax_k31(jax64):
@@ -330,3 +395,17 @@ def test_l3_compress_decompress_matches_jax_k21(jax64):
         np.testing.assert_array_equal(valid[r].numpy(), jax64[f"pvalid{r}"])
         _eq_words(km[r], jax64[f"unk{r}"], 64)
         np.testing.assert_array_equal(cnt[r].numpy(), jax64[f"unc{r}"])
+
+
+@pytest.mark.parametrize("impl", ["radix", "argsort"])
+def test_merge_accum_matches_jax_top_bit_words(jax64, impl):
+    """64-bit words with the top bit set merge in unsigned order: the
+    radix passes read all 64 bits, the oracle sorts on x ^ (1 << 63)."""
+    side = lambda s: sort.AccumResult(W.to_torch_words(s[0])[0], _t(s[1]),
+                                      torch.tensor(s[2], dtype=torch.int32))
+    got = sort.merge_accum(side(MA), side(MB), sentinel_val=-1, impl=impl)
+    want = jax64["merge_" + impl]
+    np.testing.assert_array_equal(got.unique.numpy(), want[0])
+    np.testing.assert_array_equal(got.counts.numpy(), want[1])
+    assert int(got.num_unique) == int(jax64["merge_" + impl + "_n"])
+    assert bool((got.unique[:int(got.num_unique)] < 0).any())
