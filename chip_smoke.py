@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,2,11,12 # the 2d topology and BSP
     python3 chip_smoke.py --phases 1,2,8,13  # the counter, its durability,
                                              # spill tier and serving
+    python3 chip_smoke.py --phases 1,2,14    # LM serving and the families
     python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13's read count
 
 Phases:
@@ -80,6 +81,27 @@ Phases:
      one set of weights, a step under 'flash_train' against one under
      'ref' at seq 1024, and the forward-only 'flash' logits against
      'flash_train''s at seq 4096;
+  14. LM serving and the MoE, SSM/hybrid, VLM and audio families: for
+     qwen1.5-0.5b, mamba2-370m, zamba2-1.2b (a prompt of 4160 past its
+     4096 window), deepseek-moe-16b (full width, CUT to 4 layers) and
+     llava-next-mistral-7b (576 patches and 64 text tokens), f32 compute
+     and cache, a prefill and 8 greedy decode steps, each step's
+     last-position logits held to a full forward over the sequence so far
+     (attn_impl='flash', row 11's f32 kernel) within 1e-4 of the largest
+     logit, argmax equal; the stacked DAKC MoE dispatch over 8 EP shards
+     against the GShard path on one full-width deepseek layer (capacity
+     factor 8, no drops, 1e-5 of the largest output), and both paths'
+     dropped shares at 1.25; one bf16 'flash_train' step of
+     deepseek-moe-16b, mamba2-370m, zamba2-1.2b, llava-next-mistral-7b
+     and hubert-xlarge (frame-target loss with a mask) at full width, 2
+     periods deep, 2 x 1024 positions, finite loss and grad norm, each
+     held to 'ref' on the same weights and batch as phase 9 holds qwen
+     (loss within 1e-3, grad norm within 1e-2, relative); then
+     `launch.serve.serve` at batch 8, prompt 512, 128 new tokens, bf16
+     compute and cache, for qwen1.5-0.5b, mamba2-370m, zamba2-1.2b and
+     deepseek-moe-16b (4 layers): prefill seconds, decode ms a step and
+     tokens/s over steps 2 onward, peak memory; rows 11-13 must launch on
+     the phase's path;
   10. the sweep kernels through their entry points on the same read set:
      ops.kmer_extract over all 2**23 reads (forward and canonical, each
      piece bit-equal to its plain version); the canonical k-mers of the
@@ -105,16 +127,18 @@ Phases:
      sort.accumulate(impl='fused') and countstore.store_lookup, as whole
      calls (ms, device ms and device launches a call, in the JSON's
      `calls`);
-  7. on request only: the main path and one step of phase 9's training
-     under torch.profiler (device time by kernel, the device's busy
-     share, the main path's launches per scan step).
+  7. on request only: the main path, one step of phase 9's training and
+     four decode steps of phase 14's qwen1.5-0.5b serving under
+     torch.profiler (device time by kernel, the device's busy share, the
+     main path's launches per scan step, device launches a decode step).
 
-Phases run in the order 1-5, 11, 12, 8, 13, 9, 10, 6, 7: phases 11 and
-12 before phase 8, whose counter keeps its store until phase 6; phase 13
-after phase 8, whose counter and histogram it reads, freeing what it made
-before phase 9; and every phase whose wall time is kept before phase 10,
-which profiles. The `kernels` record gives each row's launches on phase
-13's path beside the full run's (`launches_phase13`).
+Phases run in the order 1-5, 11, 12, 8, 13, 9, 14, 10, 6, 7: phases 11
+and 12 before phase 8, whose counter keeps its store until phase 6; phase
+13 after phase 8, whose counter and histogram it reads, freeing what it
+made before phase 9; and every phase whose wall time is kept before phase
+10, which profiles. The `kernels` record gives each row's launches on
+phases 13's and 14's paths beside the full run's (`launches_phase13`,
+`launches_phase14`).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -1983,6 +2007,249 @@ def lm_phase(torch, ops):
     return out_launches, numbers
 
 
+# --- phase 14: LM serving and the families ---------------------------------
+
+# The gates (f32 compute, f32 cache): (arch, batch, text prompt, layers or
+# None for the full depth). deepseek-moe-16b is cut to 4 layers: 28 layers
+# of f32 master weights are about 66 GB. Its gate runs at capacity factor
+# E / K, whose capacity N + 1 no expert can overflow, so the full forward
+# and the cached path drop no pair (a drop depends on the batch's tokens).
+SERVE_GATES = (("qwen1.5-0.5b", 2, 256, None),
+               ("mamba2-370m", 2, 300, None),
+               ("zamba2-1.2b", 1, 4160, None),
+               ("deepseek-moe-16b", 2, 256, 4),
+               ("llava-next-mistral-7b", 2, 64, None))
+SERVE_DECODES = 8
+SERVE_TOL = 1e-4        # of the largest logit; f32 prefill/decode vs forward
+MOE_LAYERS = 4
+# The timed runs (bf16 compute, bf16 cache) through launch.serve.serve.
+TIMED_SERVE = (("qwen1.5-0.5b", None), ("mamba2-370m", None),
+               ("zamba2-1.2b", None), ("deepseek-moe-16b", MOE_LAYERS))
+TIMED_BATCH, TIMED_PROMPT, TIMED_GEN = 8, 512, 128
+# One 'flash_train' step in bf16 for each new family, 2 periods deep.
+FAMILY_TRAIN = ("deepseek-moe-16b", "mamba2-370m", "zamba2-1.2b",
+                "llava-next-mistral-7b", "hubert-xlarge")
+FAMILY_BATCH, FAMILY_SEQ = 2, 1024
+# DAKC against GShard on one full-width deepseek MoE layer.
+DAKC_SHARDS, DAKC_TOKENS = 8, (4, 512)
+FLASH_ROWS = ("flash_attention", "flash_attention_fwd_lse",
+              "flash_attention_bwd")
+
+
+def _family_batch(torch, cfg, batch, seq, gen):
+    """A batch of `seq` positions for cfg's inputs: tokens, llava's
+    patches before its text, hubert's frames, labels and mask."""
+    f = cfg.frontend
+    if f.kind == "audio":
+        return {"frames": torch.randn((batch, seq, f.frontend_dim),
+                                      generator=gen, device=DEV),
+                "labels": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                        generator=gen, device=DEV),
+                "mask": (torch.rand((batch, seq), generator=gen, device=DEV)
+                         < 0.8).float()}
+    n_patch = f.num_patches if f.kind == "vision" else 0
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq - n_patch),
+                                   generator=gen, device=DEV)}
+    if n_patch:
+        out["patches"] = torch.randn((batch, n_patch, f.frontend_dim),
+                                     generator=gen, device=DEV)
+    return out
+
+
+def serve_gate(torch, model, params, cfg, batch, prompt, seed):
+    """Prefill a prompt, then SERVE_DECODES greedy decode steps (f32
+    compute and cache); the prefill's and each step's last-position logits
+    against a full forward over the sequence so far. Returns the largest
+    error relative to the largest logit."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t = prompt + (cfg.frontend.num_patches
+                  if cfg.frontend.kind == "vision" else 0)
+    inp = _family_batch(torch, cfg, batch, t, gen)
+    caches = model.init_caches(cfg, batch, t + SERVE_DECODES, torch.float32,
+                               device=DEV)
+    worst = 0.0
+
+    def held(got, what):
+        nonlocal worst
+        x, _ = model.hidden(params, inp, cfg)
+        want = model.head(params, x[:, -1:], cfg)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= SERVE_TOL * scale, f"{cfg.name} {what}: logits differ "
+              f"from the full forward's by {err:.3e} (largest {scale:.3f})")
+        check(torch.equal(got[:, -1].argmax(-1), want[:, -1].argmax(-1)),
+              f"{cfg.name} {what}: the argmax differs from the full "
+              f"forward's")
+        worst = max(worst, err / scale)
+
+    with torch.no_grad():
+        lg, caches = model.prefill(params, inp, caches, cfg)
+        held(lg, "prefill")
+        for i in range(SERVE_DECODES):
+            nxt = lg[:, -1].argmax(-1, keepdim=True)
+            inp["tokens"] = torch.cat([inp["tokens"], nxt], dim=1)
+            lg, caches = model.decode_step(params, nxt, caches, t + i, cfg)
+            held(lg, f"decode step {i + 1}")
+    return worst
+
+
+def dakc_gate(torch, moe, get_config):
+    """One full-width deepseek MoE layer (f32): the stacked DAKC engine
+    over DAKC_SHARDS EP shards against the GShard path at capacity factor
+    8; then the dropped shares of both at the config's 1.25."""
+    import dataclasses
+
+    base = dataclasses.replace(get_config("deepseek-moe-16b"),
+                               compute_dtype="float32")
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    p = moe.init_moe(gen, base, DEV)
+    x = torch.randn(DAKC_TOKENS + (base.d_model,), generator=gen,
+                    device=DEV)
+    out = {}
+    for factor in (8.0, base.moe.capacity_factor):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=factor))
+        with torch.no_grad():
+            yd, ad = moe.moe_block(p, x, cfg=cfg, ep_shards=DAKC_SHARDS)
+            yg, ag = moe.moe_block(p, x, cfg=cfg)
+        out[factor] = (float((yd - yg).abs().max()), float(yg.abs().max()),
+                       float(ad.dropped_frac), float(ag.dropped_frac))
+    err, scale, dd, dg = out[8.0]
+    check(dd == dg == 0.0, f"drops at capacity factor 8: dakc {dd}, "
+          f"gshard {dg}")
+    check(err <= 1e-5 * scale, f"DAKC ({DAKC_SHARDS} EP shards) and GShard "
+          f"differ by {err:.3e} (largest {scale:.3f})")
+    _, _, dd, dg = out[base.moe.capacity_factor]
+    log(f"  [dakc] {DAKC_SHARDS} EP shards vs GShard on {DAKC_TOKENS[0]} x "
+        f"{DAKC_TOKENS[1]} tokens, one full-width layer: max abs err "
+        f"{err:.3e} (largest {scale:.3f}) at capacity factor 8, no drops; "
+        f"at {base.moe.capacity_factor} dropped share dakc {dd:.6f}, "
+        f"gshard {dg:.6f}")
+    del p, x, yd, yg
+    return {"err": err, "scale": scale, "dropped_dakc": dd,
+            "dropped_gshard": dg}
+
+
+def serve_phase(torch, ops):
+    """Phase 14: the serving gates, the DAKC gate, one train step of each
+    new family and the timed serving runs. Returns the launches of rows
+    11-13 on the phase's path and the phase's numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model, moe
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts_lib
+
+    numbers = {"gates": {}, "train": {}, "timed": {}}
+    ops.reset_launches()
+    for i, (arch, batch, prompt, layers_) in enumerate(SERVE_GATES):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                                  attn_impl="flash")
+        if layers_ is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers_)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        params = model.init_params(cfg, seed=30 + i, device=DEV)
+        worst = serve_gate(torch, model, params, cfg, batch, prompt, 40 + i)
+        del params
+        torch.cuda.empty_cache()
+        numbers["gates"][arch] = worst
+        depth = (f"{cfg.num_layers} layers" if layers_ is None else
+                 f"CUT: {layers_} of {get_config(arch).num_layers} layers")
+        log(f"  [gate] {arch} ({depth}): batch {batch},"
+            f" prompt {prompt}"
+            + (f" after {cfg.frontend.num_patches} patches"
+               if cfg.frontend.kind == "vision" else "")
+            + f", {SERVE_DECODES} decode steps: largest error "
+            f"{worst:.3e} of the largest logit, argmax equal "
+            f"({time.perf_counter() - t0:.1f} s)")
+    numbers["dakc"] = dakc_gate(torch, moe, get_config)
+    torch.cuda.empty_cache()
+
+    for i, arch in enumerate(FAMILY_TRAIN):
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, num_layers=2 * len(base.period),
+                                  attn_impl="flash_train")
+        params = model.init_params(cfg, seed=50 + i, device=DEV)
+        step = ts_lib.make_train_step(cfg, ts_lib.TrainConfig(
+            optimizer=opt_lib.OptimizerConfig(warmup_steps=1,
+                                              total_steps=2)))
+        gen = torch.Generator(device=DEV).manual_seed(60 + i)
+        batch = _family_batch(torch, cfg, FAMILY_BATCH, FAMILY_SEQ, gen)
+        # The same weights and batch through 'ref' (mha_ref) first, as the
+        # step updates the weights in place: rows 12 and 13 at this family's
+        # head dim, grouping and mask against the plain attention.
+        leaves = [p.requires_grad_(True)
+                  for _, p in model.named_leaves(params)]
+        rloss, rm = ts_lib.loss_fn(params, batch, dataclasses.replace(
+            cfg, attn_impl="ref"))
+        rgrads = torch.autograd.grad(rloss, leaves, allow_unused=True)
+        ref_loss = float(rm["loss"])
+        ref_gnorm = float(opt_lib.global_norm(
+            [g for g in rgrads if g is not None]))
+        del rloss, rm, rgrads, leaves
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt_lib.init(params), batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        aux = float(m["aux_loss"])
+        wall = time.perf_counter() - t0
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"{arch}: loss {loss} or grad norm {gnorm} is not finite")
+        # Phase 9's bounds: both round P to bf16 before P.V, at different
+        # places (the comment there).
+        check(abs(loss - ref_loss) <= 1e-3 * abs(ref_loss),
+              f"{arch}: flash_train loss {loss} and ref loss {ref_loss} "
+              f"differ by more than 1e-3 relative")
+        check(abs(gnorm - ref_gnorm) <= 1e-2 * abs(ref_gnorm),
+              f"{arch}: flash_train grad norm {gnorm} and ref grad norm "
+              f"{ref_gnorm} differ by more than 1e-2 relative")
+        numbers["train"][arch] = {"loss": loss, "grad_norm": gnorm,
+                                  "aux": aux, "s": wall,
+                                  "ref_loss": ref_loss,
+                                  "ref_grad_norm": ref_gnorm}
+        log(f"  [train] {arch}: CUT: {cfg.num_layers} of {base.num_layers} "
+            f"layers (2 periods), "
+            f"batch {FAMILY_BATCH} x {FAMILY_SEQ}, bf16 'flash_train': loss "
+            f"{loss:.6f}, aux {aux:.5f}, grad norm {gnorm:.6f} "
+            f"({wall:.2f} s); 'ref' loss {ref_loss:.6f}, grad norm "
+            f"{ref_gnorm:.6f}")
+        del params, step, batch, m
+        torch.cuda.empty_cache()
+
+    for arch, layers_ in TIMED_SERVE:
+        over = {} if layers_ is None else {"num_layers": layers_}
+        r = serve_lib.serve(arch, reduced=False, batch=TIMED_BATCH,
+                            prompt_len=TIMED_PROMPT, gen=TIMED_GEN,
+                            device=DEV, **over)
+        steady = r["decode_step_s"][1:]
+        step_s = sum(steady) / len(steady)
+        row = {"prefill_s": r["prefill_s"], "decode_ms": 1e3 * step_s,
+               "decode_tokens_per_s": TIMED_BATCH / step_s,
+               "first_decode_ms": 1e3 * r["decode_step_s"][0],
+               "tokens_per_s": r["tokens_per_s"],
+               "peak_bytes": r["peak_bytes"]}
+        numbers["timed"][arch] = row
+        cut = "" if layers_ is None else f" (CUT: {layers_} layers)"
+        log(f"  [serve] {arch}{cut}: batch {TIMED_BATCH}, prompt "
+            f"{TIMED_PROMPT}, {TIMED_GEN} new tokens, bf16 compute and "
+            f"cache: prefill {r['prefill_s']:.4f} s; decode steps 2-"
+            f"{TIMED_GEN - 1} {row['decode_ms']:.3f} ms a step, "
+            f"{row['decode_tokens_per_s']:.1f} tokens/s (first step "
+            f"{row['first_decode_ms']:.3f} ms); {r['tokens_per_s']:.1f} "
+            f"tokens/s with the prefill; peak {r['peak_bytes'] / 1e9:.2f} GB")
+        torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    for name in FLASH_ROWS:
+        check(launches[name] > 0, f"kernel {name} did not launch on phase "
+              f"14's path")
+    log(f"  launches on phase 14's path {launches}")
+    return launches, numbers
+
+
 # --- phase 6: kernel times --------------------------------------------------
 
 DEVICE_MS_TRIES = 5     # profiler windows before device_ms gives up
@@ -2798,9 +3065,54 @@ def profile_lm_step(torch):
     torch.cuda.empty_cache()
 
 
+def profile_decode_step(torch, arch="qwen1.5-0.5b", steps=4):
+    """torch.profiler over `steps` decode steps of phase 14's timed
+    configuration (bf16, batch TIMED_BATCH, after a TIMED_PROMPT prefill
+    and two warm-up steps): device time by kernel, busy share, device
+    launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    cfg = get_config(arch)
+    params = model.init_params(cfg, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(70)
+    tok = torch.randint(0, cfg.vocab_size, (TIMED_BATCH, TIMED_PROMPT),
+                        generator=gen, device=DEV)
+    caches = model.init_caches(cfg, TIMED_BATCH, TIMED_PROMPT + steps + 8,
+                               torch.bfloat16, device=DEV)
+    with torch.no_grad():
+        lg, caches = model.prefill(params, {"tokens": tok}, caches, cfg)
+        pos = TIMED_PROMPT
+
+        def step():
+            nonlocal lg, caches, pos
+            nxt = lg[:, -1].argmax(-1, keepdim=True)
+            lg, caches = model.decode_step(params, nxt, caches, pos, cfg)
+            pos += 1
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    launches = _log_profile(torch, prof, wall_us,
+                            f"{steps} {arch} decode steps at batch "
+                            f"{TIMED_BATCH}")
+    log(f"  {launches / steps:.1f} device launches a decode step")
+    del params, caches
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13,14",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
                     help="phases 4, 10, 11 and 12's read count, and phase "
@@ -2927,6 +3239,15 @@ def main(argv=None) -> int:
         launches.update(lm_launches)
         log(f"[lm] done ({time.perf_counter() - t0:.1f} s)")
 
+    phase14_launches = None
+    if 14 in phases:
+        t0 = time.perf_counter()
+        log("[serve] LM serving (prefill and decode against full forwards, "
+            "f32), DAKC against GShard, one train step of each new family, "
+            "timed serving in bf16")
+        phase14_launches, _ = serve_phase(torch, ops)
+        log(f"[serve] done ({time.perf_counter() - t0:.1f} s)")
+
     # Phase 10 comes after the phases whose wall times the records keep, as
     # it profiles its kernels for phase 6: once torch.profiler has run, the
     # process launches kernels more slowly (PERF.md §6).
@@ -2956,6 +3277,8 @@ def main(argv=None) -> int:
         for e in record:
             e["launches_phase13"] = (None if phase13_launches is None
                                      else phase13_launches[e["name"]])
+            e["launches_phase14"] = (None if phase14_launches is None
+                                     else phase14_launches[e["name"]])
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()
@@ -2965,6 +3288,8 @@ def main(argv=None) -> int:
         profile_path(torch, fabsp, genome, min(args.reads, 1 << 20))
         log("[profile] one LM training step under torch.profiler")
         profile_lm_step(torch)
+        log("[profile] LM decode steps under torch.profiler")
+        profile_decode_step(torch)
 
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     if record is not None:

@@ -1,7 +1,14 @@
-"""GQA attention block: QKV (+ bias), RoPE, attention, output projection.
+"""GQA attention block: QKV (+ bias), RoPE, attention, output projection,
+with an optional KV cache.
 
-Counterpart of `repro.models.attention` on its path without a KV cache
-(training and full-sequence forward). `cfg.attn_impl` picks the attention:
+Counterpart of `repro.models.attention`. With a `KVCache` (serving), the
+new keys and values are written into the cache at `cache_index` (prefill:
+positions [cache_index, cache_index + T); decode: position cache_index),
+IN PLACE, and the attention reads the whole cache cast to the compute
+dtype through the plain `ref.mha_ref` with q_offset=cache_index, as the
+JAX package does. So a bf16 cache rounds k and v even under f32 compute.
+Without a cache (training and full-sequence forward), `cfg.attn_impl`
+picks the attention:
 - 'flash_train': the flash forward and backward kernels (rows 12 and 13 of
   PERF.md's table), through `ops.flash_attention_trainable`;
 - 'flash': the forward kernel alone (row 11), which raises when a gradient
@@ -13,7 +20,7 @@ is longer than 8192, as the JAX package does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -22,6 +29,18 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 
 LONG_KV = 8192
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor      # (B, Hkv, S_max, hd)
+    v: torch.Tensor
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, *, device) -> KVCache:
+    shape = (batch, cfg.num_kv_heads, max_seq, cfg.resolved_head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -47,12 +66,11 @@ def _project(x: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
 
 def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
               window: Optional[int], positions: torch.Tensor,
-              cache=None) -> torch.Tensor:
-    """x (B, T, D) -> (B, T, D): full-sequence attention, no KV cache."""
-    if cache is not None:
-        raise NotImplementedError(
-            "attention with a KV cache (prefill and decode) is not ported "
-            "yet: ROADMAP.md section 1, item 12 (LM serving)")
+              cache: Optional[KVCache] = None, cache_index: int = 0,
+              ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """x (B, T, D) -> (y (B, T, D), cache). With a cache, T is the count of
+    new tokens (decode: 1) and `cache_index` their first position; the
+    cache is updated in place and returned."""
     cdt = getattr(torch, cfg.compute_dtype)
     q = _project(x, params["wq"], cdt)
     k = _project(x, params["wk"], cdt)
@@ -66,7 +84,13 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, T, hd)
     band = dict(causal=cfg.causal, window=window,
                 softcap=cfg.attn_logit_softcap)
-    if cfg.attn_impl == "flash_train":
+    if cache is not None:
+        end = cache_index + q.shape[2]
+        cache.k[:, :, cache_index:end] = k.to(cache.k.dtype)
+        cache.v[:, :, cache_index:end] = v.to(cache.v.dtype)
+        out = ref.mha_ref(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
+                          q_offset=cache_index, **band)
+    elif cfg.attn_impl == "flash_train":
         out = ops.flash_attention_trainable(q, k, v, **band)
     elif cfg.attn_impl not in ("flash", "ref"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
@@ -78,4 +102,4 @@ def attention(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
         out = ref.mha_ref(q, k, v, **band)
     h, hd = out.shape[1], out.shape[3]
     out = out.transpose(1, 2).reshape(*x.shape[:2], h * hd)   # (B, T, H*hd)
-    return out @ params["wo"].to(cdt).reshape(h * hd, -1)
+    return out @ params["wo"].to(cdt).reshape(h * hd, -1), cache

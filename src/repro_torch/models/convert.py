@@ -1,24 +1,31 @@
-"""Carry parameters (and optimizer moments) across between the JAX
-package's layout and the port's.
+"""Carry parameters, optimizer moments and serving caches across between
+the JAX package's layout and the port's.
 
 The JAX model stacks each period slot's leaves over the `num_periods`
 groups: `blocks` is a tuple over slots of dicts with (num_periods, ...)
-leaves. The port keeps one dict per layer; layer g * len(period) + slot is
-group g of slot `slot`. Every other leaf and every weight layout (wq
-(d, h, hd), wo (h, hd, d), ...) is the same on both sides. Trees here hold
-numpy arrays, so no JAX is needed to read them.
+leaves, and so are its caches (a tuple over slots of {"kv": KVCache,
+"ssm": SSMState} with stacked fields). The port keeps one dict per layer;
+layer g * len(period) + slot is group g of slot `slot`. Every other leaf
+(`embed`, `head`, `frontend`, `shared_attn`, ...) and every weight layout
+(wq (d, h, hd), wo (h, hd, d), the experts' (E, d, f), ...) is the same on
+both sides. Trees here hold numpy arrays, so no JAX is needed to read
+them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import KVCache
 from repro_torch.models.model import check_supported, map_leaves
+from repro_torch.models.ssm import SSMState
 from repro_torch.train.optimizer import OptState
+
+_CACHE_TYPES = {"kv": KVCache, "ssm": SSMState}
 
 
 def params_from_jax(tree: Dict, cfg: ModelConfig, device) -> Dict:
@@ -60,6 +67,49 @@ def opt_state_to_numpy(state: OptState, cfg: ModelConfig) -> Dict:
     return {"step": int(state.step),
             "mu": params_to_numpy(state.mu, cfg),
             "nu": params_to_numpy(state.nu, cfg)}
+
+
+def caches_from_jax(caches: Sequence[Dict], cfg: ModelConfig,
+                    device) -> List[Dict]:
+    """The JAX package's stacked cache tuple (numpy fields, dtypes kept) ->
+    the port's per-layer list on `device`."""
+    per = len(cfg.period)
+    if len(caches) != per:
+        raise ValueError(f"{len(caches)} cache slots, period {cfg.period}")
+
+    def field(a):
+        a = np.array(a)     # a copy: the port updates KV caches in place
+        if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: via f32
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(a).to(device)
+
+    def layer(g, slot):
+        return {name: _CACHE_TYPES[name](*(field(np.asarray(f)[g])
+                                           for f in nt))
+                for name, nt in caches[slot].items()}
+    return [layer(g, slot) for g in range(cfg.num_periods)
+            for slot in range(per)]
+
+
+def caches_to_numpy(caches: List[Dict], cfg: ModelConfig) -> tuple:
+    """The port's per-layer caches -> the JAX package's layout: a tuple
+    over slots of {"kv": KVCache, "ssm": SSMState} whose fields are numpy
+    arrays stacked over the groups, in the caches' own dtypes (bf16 as
+    f32, which holds every bf16 value)."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    per = len(cfg.period)
+    out = []
+    for slot in range(per):
+        group = [caches[g * per + slot] for g in range(cfg.num_periods)]
+        out.append({name: _CACHE_TYPES[name](*(
+            np.stack([arr(c[name][f]) for c in group])
+            for f in range(len(_CACHE_TYPES[name]._fields))))
+            for name in sorted(group[0])})
+    return tuple(out)
 
 
 def _stack(trees):

@@ -35,6 +35,13 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps) * (1.0 + params["scale"])).to(x.dtype)
 
 
+def gated_rmsnorm(params: dict, x: torch.Tensor, gate: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's output gate: rmsnorm(x * silu(gate)), the silu in f32 and
+    cast to x's dtype before the product."""
+    return rmsnorm(params, x * F.silu(gate.float()).to(x.dtype), eps)
+
+
 # --- RoPE --------------------------------------------------------------------
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

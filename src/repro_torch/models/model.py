@@ -1,51 +1,48 @@
-"""Config-driven model assembly for the dense decoder stacks.
+"""Config-driven model assembly for all ten architectures.
 
-Counterpart of `repro.models.model` for the layer kinds 'attn' and
-'attn_local' with no frontend: qwen1.5-0.5b, gemma2-9b, minitron-8b and
-h2o-danube-3-4b. Parameters are a plain dict:
+Counterpart of `repro.models.model`. A stack is a repeating `period` of
+layer kinds: 'attn' and 'attn_local' (attention + MLP), 'moe' (attention +
+mixture of experts), 'mamba' (the Mamba2 block) and 'mamba_shared_attn'
+(zamba2: a Mamba2 block, then ONE attention + MLP block whose weights all
+such layers share, with norms of their own). Parameters are a plain dict:
 
-    {"embed": {"tok": (V, d)}, "head": {"w": (V, d)} (untied only),
+    {"embed": {"tok": (V, d)}            (absent for the audio frontend),
+     "frontend": {"proj": (F, d)}        (vision and audio only),
+     "head": {"w": (V, d)}               (untied, or audio),
      "final_norm": {"scale": (d,)},
-     "blocks": [layer 0, layer 1, ...]}   # {"ln1", "attn", "ln2", "mlp"}
+     "shared_attn": {"attn", "mlp"}      (zamba2 only),
+     "blocks": [layer 0, layer 1, ...]}
 
 Layer l is slot l % len(period) of period group l // len(period): the JAX
 package stacks the same leaves per slot over the groups (`models/convert.py`
-maps one layout onto the other). The forward runs the layers in a Python
-loop; with `remat='full'` each layer is a `torch.utils.checkpoint` region,
-so its activations are recomputed in the backward pass.
+maps one layout onto the other). The layers run in a Python loop; with
+`remat='full'` each layer is a `torch.utils.checkpoint` region when a
+gradient is taken.
+
+Serving caches are a list with one dict a layer: {"kv": KVCache} for the
+attention kinds, {"ssm": SSMState} for 'mamba', and both for
+'mamba_shared_attn'. `prefill` and `decode_step` update the KV caches in
+place and return the list with the new SSM states.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, frontends, layers, moe, ssm
 
-KINDS = ("attn", "attn_local")
+KINDS = ("attn", "attn_local", "mamba", "mamba_shared_attn", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what this
-    port does not run yet."""
+    """Raise ValueError for a layer kind or remat setting no code runs."""
     for kind in cfg.period:
-        if kind == "moe":
-            raise NotImplementedError(
-                "MoE blocks are not ported yet: ROADMAP.md section 1, item "
-                "12 (the MoE family)")
-        if kind in ("mamba", "mamba_shared_attn"):
-            raise NotImplementedError(
-                f"'{kind}' blocks are not ported yet: ROADMAP.md section 1, "
-                "item 12 (the SSM and hybrid families)")
         if kind not in KINDS:
             raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.frontend.kind != "none":
-        raise NotImplementedError(
-            f"the {cfg.frontend.kind} frontend is not ported yet: ROADMAP.md "
-            "section 1, item 12 (the VLM and audio families)")
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
 
@@ -74,72 +71,215 @@ def map_leaves(fn, tree):
     return fn(tree)
 
 
+# --- Parameters --------------------------------------------------------------
+
+def _init_slot(gen: torch.Generator, kind: str, cfg: ModelConfig,
+               device) -> Dict:
+    d = cfg.d_model
+    if kind in ("attn", "attn_local", "moe"):
+        p = {"ln1": layers.init_rmsnorm(d, device),
+             "attn": attention.init_attention(gen, cfg, device),
+             "ln2": layers.init_rmsnorm(d, device)}
+        if kind == "moe":
+            p["moe"] = moe.init_moe(gen, cfg, device)
+        else:
+            p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, device)
+        return p
+    p = {"ln": layers.init_rmsnorm(d, device),
+         "mamba": ssm.init_mamba(gen, cfg, device)}
+    if kind == "mamba_shared_attn":
+        # The attention and MLP weights are shared (zamba2); only the norms
+        # before them are the layer's own.
+        p["ln_sa"] = layers.init_rmsnorm(d, device)
+        p["ln_sm"] = layers.init_rmsnorm(d, device)
+    return p
+
+
 def init_params(cfg: ModelConfig, *, seed: int, device) -> Dict:
     """Seeded init from one `torch.Generator` on `device`, with the JAX
-    package's distributions (truncated normals, zero norms and biases). The
-    numbers differ from `jax.random`'s: parity runs carry the JAX package's
-    own parameters across (`convert.params_from_jax`)."""
+    package's distributions (truncated normals, zero norms and biases, the
+    Mamba2 dt and A rules). The numbers differ from `jax.random`'s: parity
+    runs carry the JAX package's own parameters across
+    (`convert.params_from_jax`)."""
     check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    d = cfg.d_model
-    params: Dict = {"embed": layers.init_embed(gen, cfg.vocab_size, d,
-                                               device)}
-    if not cfg.tie_embeddings:
+    d, kind = cfg.d_model, cfg.frontend.kind
+    params: Dict = {}
+    if kind != "audio":
+        params["embed"] = layers.init_embed(gen, cfg.vocab_size, d, device)
+    if kind != "none":
+        params["frontend"] = frontends.init_frontend(gen, cfg, device)
+    if not cfg.tie_embeddings or kind == "audio":
         params["head"] = layers.init_head(gen, cfg.vocab_size, d, device)
     params["final_norm"] = layers.init_rmsnorm(d, device)
-    params["blocks"] = [
-        {"ln1": layers.init_rmsnorm(d, device),
-         "attn": attention.init_attention(gen, cfg, device),
-         "ln2": layers.init_rmsnorm(d, device),
-         "mlp": layers.init_mlp(gen, d, cfg.d_ff, device)}
-        for _ in range(cfg.num_layers)]
+    if "mamba_shared_attn" in cfg.period:
+        params["shared_attn"] = {
+            "attn": attention.init_attention(gen, cfg, device),
+            "mlp": layers.init_mlp(gen, d, cfg.d_ff, device)}
+    params["blocks"] = [_init_slot(gen, cfg.period[i % len(cfg.period)], cfg,
+                                   device)
+                        for i in range(cfg.num_layers)]
     return params
 
 
-def _layer(p: Dict, x: torch.Tensor, *, cfg: ModelConfig, window,
-           positions: torch.Tensor) -> torch.Tensor:
-    cdt = getattr(torch, cfg.compute_dtype)
-    x = x + attention.attention(p["attn"], layers.rmsnorm(p["ln1"], x,
-                                                          cfg.rms_eps),
-                                cfg=cfg, window=window, positions=positions)
-    return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.rms_eps),
-                          cdt)
+# --- One layer ---------------------------------------------------------------
 
+def _layer(p: Dict, x: torch.Tensor, *, kind: str, cfg: ModelConfig,
+           shared: Optional[Dict], positions: torch.Tensor,
+           cache: Optional[Dict], cache_index: int):
+    """One layer -> (x, new cache or None, aux loss term)."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    eps = cfg.rms_eps
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new = None if cache is None else {}
+    kv = None if cache is None else cache.get("kv")
+    if kind in ("attn", "attn_local", "moe"):
+        window = cfg.sliding_window if kind == "attn_local" else None
+        h, kv = attention.attention(
+            p["attn"], layers.rmsnorm(p["ln1"], x, eps), cfg=cfg,
+            window=window, positions=positions, cache=kv,
+            cache_index=cache_index)
+        x = x + h
+        if kind == "moe":
+            h, moe_aux = moe.moe_block(p["moe"],
+                                       layers.rmsnorm(p["ln2"], x, eps),
+                                       cfg=cfg)
+            aux = aux + cfg.moe.router_aux_weight * moe_aux.load_balance_loss
+            x = x + h
+        else:
+            x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, eps),
+                               cdt)
+        if new is not None:
+            new["kv"] = kv
+        return x, new, aux
+    h, state = ssm.mamba_block(p["mamba"], layers.rmsnorm(p["ln"], x, eps),
+                               cfg=cfg,
+                               state=None if cache is None else cache["ssm"])
+    x = x + h
+    if new is not None:
+        new["ssm"] = state
+    if kind == "mamba_shared_attn":
+        # The shared block (zamba2): shared weights, this layer's norms and
+        # KV cache, windowed.
+        h, kv = attention.attention(
+            shared["attn"], layers.rmsnorm(p["ln_sa"], x, eps), cfg=cfg,
+            window=cfg.sliding_window, positions=positions, cache=kv,
+            cache_index=cache_index)
+        x = x + h
+        x = x + layers.mlp(shared["mlp"], layers.rmsnorm(p["ln_sm"], x, eps),
+                           cdt)
+        if new is not None:
+            new["kv"] = kv
+    return x, new, aux
+
+
+def _run_stack(params: Dict, x: torch.Tensor, *, cfg: ModelConfig,
+               positions: torch.Tensor, caches: Optional[List[Dict]],
+               cache_index: int):
+    """x (B, T, D) -> (x, new caches or None, summed aux loss)."""
+    shared = params.get("shared_attn")
+    remat = (cfg.remat == "full" and caches is None
+             and torch.is_grad_enabled())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = None if caches is None else []
+    for i, p in enumerate(params["blocks"]):
+        kw = dict(kind=cfg.period[i % len(cfg.period)], cfg=cfg,
+                  shared=shared, positions=positions,
+                  cache=None if caches is None else caches[i],
+                  cache_index=cache_index)
+        if remat:
+            x, c, a = checkpoint(_layer, p, x, use_reentrant=False, **kw)
+        else:
+            x, c, a = _layer(p, x, **kw)
+        aux = aux + a
+        if new_caches is not None:
+            new_caches.append(c)
+    return x, new_caches, aux
+
+
+# --- Public passes -----------------------------------------------------------
 
 def embed_inputs(params: Dict, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding -> (B, T, D) activations in the compute dtype."""
+    """Token and frontend embedding -> (B, T, D) in the compute dtype:
+    audio frames projected; tokens embedded, with projected vision patches
+    before them."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.frontend.kind == "audio":
+        return frontends.project(params["frontend"], batch["frames"], cfg)
+    x = layers.embed(params["embed"], batch["tokens"], cdt)
+    if cfg.frontend.kind == "vision":
+        patches = frontends.project(params["frontend"], batch["patches"],
+                                    cfg)
+        x = torch.cat([patches, x], dim=1)
+    return x
+
+
+def hidden(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the final-normed residual stream (B, T, D) before the LM head, the
+    summed MoE aux loss)."""
     check_supported(cfg)
-    return layers.embed(params["embed"], batch["tokens"],
-                        getattr(torch, cfg.compute_dtype))
-
-
-def hidden(params: Dict, batch: Dict[str, torch.Tensor],
-           cfg: ModelConfig) -> torch.Tensor:
-    """The final-normed residual stream (B, T, D), before the LM head."""
     x = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for i, p in enumerate(params["blocks"]):
-        kind = cfg.period[i % len(cfg.period)]
-        window = cfg.sliding_window if kind == "attn_local" else None
-        if remat:
-            x = checkpoint(_layer, p, x, cfg=cfg, window=window,
-                           positions=positions, use_reentrant=False)
-        else:
-            x = _layer(p, x, cfg=cfg, window=window, positions=positions)
-    return layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    x, _, aux = _run_stack(params, x, cfg=cfg, positions=positions,
+                           caches=None, cache_index=0)
+    return layers.rmsnorm(params["final_norm"], x, cfg.rms_eps), aux
 
 
 def head(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """(..., D) -> (..., V) f32 logits."""
-    return layers.logits(params["embed"], x, params.get("head"),
+    return layers.logits(params.get("embed", {}), x, params.get("head"),
                          cfg.final_logit_softcap)
 
 
 def forward(params: Dict, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B, T, V) f32, aux loss 0)."""
-    lg = head(params, hidden(params, batch, cfg), cfg)
-    return lg, torch.zeros((), dtype=torch.float32, device=lg.device)
+    """Full-sequence forward -> (logits (B, T, V) f32, aux loss)."""
+    x, aux = hidden(params, batch, cfg)
+    return head(params, x, cfg), aux
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16, *, device) -> List[Dict]:
+    """Zeroed serving caches, one dict a layer (module docstring)."""
+    out = []
+    for i in range(cfg.num_layers):
+        kind = cfg.period[i % len(cfg.period)]
+        c = {}
+        if kind in ("mamba", "mamba_shared_attn"):
+            c["ssm"] = ssm.init_ssm_state(cfg, batch, dtype, device=device)
+        if kind != "mamba":
+            c["kv"] = attention.init_cache(cfg, batch, max_seq, dtype,
+                                           device=device)
+        out.append(c)
+    return out
+
+
+def prefill(params: Dict, batch: Dict[str, torch.Tensor],
+            caches: List[Dict], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, List[Dict]]:
+    """The prompt pass, filling the caches from position 0 -> (last
+    position's logits (B, 1, V) f32, caches)."""
+    check_supported(cfg)
+    x = embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, caches, _ = _run_stack(params, x, cfg=cfg, positions=positions,
+                              caches=caches, cache_index=0)
+    x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.rms_eps)
+    return head(params, x, cfg), caches
+
+
+def decode_step(params: Dict, tokens: torch.Tensor, caches: List[Dict],
+                cache_index: int, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, List[Dict]]:
+    """One token a sequence at position `cache_index`: tokens (B, 1) ->
+    (logits (B, 1, V) f32, caches)."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = layers.embed(params["embed"], tokens, cdt)
+    positions = torch.arange(cache_index, cache_index + 1, device=x.device)
+    x, caches, _ = _run_stack(params, x, cfg=cfg, positions=positions,
+                              caches=caches, cache_index=cache_index)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return head(params, x, cfg), caches

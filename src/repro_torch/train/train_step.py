@@ -1,16 +1,19 @@
 """Loss and train step: cross-entropy with z-loss, microbatched gradient
 accumulation, AdamW.
 
-Counterpart of `repro.train.train_step` for decoder batches ({"tokens":
-(B, S)}; labels are the tokens shifted left). PyTorch runs eagerly, so the
-step is a Python function; microbatches are a loop that sums the f32
-gradients and divides by their count, as the JAX scan does.
+Counterpart of `repro.train.train_step`. Decoder batches carry `tokens`
+(B, S), whose labels are the tokens shifted left (a VLM's patches come
+first, so its text block is the last S positions); encoder batches carry
+`frames` and frame-target `labels` (B, S), with an optional `mask`. The
+loss adds the MoE load-balance term. PyTorch runs eagerly, so the step is
+a Python function; microbatches are a loop that sums the f32 gradients
+and divides by their count, as the JAX scan does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,34 +54,41 @@ class _CrossEntropy(torch.autograd.Function):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  z_loss: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean CE (+ z-loss) and the mean logsumexp over every position.
-    logits (..., V) f32, labels (...). (The JAX package's optional mask
-    has no caller: token batches carry none.)"""
+                  z_loss: float, mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE (+ z-loss) and mean logsumexp over the positions, or over
+    the positions where `mask` is set. logits (..., V) f32, labels and
+    mask (...)."""
     v = logits.shape[-1]
     ce, lse = _CrossEntropy.apply(logits.reshape(-1, v),
                                   labels.reshape(-1).long(), z_loss)
-    return ce.mean(), lse.mean()
+    if mask is None:
+        return ce.mean(), lse.mean()
+    m = mask.reshape(-1).float()
+    denom = torch.clamp(m.sum(), min=1.0)
+    return (ce * m).sum() / denom, (lse * m).sum() / denom
 
 
 def loss_fn(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, z_loss: float = 1e-4
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token loss of a decoder batch. The LM head runs on the
-    positions that have a label only (all but the last): the same logits
-    as `model.forward`'s, without a gradient the size of the dropped
-    row."""
+    """(CE + aux, metrics): next-token loss of a decoder batch, or the
+    frame-target loss of an encoder batch. A decoder's LM head runs on the
+    positions that have a label only (all but the last of the text): the
+    same logits as `model.forward`'s, without a gradient the size of the
+    dropped rows."""
+    x, aux = model_lib.hidden(params, batch, cfg)
     if not cfg.causal:
-        raise NotImplementedError(
-            "encoder (frame-target) losses are not ported yet: ROADMAP.md "
-            "section 1, item 12 (the VLM and audio families)")
-    tokens = batch["tokens"]
-    x = model_lib.hidden(params, batch, cfg)[:, -tokens.shape[1]:-1]
-    logits = model_lib.head(params, x, cfg)
-    loss, lse = cross_entropy(logits, tokens[:, 1:], z_loss)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"loss": loss.detach(), "aux_loss": aux,
-                  "lse_mean": lse.detach()}
+        logits = model_lib.head(params, x, cfg)
+        loss, lse = cross_entropy(logits, batch["labels"], z_loss,
+                                  batch.get("mask"))
+    else:
+        tokens = batch["tokens"]
+        logits = model_lib.head(params, x[:, -tokens.shape[1]:-1], cfg)
+        loss, lse = cross_entropy(logits, tokens[:, 1:], z_loss,
+                                  batch.get("mask"))
+    return loss + aux, {"loss": loss.detach(), "aux_loss": aux.detach(),
+                        "lse_mean": lse.detach()}
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):

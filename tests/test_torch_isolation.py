@@ -2,8 +2,12 @@
 the card unless the caller asks for the CPU, refuses what is outside its
 slice, and `chip_smoke.py` fails without a card or without the repo.
 
-Three tests keep the names they had while the port refused spill, save
-and restore, and now check that those settings run:
+Some tests keep the names they had while the port refused a setting, and
+now check that it runs:
+- `test_lm_families_outside_the_slice_raise[...]`: the MoE, SSM, hybrid,
+  VLM and audio archs initialise and train a step;
+- `test_attention_with_a_kv_cache_raises`: the KV cache path fills the
+  cache and gives the no-cache output;
 - `test_settings_outside_the_slice_raise[spill]`: `count_kmers` under
   spill='auto' engages the tier and is exact;
 - `test_spill_fault_sites_are_refused_by_validation`: the spill fault
@@ -53,13 +57,17 @@ from repro_torch.kernels import flash_attention, segment_count
 from repro_torch.kernels import kmer_extract, radix_hist
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data import tokens
-from repro_torch.launch import kc_serve, train
+from repro_torch.launch import kc_serve, serve, train
 from repro_torch.train import checkpoint
-from repro_torch.models import attention, convert, layers, model
-from repro_torch.train import optimizer, train_step
+from repro_torch.models import (attention, convert, frontends, layers, model,
+                                moe, ssm)
+from repro_torch.train import optimizer, serve_step, train_step
 out = train.train("qwen1.5-0.5b", reduced=True, steps=2, batch=2, seq=16,
                   device="cpu", attn_impl="flash_train")
 assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+srv = serve.serve("zamba2-1.2b", reduced=True, batch=2, prompt_len=8, gen=4,
+                  device="cpu")
+assert tuple(srv["tokens"].shape) == (2, 4)
 reads = genome.sample_reads(genome.ReadSetSpec(genome_bases=512, n_reads=64,
                                                read_len=30, seed=1))
 res, st = fabsp.count_kmers(reads, fabsp.DAKCConfig(k=13, chunk_reads=8),
@@ -132,30 +140,60 @@ def test_lm_training_needs_a_card():
                                   "mamba2-370m", "zamba2-1.2b",
                                   "llava-next-mistral-7b", "hubert-xlarge"])
 def test_lm_families_outside_the_slice_raise(arch):
+    """Named for when these families raised; they now run: init_params,
+    and `launch.train` for the token-batch archs (MoE and SSM, as the JAX
+    launcher trains) or one train step on a batch with the frontend's
+    inputs (llava's patches, hubert's frames and labels)."""
     from repro_torch.configs import reduced_config
     from repro_torch.launch import train
     from repro_torch.models import model
+    from repro_torch.train import optimizer, train_step
 
     cfg = reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.train(arch, reduced=True, steps=1, batch=2, seq=16,
-                    device="cpu")
+    params = model.init_params(cfg, seed=0, device="cpu")
+    if cfg.frontend.kind == "none":
+        out = train.train(arch, reduced=True, steps=1, batch=2, seq=16,
+                          device="cpu")
+        assert all(map(torch.isfinite, map(torch.tensor, out["losses"])))
+        return
+    g = torch.Generator().manual_seed(0)
+    f = cfg.frontend
+    if f.kind == "audio":
+        batch = {"frames": torch.randn((2, 16, f.frontend_dim), generator=g),
+                 "labels": torch.randint(0, cfg.vocab_size, (2, 16),
+                                         generator=g)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                         generator=g),
+                 "patches": torch.randn((2, f.num_patches, f.frontend_dim),
+                                        generator=g)}
+    step = train_step.make_train_step(cfg, train_step.TrainConfig())
+    _, _, m = step(params, optimizer.init(params), batch)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
 
 
 def test_attention_with_a_kv_cache_raises():
-    """Prefill and decode (LM serving) are not in this slice."""
+    """Named for when prefill and decode raised; the cache path now runs:
+    a prefill through an f32 cache gives the no-cache attention's output
+    and leaves k and v in the cache's first positions, the rest zero."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import attention
 
     cfg = reduced_config("qwen1.5-0.5b", compute_dtype="float32")
     p = attention.init_attention(torch.Generator().manual_seed(0), cfg,
                                  "cpu")
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.attention(p, x, cfg=cfg, window=None,
-                            positions=torch.arange(4), cache=object())
+    x = torch.randn((1, 4, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    cache = attention.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+    y, c = attention.attention(p, x, cfg=cfg, window=None,
+                               positions=torch.arange(4), cache=cache,
+                               cache_index=0)
+    want, none = attention.attention(p, x, cfg=cfg, window=None,
+                                     positions=torch.arange(4))
+    assert c is cache and none is None
+    torch.testing.assert_close(y, want, rtol=0, atol=1e-5)
+    assert bool(cache.k[:, :, :4].abs().sum() > 0)
+    assert not bool(cache.k[:, :, 4:].any() or cache.v[:, :, 4:].any())
 
 
 @pytest.mark.parametrize("knobs", [
