@@ -10,7 +10,8 @@
     python3 chip_smoke.py --phases 1,2,8,13  # the counter, its durability,
                                              # spill tier and serving
     python3 chip_smoke.py --phases 1,2,14    # LM serving and the families
-    python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13's read count
+    python3 chip_smoke.py --phases 1,2,4,15  # the counter's remaining surface
+    python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13 and 15's reads
 
 Phases:
   1. device: require CUDA; print the card's name and power limit;
@@ -102,6 +103,19 @@ Phases:
      deepseek-moe-16b (4 layers): prefill seconds, decode ms a step and
      tokens/s over steps 2 onward, peak memory; rows 11-13 must launch on
      the phase's path;
+  15. the counter's remaining surface: (a) corpus_ngram_stats and
+     count_ngrams over 2**15 x 4096 Zipf-1.2 tokens at qwen1.5-0.5b's
+     vocabulary (151,936, 18 bits a token; the token pipeline's first 16
+     batches of 2048 rows), 8 PEs, at n=3 (54-bit words) and n=1, each
+     histogram exact against torch.unique (or torch.bincount) of n-gram
+     words the smoke packs itself, total, distinct and the top 16 counts
+     held to it; (b) count_kmers_serial128 at k=63 over the first 2**22
+     reads of phase 4's set, exact against torch.unique(dim=0) of (hi, lo)
+     lanes the smoke packs itself; (c) the kc_dryrun drills on the card
+     (inject, spill, skew on three corpora with both orders and prefix
+     compaction, the live query batches), each exact; (d) the analytical
+     model's prediction for phase 4's workload on H100_SXM beside phase
+     4's wall time; rows 1-7 must launch on the phase's path;
   10. the sweep kernels through their entry points on the same read set:
      ops.kmer_extract over all 2**23 reads (forward and canonical, each
      piece bit-equal to its plain version); the canonical k-mers of the
@@ -132,13 +146,13 @@ Phases:
      torch.profiler (device time by kernel, the device's busy share, the
      main path's launches per scan step, device launches a decode step).
 
-Phases run in the order 1-5, 11, 12, 8, 13, 9, 14, 10, 6, 7: phases 11
-and 12 before phase 8, whose counter keeps its store until phase 6; phase
-13 after phase 8, whose counter and histogram it reads, freeing what it
-made before phase 9; and every phase whose wall time is kept before phase
-10, which profiles. The `kernels` record gives each row's launches on
-phases 13's and 14's paths beside the full run's (`launches_phase13`,
-`launches_phase14`).
+Phases run in the order 1-5, 11, 12, 8, 13, 9, 14, 15, 10, 6, 7: phases
+11 and 12 before phase 8, whose counter keeps its store until phase 6;
+phase 13 after phase 8, whose counter and histogram it reads, freeing
+what it made before phase 9; and every phase whose wall time is kept
+before phase 10, which profiles. The `kernels` record gives each row's
+launches on phases 13's, 14's and 15's paths beside the full run's
+(`launches_phase13`, `launches_phase14`, `launches_phase15`).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -2250,6 +2264,288 @@ def serve_phase(torch, ops):
     return launches, numbers
 
 
+# --- phase 15: the counter's remaining surface -----------------------------
+
+# (a) a token corpus at qwen1.5-0.5b's vocabulary and train_4k length: the
+# first NGRAM_STEPS batches of the port's token pipeline, NGRAM_BATCH rows
+# each, counted by NUM_PES PEs.
+NGRAM_ARCH = "qwen1.5-0.5b"
+NGRAM_STEPS, NGRAM_BATCH, NGRAM_SEQ = 16, 2048, 4096
+NGRAM_CHUNK_ROWS, NGRAM_TOP_K = 64, 16
+NGRAM_NS = (3, 1)           # 54-bit words (the widest n that fits), 18-bit
+# The store is sized by the shape-only bound (n-gram instances, at most
+# vocab**n, over the PEs with the store slack: 25,153,536 slots a PE at
+# n=3, 2.4 GB in all). The default 'sample' sizing inverts a uniform-pool
+# model on the first chunk, which a Zipf corpus defeats: at n=3 it plans
+# 131,072 slots a PE for about 6.6M distinct trigrams a PE, and each
+# rehash round that follows probes a full table for every dropped key
+# (ROADMAP section 2, items H and L).
+NGRAM_STORE = dict(store_sizing="bound")
+# (b) 128-bit k-mers over the first K128_READS reads of phase 4's set.
+K128, K128_READS = 63, 1 << 22
+SIGN64 = -(1 << 63)
+# (d) PERF.md §5: the counting path's device busy share under the profiler
+# (count_kmers at 2**20 reads, scripts/kernel_device_times.py --profile).
+BUSY_SHARE_PERF = "7.7-12.2 %"
+PHASE15_DIR = os.path.join(HERE, "build", "chip_smoke_phase15")
+# Rows 2-7 by name (row 1: bucket_hist plus bucket_prefix).
+PHASE15_KERNELS = ("bucket_positions", "segment_accumulate", "hash_insert",
+                   "hash_lookup", "sliding_min", "sliding_min_pair")
+
+
+def zipf_corpus(torch, vocab):
+    """The pipeline's first NGRAM_STEPS batches, made on the host in
+    parallel threads (numpy releases the interpreter lock in them), as one
+    (rows, seq) int32 tensor on the card."""
+    import concurrent.futures
+
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_for_step
+
+    cfg = TokenPipelineConfig(vocab_size=vocab, batch_size=NGRAM_BATCH,
+                              seq_len=NGRAM_SEQ, zipf_a=1.2, seed=0)
+    toks = torch.empty((NGRAM_STEPS * NGRAM_BATCH, NGRAM_SEQ),
+                       dtype=torch.int32, device=DEV)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for step, batch in enumerate(pool.map(
+                lambda s: batch_for_step(cfg, s), range(NGRAM_STEPS))):
+            toks[step * NGRAM_BATCH:(step + 1) * NGRAM_BATCH] = \
+                torch.from_numpy(batch).to(DEV)
+    return toks
+
+
+def ngram_words(torch, toks, n, bits):
+    """Every n-gram of the token rows packed by the smoke itself."""
+    t = toks.to(torch.int64)
+    seq = t.shape[1]
+    w = torch.zeros((t.shape[0], seq - n + 1), dtype=torch.int64,
+                    device=t.device)
+    for j in range(n):
+        w = (w << bits) | t[:, j:seq - n + 1 + j]
+    return w.reshape(-1)
+
+
+def ngram_check(torch, ngram, corpus_stats, toks, vocab, n, numbers):
+    """(a) at one n: corpus_ngram_stats timed, count_ngrams for the
+    histogram and its stats, both exact against torch.unique (n > 1) or
+    torch.bincount (n = 1) of the smoke's own n-gram words."""
+    bits = ngram.bits_for_vocab(vocab)
+    rows, seq = toks.shape
+    tag = f"n={n}"
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs = corpus_stats.corpus_ngram_stats(
+        toks, vocab, n, num_pes=NUM_PES, top_k=NGRAM_TOP_K,
+        chunk_rows=NGRAM_CHUNK_ROWS, device=DEV, **NGRAM_STORE)
+    torch.cuda.synchronize()
+    wall_cs = time.perf_counter() - t0
+    peak_cs = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, st = ngram.count_ngrams(toks, vocab, n, num_pes=NUM_PES,
+                                 chunk_rows=NGRAM_CHUNK_ROWS, device=DEV,
+                                 **NGRAM_STORE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = rows * (seq - n + 1)
+    slots = res.unique.numel() // NUM_PES
+    keys, counts, _ = per_pe_sets(torch, res, NUM_PES)
+    order = torch.argsort(keys)
+    keys, counts = keys[order], counts[order].to(torch.int64)
+    del res, order
+    if n == 1:
+        ref_c = torch.bincount(toks.reshape(-1).to(torch.int64),
+                               minlength=vocab)
+        ref_k = torch.nonzero(ref_c).reshape(-1)
+        ref_c = ref_c[ref_k]
+    else:
+        ref_k, ref_c = torch.unique(ngram_words(torch, toks, n, bits),
+                                    return_counts=True)
+    check(torch.equal(keys, ref_k) and torch.equal(counts, ref_c),
+          f"[ngram {tag}] the merged histogram differs from the reference")
+    check(cs.total == st.raw_kmers == total,
+          f"[ngram {tag}] total {cs.total} != {total}")
+    check(cs.distinct == ref_k.numel(),
+          f"[ngram {tag}] distinct {cs.distinct} != {ref_k.numel()}")
+    top = torch.topk(ref_c, NGRAM_TOP_K).values.tolist()
+    check(cs.top_counts.tolist() == top,
+          f"[ngram {tag}] top counts {cs.top_counts.tolist()} != {top}")
+    shifts = [(n - 1 - j) * bits for j in range(n)]
+    for gram, c in zip(cs.top_ngrams.tolist(), cs.top_counts.tolist()):
+        word = sum(int(g) << s for g, s in zip(gram, shifts))
+        i = int(torch.searchsorted(ref_k, torch.tensor([word], device=DEV)))
+        check(int(ref_k[i]) == word and int(ref_c[i]) == c,
+              f"[ngram {tag}] top n-gram {gram} does not hold count {c}")
+    check(cs.compression == st.raw_kmers / max(float(st.sent_words), 1.0),
+          f"[ngram {tag}] compression differs between the two runs")
+    retries = (st.retry_route_slack, st.retry_store_rehash)
+    numbers[tag] = dict(
+        corpus_ngram_stats_s=wall_cs, count_ngrams_s=wall,
+        ngrams_per_s=total / wall, total=total, distinct=cs.distinct,
+        sent_words=st.sent_words, compression=cs.compression,
+        store_slots_per_pe=slots,
+        retry_route_slack=retries[0], retry_store_rehash=retries[1],
+        peak_bytes_corpus_ngram_stats=peak_cs, peak_bytes_count_ngrams=peak,
+        top_counts=top[:4])
+    log(f"  [ngram {tag}] corpus_ngram_stats {wall_cs:.3f} s; count_ngrams "
+        f"{wall:.3f} s, {total / wall:.4e} n-grams/s; {total} n-grams, "
+        f"{cs.distinct} distinct in {slots} store slots a PE; sent_words "
+        f"{st.sent_words}, compression "
+        f"{cs.compression:.4f}; retries route-slack {retries[0]} "
+        f"store-rehash {retries[1]}; peak {peak_cs / 1e9:.2f} / "
+        f"{peak / 1e9:.2f} GB; exact against the reference, top "
+        f"{NGRAM_TOP_K} counts {top[:4]}...")
+    del keys, counts, ref_k, ref_c
+
+
+def pairs128_reference(torch, reads, k):
+    """Every k-mer of the reads as (hi, lo) lanes packed by the smoke
+    itself: unfolded windows, a wrapping multiply-add per lane (bases
+    0..k-33 into hi, the last 32 into lo)."""
+    n_pos = reads.shape[1] - k + 1
+    n_hi = k - 32
+    hi = torch.empty((reads.shape[0], n_pos), dtype=torch.int64, device=DEV)
+    lo = torch.empty_like(hi)
+    block = 1 << 19
+    for b0 in range(0, reads.shape[0], block):
+        win = reads[b0:b0 + block].unfold(1, k, 1)
+        h = torch.zeros(win.shape[:2], dtype=torch.int64, device=DEV)
+        for j in range(n_hi):
+            h = h * 4 + win[..., j].to(torch.int64)
+        lw = torch.zeros_like(h)
+        for j in range(n_hi, k):
+            lw = lw * 4 + win[..., j].to(torch.int64)
+        hi[b0:b0 + block], lo[b0:b0 + block] = h, lw
+        del win, h, lw
+    return hi.reshape(-1), lo.reshape(-1)
+
+
+def remaining_phase(torch, ops, genome, n_reads, phase4_wall, card):
+    """Phase 15: the counter's remaining surface on the card. (a) corpus
+    n-gram statistics of a Zipf token corpus at qwen1.5-0.5b's vocabulary;
+    (b) 128-bit k-mers at k=63 over phase 4's reads; (c) the kc_dryrun
+    drills; (d) the analytical model beside phase 4's wall time. Returns
+    the launches of the phase's path and its numbers."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import analytical_model as am
+    from repro_torch.core import encoding128 as e128
+    from repro_torch.core import ngram
+    from repro_torch.data import corpus_stats
+    from repro_torch.launch import kc_dryrun
+
+    numbers = {"card": card}
+    ops.reset_launches()
+
+    # (a) corpus n-gram statistics
+    vocab = get_config(NGRAM_ARCH).vocab_size
+    t0 = time.perf_counter()
+    toks = zipf_corpus(torch, vocab)
+    torch.cuda.synchronize()
+    log(f"  [ngram] {NGRAM_ARCH}'s vocabulary {vocab} "
+        f"({ngram.bits_for_vocab(vocab)} bits a token): Zipf 1.2 tokens "
+        f"{tuple(toks.shape)} ({toks.numel()} tokens) made in "
+        f"{time.perf_counter() - t0:.2f} s; {NUM_PES} PEs, chunk_rows "
+        f"{NGRAM_CHUNK_ROWS}")
+    for n in NGRAM_NS:
+        ngram_check(torch, ngram, corpus_stats, toks, vocab, n, numbers)
+        torch.cuda.empty_cache()
+    del toks
+    torch.cuda.empty_cache()
+
+    # (b) 128-bit k-mers
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=n_reads,
+                              read_len=150, seed=0)
+    n128 = min(K128_READS, n_reads)
+    if n128 != K128_READS:
+        log(f"  CUT: the 128-bit count reads {n128} instead of {K128_READS}")
+    reads = genome.sample_reads_torch(spec, DEV)[:n128].clone()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = e128.count_kmers_serial128(reads, K128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    nu = int(acc.num_unique)
+    got = (acc.hi[:nu].clone(), acc.lo[:nu].clone(), acc.counts[:nu].clone())
+    instances = acc.hi.numel()
+    del acc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hi, lo = pairs128_reference(torch, reads, K128)
+    rows = torch.stack([hi ^ SIGN64, lo ^ SIGN64], 1)
+    del hi, lo
+    # torch.unique orders rows signed; flipping each lane's top bit maps
+    # that order onto sort128's unsigned one
+    ref, ref_c = torch.unique(rows, dim=0, return_counts=True)
+    del rows
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    check(ref.shape[0] == nu, f"[k128] num_unique {nu} != {ref.shape[0]}")
+    check(torch.equal(got[0], ref[:, 0] ^ SIGN64)
+          and torch.equal(got[1], ref[:, 1] ^ SIGN64)
+          and torch.equal(got[2].to(torch.int64), ref_c),
+          "[k128] a (hi, lo, count) differs from torch.unique's")
+    check(int(ref_c.sum()) == instances, "[k128] sum(counts) != instances")
+    numbers["k128"] = dict(k=K128, reads=n128, instances=instances,
+                           distinct=nu, wall_s=wall, peak_bytes=peak,
+                           reference_s=t_ref)
+    log(f"  [k128] count_kmers_serial128 k={K128}: {n128} reads, "
+        f"{instances} (hi, lo) instances, {nu} distinct, {wall:.3f} s "
+        f"({instances / wall:.4e} k-mers/s), peak {peak / 1e9:.2f} GB; "
+        f"exact against torch.unique(dim=0) ({t_ref:.1f} s)")
+    del got, ref, ref_c, reads
+    torch.cuda.empty_cache()
+
+    # (c) the drills
+    shutil.rmtree(PHASE15_DIR, ignore_errors=True)
+    os.makedirs(PHASE15_DIR)
+    drills = {}
+    try:
+        drills["inject"] = kc_dryrun.run_inject(device=DEV)
+        drills["spill"] = kc_dryrun.run_spill(
+            os.path.join(PHASE15_DIR, "spill"), device=DEV)
+        for skew in ("polya", "powerlaw", "none"):
+            drills["skew_" + skew] = kc_dryrun.run_skew(
+                skew, "both", "prefix", device=DEV)
+        drills["query"] = kc_dryrun.run_query(device=DEV)
+    except SystemExit as e:
+        check(False, f"[drills] {e}")
+    shutil.rmtree(PHASE15_DIR, ignore_errors=True)
+    log(json.dumps({"phase15_drills": {
+        name: {key: (rec._asdict() if hasattr(rec, "_asdict") else rec)
+               for key, rec in recs.items()}
+        for name, recs in drills.items()}}, default=str))
+
+    # (d) the paper's model on the card beside the measurement
+    if phase4_wall is not None:
+        w = am.Workload(n_reads=n_reads, read_len=150, k=K, num_nodes=1)
+        for overlap in ("sum", "max"):
+            pred = am.predict(w, am.H100_SXM, overlap)
+            numbers[f"model_{overlap}"] = pred
+            log(f"  [model] predict({w}, H100_SXM, {overlap!r}): total "
+                f"{pred['total']:.6g} s (phase 1 {pred['phase1_total']:.6g}, "
+                f"phase 2 {pred['phase2_total']:.6g}); phase 4 measured "
+                f"{phase4_wall:.3f} s, {phase4_wall / pred['total']:.1f}x the "
+                f"model; the path's device busy share {BUSY_SHARE_PERF} "
+                f"(PERF.md §5, not measured here)")
+        numbers["phase4_wall_s"] = phase4_wall
+
+    launches = ops.launch_counts()
+    for name in PHASE15_KERNELS:
+        check(launches[name] > 0, f"kernel {name} did not launch on phase "
+              f"15's path")
+    check(launches["bucket_hist"] + launches["bucket_prefix"] > 0,
+          "row 1 did not launch on phase 15's path")
+    log(f"  launches on phase 15's path {launches}")
+    log(json.dumps({"phase15": numbers}, default=str))
+    return launches, numbers
+
+
 # --- phase 6: kernel times --------------------------------------------------
 
 DEVICE_MS_TRIES = 5     # profiler windows before device_ms gives up
@@ -3112,12 +3408,13 @@ def profile_decode_step(torch, arch="qwen1.5-0.5b", steps=4):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13,14,15",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
-                    help="phases 4, 10, 11 and 12's read count, and phase "
-                         "13's spill run's (a cut is printed); phase 8 "
-                         "always reads 2**23")
+                    help="phases 4, 10, 11 and 12's read count, phase "
+                         "13's spill run's and the read set phase 15 "
+                         "takes its first 2**22 reads from (a cut is "
+                         "printed); phase 8 always reads 2**23")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -3160,7 +3457,7 @@ def main(argv=None) -> int:
             f"({time.perf_counter() - t0:.1f} s)")
 
     launches = {}
-    count_run = phase4 = None
+    count_run = phase4 = phase4_wall = None
     if 4 in phases:
         log("[full size] Synthetic 26, 150 bp reads, k=31, 8 PEs")
         if args.reads != 1 << 23:
@@ -3173,6 +3470,7 @@ def main(argv=None) -> int:
                   f"path at full size")
         count_run = (distinct, stats, launches["hash_insert"])
         phase4 = (count_wall, count_sets)
+        phase4_wall = count_wall
         torch.cuda.empty_cache()
 
     if 5 in phases:
@@ -3247,6 +3545,20 @@ def main(argv=None) -> int:
             "timed serving in bf16")
         phase14_launches, _ = serve_phase(torch, ops)
         log(f"[serve] done ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    phase15_launches = None
+    if 15 in phases:
+        t0 = time.perf_counter()
+        log("[remaining] corpus n-gram statistics, 128-bit k-mers, the "
+            "kc_dryrun drills and the analytical model")
+        if args.reads != 1 << 23:
+            log(f"  CUT: phase 4's read set has {args.reads} reads instead "
+                f"of {1 << 23}")
+        phase15_launches, _ = remaining_phase(torch, ops, genome, args.reads,
+                                              phase4_wall, smi[0])
+        torch.cuda.empty_cache()
+        log(f"[remaining] done ({time.perf_counter() - t0:.1f} s)")
 
     # Phase 10 comes after the phases whose wall times the records keep, as
     # it profiles its kernels for phase 6: once torch.profiler has run, the
@@ -3279,6 +3591,8 @@ def main(argv=None) -> int:
                                      else phase13_launches[e["name"]])
             e["launches_phase14"] = (None if phase14_launches is None
                                      else phase14_launches[e["name"]])
+            e["launches_phase15"] = (None if phase15_launches is None
+                                     else phase15_launches[e["name"]])
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()

@@ -3,12 +3,15 @@
 Words are int64 tensors with a static word width (see `repro_torch.words`):
 32 bits for k * bits_per_symbol <= 30, 64 bits up to 62. Spare high bits
 keep the sentinel distinct from every valid k-mer and hold L3 counts.
+Host-side helpers read ASCII into codes (`encode_ascii`) and codes and
+words back into strings (`decode_codes_np`, `unpack_kmer_np`).
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import words as W
@@ -29,7 +32,9 @@ def word_bits(k: int, bits_per_symbol: int = 2) -> int:
     if bits <= 62:
         return 64
     raise ValueError(
-        f"k={k} exceeds the 64-bit word; max k is 31 for DNA.")
+        f"k={k} at {bits_per_symbol} bits a symbol needs {bits} bits, past "
+        f"the 62 a 64-bit word holds with its 2 spare bits (max k is 31 "
+        f"for DNA; core.encoding128 counts DNA k-mers up to k=63)")
 
 
 def spare_bits(k: int, bits_per_symbol: int = 2) -> int:
@@ -43,6 +48,25 @@ def kmer_mask(k: int, bits_per_symbol: int = 2) -> int:
 def sentinel(k: int, bits_per_symbol: int = 2) -> int:
     """Padding word: sorts after every valid (possibly count-packed) word."""
     return W.sentinel(word_bits(k, bits_per_symbol))
+
+
+_ASCII_LUT = np.full((256,), 255, dtype=np.uint8)
+for _b, _c in BASE_TO_CODE.items():
+    _ASCII_LUT[ord(_b)] = _c
+    _ASCII_LUT[ord(_b.lower())] = _c
+
+
+def encode_ascii(ascii_bytes) -> torch.Tensor:
+    """uint8 ASCII read characters (array or tensor) -> uint8 2-bit codes,
+    255 for non-ACGT, on the input's device."""
+    if not isinstance(ascii_bytes, torch.Tensor):
+        ascii_bytes = torch.from_numpy(np.ascontiguousarray(ascii_bytes))
+    lut = torch.from_numpy(_ASCII_LUT).to(ascii_bytes.device)
+    return lut[ascii_bytes.to(torch.int64)]
+
+
+def decode_codes_np(codes: np.ndarray) -> str:
+    return "".join(CODE_TO_BASE[int(c)] for c in codes)
 
 
 def pack_kmers(codes: torch.Tensor, k: int, bits_per_symbol: int = 2, *,
@@ -86,6 +110,17 @@ def extract_kmers(reads: torch.Tensor, k: int, bits_per_symbol: int = 2, *,
     words = pack_kmers(reads, k, bits_per_symbol, canonical=canonical,
                        canonical_impl=canonical_impl)
     return words.reshape(words.shape[:-2] + (-1,))
+
+
+def unpack_kmer_np(word: int, k: int, bits_per_symbol: int = 2) -> str:
+    """Host-side decode of a packed DNA k-mer word to its string. An
+    int64-carried 64-bit word with its top bit set reads as unsigned."""
+    word = int(word) & ((1 << 64) - 1)
+    out = []
+    mask = (1 << bits_per_symbol) - 1
+    for j in reversed(range(k)):
+        out.append(CODE_TO_BASE[(word >> (j * bits_per_symbol)) & mask])
+    return "".join(out)
 
 
 def revcomp(kmers: torch.Tensor, k: int) -> torch.Tensor:

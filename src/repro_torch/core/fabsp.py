@@ -948,9 +948,10 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
                 device=None) -> Tuple[AccumResult, DAKCStats]:
     """Distributed asynchronous k-mer counting (DAKC) of P PEs on one device.
 
-    reads: (n_reads, m) uint8 symbol codes (numpy array or tensor); PE p
-           owns rows [p * n_local, (p + 1) * n_local), and n_local must
-           divide by cfg.chunk_reads.
+    reads: (n_reads, m) integer symbol codes below 2**bits_per_symbol
+           (numpy array or tensor: uint8 bases, or int32 tokens through
+           `core.ngram`); PE p owns rows [p * n_local, (p + 1) * n_local),
+           and n_local must divide by cfg.chunk_reads.
     grid: (rows, cols) with rows * cols == num_pes under topology='2d'
            (the JAX mesh's shape; PE p is (p // cols, p % cols)); None
            under '1d'.

@@ -21,3 +21,19 @@ def count_kmers_serial(reads: torch.Tensor, k: int, canonical: bool = False,
         kmers = encoding.canonical(kmers, k)
     keys, _ = sort_with_weights(kmers, torch.zeros_like(kmers))
     return accumulate(keys, sentinel_val=encoding.sentinel(k, bits_per_symbol))
+
+
+def count_kmers_python(reads_np, k: int) -> dict:
+    """Pure-Python oracle (a Counter over a rolling 2-bit word) for tests
+    and drills; (n_reads, m) numpy codes in, {word: count} out."""
+    from collections import Counter
+
+    c: Counter = Counter()
+    mask = (1 << (2 * k)) - 1
+    for row in reads_np:
+        word = 0
+        for j, base in enumerate(row.tolist()):
+            word = ((word << 2) | int(base)) & mask
+            if j >= k - 1:
+                c[word] += 1
+    return dict(c)

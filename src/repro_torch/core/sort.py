@@ -12,6 +12,7 @@ stream, sorted and accumulated on its own.
   oracle, whose run-start flags come from a tensor expression or the
   boundary kernel.
 - `merge_accum`: two accumulated results merged into one.
+- `sort_words`: a plain sort of words in their unsigned order.
 
 Words are int64 (see `repro_torch.words`). The radix passes read logical
 digits and the oracle sorts in unsigned order, so both see the same order
@@ -34,6 +35,13 @@ class AccumResult(NamedTuple):
     unique: torch.Tensor      # unique keys, ascending; sentinel past num_unique
     counts: torch.Tensor      # int32 counts; 0 past num_unique
     num_unique: torch.Tensor  # (P,) int32
+
+
+def sort_words(words: torch.Tensor) -> torch.Tensor:
+    """Words of either width sorted along the last axis in their unsigned
+    order: a 64-bit word with its top bit set (negative as int64) sorts
+    above every word without it, as in the 'argsort' oracle."""
+    return torch.sort(words ^ _SIGN).values ^ _SIGN
 
 
 def _radix_sort_lanes(keys: torch.Tensor, lanes: Sequence[torch.Tensor],

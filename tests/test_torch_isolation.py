@@ -47,10 +47,12 @@ import numpy as np
 import torch
 import repro_torch
 from repro_torch import words
-from repro_torch.core import (aggregation, bsp, countstore, encoding, fabsp,
-                              minimizer, owner, query, resilience, serial,
-                              sort, spill)
-from repro_torch.data import genome
+from repro_torch.core import (aggregation, analytical_model, bsp, countstore,
+                              encoding, encoding128, fabsp, minimizer, ngram,
+                              owner, query, resilience, serial, sort, spill)
+from repro_torch.configs import dakc_kc
+from repro_torch.data import corpus_stats, genome
+from repro_torch.launch import kc_dryrun
 from repro_torch.kernels import build, hash_table, ops, radix_partition, ref
 from repro_torch.kernels import minimizer as kminimizer
 from repro_torch.kernels import flash_attention, segment_count
@@ -97,6 +99,18 @@ res3, st3 = bsp.count_kmers(reads, bsp.BSPConfig(k=13, batch_reads=8),
                             num_pes=2, device="cpu")
 assert int(res3.counts.sum()) == st.raw_kmers and st3.num_global_syncs == 5
 kc_serve.run_demo(device="cpu")
+toks = tokens.batch_for_step(tokens.TokenPipelineConfig(
+    vocab_size=151_936, batch_size=16, seq_len=24), 0)
+cs = corpus_stats.corpus_ngram_stats(toks, 151_936, 3, num_pes=2,
+                                     chunk_rows=8, device="cpu")
+assert cs.total == 16 * 22 and cs.top_ngrams.shape == (16, 3)
+acc = encoding128.count_kmers_serial128(
+    torch.from_numpy(genome.poly_a_reads(8, 70, seed=1)), 47)
+assert int(acc.counts.sum()) == 8 * 24
+assert analytical_model.predict(
+    analytical_model.Workload(1 << 23, 150, dakc_kc.config().k, 1),
+    analytical_model.H100_SXM)["total"] > 0
+kc_dryrun.run_skew("polya", "hashed", "prefix", device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -125,6 +139,25 @@ def test_default_device_needs_a_card():
                           num_pes=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fabsp.KmerCounter(fabsp.DAKCConfig(k=13), num_pes=1)
+
+
+def test_counter_surface_needs_a_card():
+    from repro_torch.core import ngram
+    from repro_torch.data import corpus_stats
+    from repro_torch.launch import kc_dryrun
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs on it")
+    toks = torch.zeros((16, 30), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ngram.count_ngrams(toks, 100, 2, num_pes=1, chunk_rows=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        corpus_stats.corpus_ngram_stats(toks, 100, 2, num_pes=1,
+                                        chunk_rows=8)
+    proc = _run("from repro_torch.launch import kc_dryrun as d; "
+                "d.main(['--inject'])")
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert "inject sweep OK" not in proc.stdout
 
 
 def test_lm_training_needs_a_card():
