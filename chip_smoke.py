@@ -11,6 +11,7 @@
                                              # spill tier and serving
     python3 chip_smoke.py --phases 1,2,14    # LM serving and the families
     python3 chip_smoke.py --phases 1,2,4,15  # the counter's remaining surface
+    python3 chip_smoke.py --phases 1,2,16    # the LM trainer's infrastructure
     python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13 and 15's reads
 
 Phases:
@@ -116,6 +117,28 @@ Phases:
      compaction, the live query batches), each exact; (d) the analytical
      model's prediction for phase 4's workload on H100_SXM beside phase
      4's wall time; rows 1-7 must launch on the phase's path;
+  16. the LM trainer's infrastructure at qwen1.5-0.5b's full width and
+     depth, bf16 compute under 'flash_train', 4 x 4096 tokens a step:
+     (a) `launch.train.train` for 8 steps saving at steps 4 and 8 (run A),
+     then from A's step-4 checkpoint alone in a fresh directory (run B,
+     which must resume at cursor 4 and take 4 steps); the step-4 trees
+     restored onto the card equal the files bit for bit, B's losses equal
+     A's (or lie within 1e-3 relative) and B's step-8 parameters lie
+     within 4 x 2.5 x lr of A's; checkpoint bytes, the seconds each save
+     blocks the loop and writes, restore seconds, step time with and
+     without a save, peak memory, straggler events (it writes under
+     build/chip_smoke_phase16/ and deletes it); (b) StragglerWatchdog
+     around 12 real steps, steps 9 on slowed by a host sleep of twice the
+     median step: no trip before step 9, a trip after; (c)
+     pipeline_forward of the 24 layers as 4 stages of 6, f32 under
+     'flash' (row 11's f32 kernel), 8 microbatches of 1 x 1024 positions,
+     against sequential_oracle within 1e-5 of the largest output, both
+     timed, bubble_fraction(4, 8); (d) compress_psum over one step's
+     gradients on 4 batches stacked as 4 shards: 3 rounds at frac 0.01,
+     sent plus residual equal to the summed gradient within 64 f32 unit
+     roundoffs of sum |g| at each element, and frac 1.0 equal to the shard
+     mean; ms a call and compression_ratio; rows 11-13 must launch on the
+     phase's path;
   10. the sweep kernels through their entry points on the same read set:
      ops.kmer_extract over all 2**23 reads (forward and canonical, each
      piece bit-equal to its plain version); the canonical k-mers of the
@@ -146,13 +169,13 @@ Phases:
      torch.profiler (device time by kernel, the device's busy share, the
      main path's launches per scan step, device launches a decode step).
 
-Phases run in the order 1-5, 11, 12, 8, 13, 9, 14, 15, 10, 6, 7: phases
+Phases run in the order 1-5, 11, 12, 8, 13, 9, 14, 15, 16, 10, 6, 7: phases
 11 and 12 before phase 8, whose counter keeps its store until phase 6;
 phase 13 after phase 8, whose counter and histogram it reads, freeing
 what it made before phase 9; and every phase whose wall time is kept
 before phase 10, which profiles. The `kernels` record gives each row's
-launches on phases 13's, 14's and 15's paths beside the full run's
-(`launches_phase13`, `launches_phase14`, `launches_phase15`).
+launches on phases 13's to 16's paths beside the full run's
+(`launches_phase13` to `launches_phase16`).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -1925,6 +1948,7 @@ def lm_phase(torch, ops):
     out = train_lib.train(LM_ARCH, reduced=False, steps=LM_STEPS,
                           batch=LM_BATCH, seq=LM_SEQ, log_every=1,
                           device=DEV, attn_impl="flash_train")
+    del out["params"], out["opt_state"]
     launches = ops.launch_counts()
     tc_launches = ops.tc_launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2543,6 +2567,370 @@ def remaining_phase(torch, ops, genome, n_reads, phase4_wall, card):
           "row 1 did not launch on phase 15's path")
     log(f"  launches on phase 15's path {launches}")
     log(json.dumps({"phase15": numbers}, default=str))
+    return launches, numbers
+
+
+# --- phase 16: the LM trainer's infrastructure -----------------------------
+
+# (a) checkpoint and resume: run A saves at CKPT_EVERY and at CKPT_STEPS;
+# run B resumes from A's step-CKPT_EVERY checkpoint alone.
+CKPT_STEPS, CKPT_EVERY = 8, 4
+PHASE16_DIR = os.path.join(HERE, "build", "chip_smoke_phase16")
+# (b) the watchdog around WATCH_STEPS real steps, steps WATCH_SLOW_FROM on
+# slowed by a host sleep of twice the median step.
+WATCH_STEPS, WATCH_SLOW_FROM = 12, 9
+# (c) the pipeline: the 24 layers as PIPE_STAGES stages, PIPE_MICRO
+# microbatches of 1 x PIPE_SEQ positions, f32.
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 1024
+# (d) compression: COMP_SHARDS gradient trees as shards, COMP_ROUNDS
+# rounds of error feedback at COMP_FRAC.
+COMP_SHARDS, COMP_ROUNDS, COMP_FRAC = 4, 3, 0.01
+U32 = 2.0 ** -24        # f32 unit roundoff
+
+
+def _stack_trees(torch, trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees(torch, [t[k] for t in trees])
+                for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _max_leaf_diff(torch, model, a, b):
+    """(largest |a - b| over the leaves, whether every leaf is bit-equal)."""
+    worst, same = 0.0, True
+    for (_, x), (_, y) in zip(model.named_leaves(a), model.named_leaves(b)):
+        x, y = x.detach(), y.detach()
+        worst = max(worst, float((x - y).abs().max()))
+        same = same and bool(torch.equal(x, y))
+    return worst, same
+
+
+def trainer_phase(torch, ops):
+    """Phase 16: the LM trainer's checkpoints and resume, its straggler
+    watchdog, the GPipe schedule and gradient compression at qwen1.5-0.5b's
+    full width and depth. Returns the launches of the phase's path and its
+    numbers."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_for_step
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import convert, model
+    from repro_torch.train import checkpoint, compression, elastic, pipeline
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts_lib
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash_train")
+    L = cfg.num_layers
+    numbers = {}
+    sync = torch.cuda.synchronize
+
+    # (a) checkpoint and resume
+    params = model.init_params(cfg, seed=0, device=DEV)
+    n_params = sum(p.numel() for _, p in model.named_leaves(params))
+    del params
+    est = 3 * 4 * n_params          # params, mu and nu in f32
+    shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    dir_a = os.path.join(PHASE16_DIR, "a")
+    dir_b = os.path.join(PHASE16_DIR, "b")
+    os.makedirs(dir_a)
+    os.makedirs(dir_b)
+    free = shutil.disk_usage(PHASE16_DIR).free
+    log(f"  [ckpt] a checkpoint is about {est / 1e9:.2f} GB ({n_params} f32 "
+        f"parameters x 3 trees); the phase keeps 4; {free / 1e9:.1f} GB "
+        f"free under {PHASE16_DIR}")
+    check(free >= 4.2 * est, f"phase 16 needs {int(4.2 * est)} bytes free "
+          f"under {PHASE16_DIR} for four checkpoints, has {free}")
+    kw = dict(reduced=False, steps=CKPT_STEPS, batch=LM_BATCH, seq=LM_SEQ,
+              log_every=CKPT_EVERY, device=DEV, attn_impl="flash_train")
+    runs = {}
+    for name, d, extra in (("A", dir_a, dict(ckpt_every=CKPT_EVERY)),
+                           ("B", dir_b, {})):
+        if name == "B":
+            t0 = time.perf_counter()
+            shutil.copytree(os.path.join(dir_a, f"step_{CKPT_EVERY:08d}"),
+                            os.path.join(dir_b, f"step_{CKPT_EVERY:08d}"))
+            numbers["copy_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs[name] = train_lib.train(LM_ARCH, ckpt_dir=d, **kw, **extra)
+        runs[name]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if name == "A":
+            numbers["ckpt_bytes"] = dir_bytes(
+                os.path.join(dir_a, f"step_{CKPT_EVERY:08d}"))
+            # The resume's trees: the step-4 files restored onto the card
+            # as `train` restores them, and back to host numpy.
+            tmpl = convert.jax_template(runs["A"]["params"], cfg)
+            t0 = time.perf_counter()
+            restored, extra4 = checkpoint.restore(
+                dir_a, CKPT_EVERY, {"params": tmpl, "opt": opt_lib.OptState(
+                    step=0, mu=tmpl, nu=tmpl)})
+            p4 = convert.params_from_jax(restored["params"], cfg, DEV)
+            o4 = convert.opt_state_from_jax(restored["opt"], cfg, DEV)
+            sync()
+            numbers["restore_s"] = time.perf_counter() - t0
+            back = {"params": convert.params_to_numpy(p4, cfg),
+                    "opt": opt_lib.OptState(
+                        **convert.opt_state_to_numpy(o4, cfg))}
+            flat_f = list(model.named_leaves(restored))
+            flat_b = list(model.named_leaves(back))
+            check([p for p, _ in flat_f] == [p for p, _ in flat_b],
+                  "the restored trees' leaves differ from the files'")
+            for (path, f), (_, b) in zip(flat_f, flat_b):
+                f, b = np.asarray(f), np.asarray(b)
+                check(f.dtype == b.dtype and f.shape == b.shape
+                      and f.tobytes() == b.tobytes(),
+                      f"restored leaf {path} is not the file's, bit for bit")
+            check(extra4["cursor"] == CKPT_EVERY and o4.step == CKPT_EVERY
+                  and restored["opt"].step.dtype == np.int32,
+                  "the step-4 checkpoint's cursor or AdamW step is wrong")
+            log(f"  [ckpt] the step-{CKPT_EVERY} trees restored onto the card "
+                f"equal the files bit for bit ({len(flat_f)} leaves, "
+                f"{numbers['ckpt_bytes']} bytes): restore "
+                f"{numbers['restore_s']:.3f} s")
+            del restored, p4, o4, back, flat_f, flat_b
+    a, b = runs["A"], runs["B"]
+    check(a["start_step"] == 0 and len(a["losses"]) == CKPT_STEPS,
+          "run A did not take its steps from 0")
+    check(b["start_step"] == CKPT_EVERY
+          and len(b["losses"]) == CKPT_STEPS - CKPT_EVERY,
+          f"run B resumed at {b['start_step']} and took {len(b['losses'])} "
+          f"steps")
+    la, lb = a["losses"][CKPT_EVERY:], b["losses"]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(lb, la))
+    p_err, p_same = _max_leaf_diff(torch, model, a["params"], b["params"])
+    # Each AdamW step moves a weight by at most about 2.5 lr (the clipped,
+    # normalised update; tests/multidevice_checks.py's bound), so runs
+    # that part at step 4 differ by at most 4 x 2.5 x 3e-4 after step 8.
+    p_tol = (CKPT_STEPS - CKPT_EVERY) * 2.5 * 3e-4
+    same = "equal A's bit for bit" if lb == la else "differ from A's"
+    log(f"  [ckpt] B's losses at steps {CKPT_EVERY}-{CKPT_STEPS - 1} {same}"
+        f" (largest relative difference {loss_rel:.3e}); step-{CKPT_STEPS} "
+        f"parameters {'bit-equal' if p_same else 'differ'}, largest "
+        f"|A - B| {p_err:.3e} (bound {p_tol:.1e})")
+    check(loss_rel <= 1e-3, f"B's losses differ from A's by {loss_rel} "
+          f"relative")
+    check(p_err <= p_tol, f"B's step-{CKPT_STEPS} parameters differ from "
+          f"A's by {p_err}")
+    for name, r in runs.items():
+        saves = {s for s, _ in r["save_seconds"]}
+        plain = [t for i, t in enumerate(r["step_seconds"][1:], 1)
+                 if r["start_step"] + i + 1 not in saves]
+        with_save = [t for i, t in enumerate(r["step_seconds"])
+                     if r["start_step"] + i + 1 in saves]
+        numbers[name] = {
+            "losses": r["losses"], "step_seconds": r["step_seconds"],
+            "save_block_s": r["save_seconds"], "write_s": r["write_seconds"],
+            "final_wait_s": r["final_wait_seconds"],
+            "restore_s": r["restore_seconds"], "peak_bytes": r["peak_bytes"],
+            "straggler_events": r["straggler_events"],
+            "step_s_plain": sum(plain) / len(plain),
+            "step_s_with_save": sum(with_save) / len(with_save)}
+        n = numbers[name]
+        log(f"  [ckpt] run {name}: steps {r['start_step']}-{CKPT_STEPS - 1}; "
+            f"saves block the loop {r['save_seconds']} s, write "
+            f"{r['write_seconds']} s on their thread, the closing wait "
+            f"{r['final_wait_seconds']:.3f} s; restore "
+            f"{r['restore_seconds']} s; a step {n['step_s_plain']:.3f} s "
+            f"alone, {n['step_s_with_save']:.3f} s with a save; peak "
+            f"{r['peak_bytes'] / 1e9:.2f} GB; straggler_events "
+            f"{r['straggler_events']}")
+    numbers.update(loss_rel=loss_rel, params_err=p_err, params_same=p_same,
+                   losses_same=lb == la)
+    del runs, a, b
+    shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    want = 3 * CKPT_STEPS // 2     # A's 8 steps and B's 4
+    check(launches["flash_attention_fwd_lse"] == 2 * L * want
+          and launches["flash_attention_bwd"] == L * want,
+          f"rows 12 and 13 launched {launches['flash_attention_fwd_lse']} "
+          f"and {launches['flash_attention_bwd']} times in {want} steps")
+
+    # (b) the watchdog around real steps
+    params = model.init_params(cfg, seed=3, device=DEV)
+    opt = opt_lib.init(params)
+    step_fn = ts_lib.make_train_step(cfg, ts_lib.TrainConfig(
+        optimizer=opt_lib.OptimizerConfig(warmup_steps=2,
+                                          total_steps=WATCH_STEPS + 1)))
+    pc = TokenPipelineConfig(vocab_size=cfg.vocab_size, batch_size=LM_BATCH,
+                             seq_len=LM_SEQ, seed=3)
+    toks = [torch.from_numpy(batch_for_step(pc, i)).to(DEV)
+            for i in range(WATCH_STEPS + 1)]
+
+    def one_step(tok):
+        nonlocal params, opt
+        params, opt, m = step_fn(params, opt, {"tokens": tok})
+        float(m["loss"])
+        sync()
+
+    one_step(toks[0])                  # warm-up, not watched
+    wd = elastic.StragglerWatchdog()
+    dts, trips, sleeps = [], [], []
+    for i in range(WATCH_STEPS):
+        t0 = time.perf_counter()
+        wd.step_start()
+        one_step(toks[i + 1])
+        if i >= WATCH_SLOW_FROM:
+            sleeps.append(2 * statistics.median(dts[:WATCH_SLOW_FROM]))
+            time.sleep(sleeps[-1])
+        if wd.step_end(i):
+            trips.append(i)
+        dts.append(time.perf_counter() - t0)
+    log(f"  [watchdog] {WATCH_STEPS} steps, the first {WATCH_SLOW_FROM} of "
+        f"{min(dts[:WATCH_SLOW_FROM]):.3f}-{max(dts[:WATCH_SLOW_FROM]):.3f} "
+        f"s, steps {WATCH_SLOW_FROM} on "
+        f"slept {sleeps[0]:.3f} s more; flagged {wd.events}, tripped at "
+        f"{trips}")
+    check(not [t for t in trips if t < WATCH_SLOW_FROM],
+          f"the watchdog tripped before step {WATCH_SLOW_FROM}: {trips}")
+    check(trips, "the watchdog did not trip on the slowed steps")
+    numbers["watchdog"] = {"step_seconds": dts, "events": wd.events,
+                           "trips": trips, "sleep_s": sleeps[0]}
+    del params, opt, step_fn, toks
+    torch.cuda.empty_cache()
+
+    # (c) the pipeline: 24 layers as 4 stages, f32, row 11's f32 kernel
+    pcfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash",
+                               compute_dtype="float32")
+    params = model.init_params(pcfg, seed=4, device=DEV)
+    per = L // PIPE_STAGES
+    stages = {"layers": [_stack_trees(torch, [
+        params["blocks"][s * per + j] for s in range(PIPE_STAGES)])
+        for j in range(per)]}
+    del params
+    positions = torch.arange(PIPE_SEQ, device=DEV)
+
+    def body(sp, x):
+        for p in sp["layers"]:
+            x, _, _ = model._layer(p, x, kind=pcfg.period[0], cfg=pcfg,
+                                   shared=None, positions=positions,
+                                   cache=None, cache_index=0)
+        return x
+
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    x = torch.randn((PIPE_MICRO, PIPE_SEQ, pcfg.d_model), generator=gen,
+                    device=DEV)
+    with torch.no_grad():
+        body(model.map_leaves(lambda v: v[0], stages), x[:1])   # warm-up
+        sync()
+        before = ops.launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        y = pipeline.pipeline_forward(body, stages, x,
+                                      num_microbatches=PIPE_MICRO)
+        sync()
+        pipe_s = time.perf_counter() - t0
+        pipe_launches = ops.launch_counts()["flash_attention"] - before
+        t0 = time.perf_counter()
+        y_ref = pipeline.sequential_oracle(body, stages, x)
+        sync()
+        seq_s = time.perf_counter() - t0
+    err = float((y - y_ref).abs().max())
+    scale = float(y_ref.abs().max())
+    ticks = PIPE_STAGES + PIPE_MICRO - 1
+    bubble = pipeline.bubble_fraction(PIPE_STAGES, PIPE_MICRO)
+    log(f"  [pipeline] {PIPE_STAGES} stages of {per} layers, {PIPE_MICRO} "
+        f"microbatches of 1 x {PIPE_SEQ}: pipeline_forward {pipe_s:.3f} s "
+        f"({ticks} ticks, {ticks * PIPE_STAGES} stage calls, "
+        f"{pipe_launches} launches of row 11), sequential_oracle "
+        f"{seq_s:.3f} s ({PIPE_STAGES * PIPE_MICRO} microbatch-stages); "
+        f"bubble_fraction {bubble:.4f}; max |diff| {err:.3e} (largest "
+        f"|output| {scale:.3f})")
+    check(pipe_launches == ticks * PIPE_STAGES * per,
+          f"pipeline_forward launched row 11 {pipe_launches} times")
+    check(err <= 1e-5 * scale, "pipeline_forward differs from "
+          "sequential_oracle by more than 1e-5 of the largest output")
+    numbers["pipeline"] = {"pipeline_s": pipe_s, "sequential_s": seq_s,
+                           "bubble_fraction": bubble, "max_abs_err": err,
+                           "scale": scale, "row11_launches": pipe_launches}
+    del stages, x, y, y_ref
+    torch.cuda.empty_cache()
+
+    # (d) compression: one step's gradients on 4 batches as 4 shards
+    params = model.init_params(cfg, seed=5, device=DEV)
+    leaves = [p.requires_grad_(True) for _, p in model.named_leaves(params)]
+    grads = [torch.empty((COMP_SHARDS,) + p.shape, dtype=torch.float32,
+                         device=DEV) for p in leaves]
+    pc = TokenPipelineConfig(vocab_size=cfg.vocab_size, batch_size=LM_BATCH,
+                             seq_len=LM_SEQ, seed=5)
+    for s in range(COMP_SHARDS):
+        tok = torch.from_numpy(batch_for_step(pc, s)).to(DEV)
+        loss, _ = ts_lib.loss_fn(params, {"tokens": tok}, cfg)
+        for acc, g in zip(grads, torch.autograd.grad(loss, leaves)):
+            acc[s].copy_(g)
+        del loss
+    del params, leaves
+    torch.cuda.empty_cache()
+    err_fb = compression.init_error_feedback(grads)
+    sent = [torch.zeros(g.shape[1:], dtype=torch.float64, device=DEV)
+            for g in grads]
+    call_s = []
+    for _ in range(COMP_ROUNDS):
+        sync()
+        t0 = time.perf_counter()
+        out, err_fb = compression.compress_psum(grads, err_fb, frac=COMP_FRAC,
+                                                sharded=True)
+        sync()
+        call_s.append(time.perf_counter() - t0)
+        for acc, o in zip(sent, out):
+            acc.add_(o)
+        del out
+    # sum_s (sum_r sent_r,s + e_s) = rounds x sum_s g_s, up to the f32
+    # additions of each round's g + e and of each 4-shard sum: within
+    # 64 u of sum_s |g_s| at each element (they add up to about 36 u).
+    worst = 0.0
+    for g, acc, e in zip(grads, sent, err_fb):
+        lhs = COMP_SHARDS * acc + e.double().sum(0)
+        rhs = COMP_ROUNDS * g.double().sum(0)
+        bound = 64 * U32 * g.double().abs().sum(0)
+        over = (lhs - rhs).abs() - bound
+        worst = max(worst, float(over.max()))
+        check(bool((over <= 0).all()), "sent + residual differs from the "
+              "summed gradient by more than 64 u of sum |g|")
+    del sent, err_fb
+    sync()
+    t0 = time.perf_counter()
+    full, _ = compression.compress_psum(
+        grads, compression.init_error_feedback(grads), frac=1.0,
+        sharded=True)
+    sync()
+    full_s = time.perf_counter() - t0
+    mean_err = 0.0
+    for g, f in zip(grads, full):
+        d = (f - g.mean(0)).abs()
+        mean_err = max(mean_err, float(d.max()))
+        check(bool((d <= 8 * U32 * g.abs().sum(0) / COMP_SHARDS).all()),
+              "frac=1.0 differs from the shard mean")
+    shard_shapes = [torch.empty(g.shape[1:], device="meta") for g in grads]
+    ratio = compression.compression_ratio(shard_shapes, COMP_FRAC)
+    log(f"  [compression] {COMP_SHARDS} shards of {n_params} f32 gradients: "
+        f"compress_psum at frac {COMP_FRAC} "
+        f"{[round(1e3 * t, 3) for t in call_s]} ms a call, frac 1.0 "
+        f"{1e3 * full_s:.3f} ms; compression_ratio "
+        f"{ratio:.6f}; sent + residual within the bound (largest margin "
+        f"used {worst:.3e}); frac 1.0 against the mean: max |diff| "
+        f"{mean_err:.3e}")
+    numbers["compression"] = {"call_ms": [1e3 * t for t in call_s],
+                              "full_ms": 1e3 * full_s, "ratio": ratio,
+                              "mean_err": mean_err}
+    del grads, full
+    torch.cuda.empty_cache()
+
+    launches = ops.launch_counts()
+    for name in ("flash_attention", "flash_attention_fwd_lse",
+                 "flash_attention_bwd"):
+        check(launches[name] > 0, f"kernel {name} did not launch on phase "
+              f"16's path")
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    log(f"  launches on phase 16's path {launches}")
+    log(f"  phase 16 wall {numbers['wall_s']:.1f} s")
+    log(json.dumps({"phase16": numbers}, default=str))
     return launches, numbers
 
 
@@ -3408,7 +3796,8 @@ def profile_decode_step(torch, arch="qwen1.5-0.5b", steps=4):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
                     help="phases 4, 10, 11 and 12's read count, phase "
@@ -3560,6 +3949,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"[remaining] done ({time.perf_counter() - t0:.1f} s)")
 
+    phase16_launches = None
+    if 16 in phases:
+        t0 = time.perf_counter()
+        log("[trainer] checkpoints and resume, the straggler watchdog, the "
+            "GPipe schedule and gradient compression at full size")
+        phase16_launches, _ = trainer_phase(torch, ops)
+        torch.cuda.empty_cache()
+        log(f"[trainer] done ({time.perf_counter() - t0:.1f} s)")
+
     # Phase 10 comes after the phases whose wall times the records keep, as
     # it profiles its kernels for phase 6: once torch.profiler has run, the
     # process launches kernels more slowly (PERF.md §6).
@@ -3593,6 +3991,8 @@ def main(argv=None) -> int:
                                      else phase14_launches[e["name"]])
             e["launches_phase15"] = (None if phase15_launches is None
                                      else phase15_launches[e["name"]])
+            e["launches_phase16"] = (None if phase16_launches is None
+                                     else phase16_launches[e["name"]])
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()

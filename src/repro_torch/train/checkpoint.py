@@ -29,6 +29,7 @@ import json
 import os
 import shutil
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,9 +69,11 @@ def _leaf_paths(tree, prefix=()) -> List[Tuple[str, Any]]:
 
 def _to_numpy(leaf) -> np.ndarray:
     """A host copy of one leaf: later in-place updates of a tensor never
-    reach it."""
+    reach it. A device tensor's copy to host is already its own."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu").numpy().copy()
+        t = leaf.detach()
+        return t.cpu().numpy() if t.device.type != "cpu" else \
+            t.numpy().copy()
     return np.array(leaf)
 
 
@@ -146,11 +149,13 @@ class AsyncSaver:
     A background write that fails is held and raised again from the next
     `wait()` or `save()`, once, so a caller never relies on a checkpoint
     that was not completed. The disk still holds the previous complete
-    checkpoint (the rename is atomic)."""
+    checkpoint (the rename is atomic). `write_seconds` holds (step,
+    seconds) of every completed write, timed on its thread."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.write_seconds: List[Tuple[int, float]] = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -162,7 +167,9 @@ class AsyncSaver:
 
         def _run():
             try:
+                t0 = time.perf_counter()
                 save(self.ckpt_dir, step, host_trees, extra, self.keep)
+                self.write_seconds.append((step, time.perf_counter() - t0))
             except BaseException as e:   # held for the next wait()/save()
                 self._error = e
 

@@ -59,14 +59,34 @@ from repro_torch.kernels import flash_attention, segment_count
 from repro_torch.kernels import kmer_extract, radix_hist
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data import tokens
-from repro_torch.launch import kc_serve, serve, train
+from repro_torch.launch import kc_serve, mesh, serve, train
 from repro_torch.train import checkpoint
 from repro_torch.models import (attention, convert, frontends, layers, model,
-                                moe, ssm)
-from repro_torch.train import optimizer, serve_step, train_step
-out = train.train("qwen1.5-0.5b", reduced=True, steps=2, batch=2, seq=16,
-                  device="cpu", attn_impl="flash_train")
+                                moe, sharding, ssm)
+from repro_torch.train import (compression, elastic, optimizer, pipeline,
+                               serve_step, train_step)
+import tempfile
+with tempfile.TemporaryDirectory() as ck:
+    out = train.train("qwen1.5-0.5b", reduced=True, steps=2, batch=2, seq=16,
+                      device="cpu", attn_impl="flash_train", ckpt_dir=ck,
+                      ckpt_every=1)
+    assert checkpoint.latest_step(ck) == 2
 assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+m = elastic.remesh(list(range(48)), 16, pods=2)
+assert dict(m.shape) == {"data": 3, "model": 16}
+assert mesh.data_axes_of(mesh.make_test_mesh((2, 2, 2), ("pod", "data",
+                                                         "model"),
+                                             list(range(8)))) == ("pod",
+                                                                  "data")
+specs = sharding.param_specs(out["params"], m)
+assert specs["embed"]["tok"] == sharding.P("model", None)
+w = {"w": torch.ones(2, 4)}
+y = pipeline.pipeline_forward(lambda p, x: x * p["w"], w, torch.ones(4, 4),
+                              num_microbatches=2)
+assert torch.equal(y, torch.ones(4, 4))
+g, e = compression.compress_psum(w, compression.init_error_feedback(w),
+                                 frac=0.5, sharded=True)
+assert g["w"].shape == (4,) and e["w"].shape == (2, 4)
 srv = serve.serve("zamba2-1.2b", reduced=True, batch=2, prompt_len=8, gen=4,
                   device="cpu")
 assert tuple(srv["tokens"].shape) == (2, 4)
@@ -160,13 +180,18 @@ def test_counter_surface_needs_a_card():
     assert "inject sweep OK" not in proc.stdout
 
 
-def test_lm_training_needs_a_card():
+def test_lm_training_needs_a_card(tmp_path):
     from repro_torch.launch import train
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.train("qwen1.5-0.5b", reduced=True, steps=1, batch=2, seq=16)
+    ck = tmp_path / "ckpt"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train("qwen1.5-0.5b", reduced=True, steps=1, batch=2, seq=16,
+                    ckpt_dir=str(ck), ckpt_every=1)
+    assert not ck.exists()
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "moonshot-v1-16b-a3b",
