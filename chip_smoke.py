@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 1,2,14    # LM serving and the families
     python3 chip_smoke.py --phases 1,2,4,15  # the counter's remaining surface
     python3 chip_smoke.py --phases 1,2,16    # the LM trainer's infrastructure
+    python3 chip_smoke.py --phases 1,2,17    # the dry-run and its predictions
     python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13 and 15's reads
 
 Phases:
@@ -139,6 +140,31 @@ Phases:
      roundoffs of sum |g| at each element, and frac 1.0 equal to the shard
      mean; ms a call and compression_ratio; rows 11-13 must launch on the
      phase's path;
+  17. the dry-run and its predictions against the card: (a) on the
+     card, each prediction held to a real run: phase 9's step
+     (qwen1.5-0.5b, 4 x 4096, 'flash_train', as two microbatches of
+     2 x 4096, a (1, 1) mesh), traced as `launch.dryrun` traces every
+     cell (every layer and microbatch): argument bytes equal to what the
+     trainer holds, FLOPs within [1.0, 1.6] x the model count, the
+     roofline bound at most the fastest step, the predicted peak beside
+     max_memory_allocated; one decode step of phase 14's serving (batch
+     8, a 648-position cache): argument bytes equal to the parameters and
+     caches, the bound at most the fastest step;
+     `kc_dryrun.lower_kc` at phase 4's workload (2**23 reads, k=31,
+     chunk_reads 256, 8 PEs on the card) beside `count_kmers`: its
+     l3_mode equal to the one planned from the reads, its plan, route
+     bytes and peak beside the run's, its bound (8 PEs on one card: 8 x
+     the larger of the compute and memory terms) at most the measured
+     wall; (b) then on the host, in subprocesses that see no card, so
+     that no host job runs beside a timed run on the card:
+     `launch.dryrun --all --mesh both --jobs <cores>` (every arch x shape
+     cell traced on meta tensors on the (16, 16) and (2, 16, 16) meshes,
+     or skipped with `applicable_shapes`' reason), `launch.roofline`
+     over its records, the counter's default lowering (Synthetic-30/8,
+     44,564,480 reads, both receivers, --stream-batches 4) and
+     `kc_dryrun --query 1048576`, each one's wall time and the
+     stacked/stream temp ratio (it writes under build/chip_smoke_phase17/
+     and deletes it);
   10. the sweep kernels through their entry points on the same read set:
      ops.kmer_extract over all 2**23 reads (forward and canonical, each
      piece bit-equal to its plain version); the canonical k-mers of the
@@ -169,7 +195,8 @@ Phases:
      torch.profiler (device time by kernel, the device's busy share, the
      main path's launches per scan step, device launches a decode step).
 
-Phases run in the order 1-5, 11, 12, 8, 13, 9, 14, 15, 16, 10, 6, 7: phases
+Phases run in the order 1-5, 11, 12, 8, 13, 9, 14, 15, 16, 17, 10, 6, 7:
+phases
 11 and 12 before phase 8, whose counter keeps its store until phase 6;
 phase 13 after phase 8, whose counter and histogram it reads, freeing
 what it made before phase 9; and every phase whose wall time is kept
@@ -2934,6 +2961,328 @@ def trainer_phase(torch, ops):
     return launches, numbers
 
 
+
+# --- phase 17: the dry-run and its predictions against the card -----------
+
+PHASE17_DIR = os.path.join(HERE, "build", "chip_smoke_phase17")
+DRYRUN_QUERIES = 1 << 20
+# The counter's default lowering: Synthetic-30/8 reads after the quantum of
+# 256 PEs x 2048 reads a chunk.
+KC_DEFAULT_READS = 44_564_480
+FLOP_RANGE = (1.0, 1.6)     # traced FLOPs over the model count (remat)
+# phase 9's step taken as two microbatches of 2 x 4096, so that the traced
+# step (every layer and microbatch) holds the accumulation loop too
+DRYRUN_MICRO = 2
+
+
+def dryrun_host_jobs():
+    """Start phase 17's host half, after its card half: subprocesses that
+    see no card (an empty CUDA_VISIBLE_DEVICES), each writing its output
+    to a file; the dry-run traces its cells in one process a core. Returns
+    {name: (Popen, start, log path)} and the record directory."""
+    import shutil
+    shutil.rmtree(PHASE17_DIR, ignore_errors=True)
+    cells = os.path.join(PHASE17_DIR, "cells")
+    os.makedirs(cells)
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    py = [sys.executable, "-m"]
+    cores = min(8, len(os.sched_getaffinity(0)))
+    jobs = {
+        "dryrun": py + ["repro_torch.launch.dryrun", "--all", "--mesh",
+                        "both", "--jobs", str(cores), "--out", cells],
+        "kc": py + ["repro_torch.launch.kc_dryrun", "--stream-batches", "4",
+                    "--out", os.path.join(PHASE17_DIR, "kc.json")],
+        "query": py + ["repro_torch.launch.kc_dryrun", "--query",
+                       str(DRYRUN_QUERIES), "--device", "cpu", "--out", ""],
+    }
+    started = {}
+    for name, cmd in jobs.items():
+        path = os.path.join(PHASE17_DIR, f"{name}.log")
+        fh = open(path, "w")
+        started[name] = (subprocess.Popen(cmd, env=env, cwd=HERE, stdout=fh,
+                                          stderr=subprocess.STDOUT),
+                         time.perf_counter(), path, fh)
+    return started, cells
+
+
+def dryrun_host_check(started, cells):
+    """Wait for the host half and hold it to its gates."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+
+    ends, deadline = {}, time.perf_counter() + 600
+    while len(ends) < len(started):
+        check(time.perf_counter() < deadline, "the dry-run's host jobs did "
+              "not end within 600 s")
+        for name, (proc, _, _, _) in started.items():
+            if name not in ends and proc.poll() is not None:
+                ends[name] = time.perf_counter()
+        time.sleep(0.2)
+    for name, (proc, t_start, path, fh) in started.items():
+        rc = proc.returncode
+        fh.close()
+        with open(path) as f:
+            text = f.read()
+        log(f"  host job {name}: exit {rc}, "
+            f"{ends[name] - t_start:.1f} s")
+        check(rc == 0, f"the dry-run's host job {name} failed:\n"
+              f"{text[-3000:]}")
+        started[name] = text
+    n_ok = n_skip = 0
+    seconds = 0.0
+    for multi in (False, True):
+        mname = "pod2x16x16" if multi else "pod16x16"
+        for arch in ARCH_IDS:
+            applicable = applicable_shapes(get_config(arch))
+            for shape in SHAPES:
+                with open(os.path.join(
+                        cells, f"{arch}__{shape}__{mname}.json")) as f:
+                    rec = json.load(f)
+                ok, reason = applicable[shape]
+                check("error" not in rec, f"dry-run cell {arch} {shape} "
+                      f"{mname} failed: {rec.get('error')}")
+                if not ok:
+                    check(rec.get("skipped") == reason, f"{arch} {shape} "
+                          f"{mname} skipped without its reason")
+                    n_skip += 1
+                    continue
+                check("memory" in rec and rec["cost"]["flops"] > 0,
+                      f"{arch} {shape} {mname} has no counts")
+                n_ok += 1
+                seconds += rec["lower_seconds"]
+    log(f"  dryrun --all --mesh both: {n_ok} cells traced "
+        f"({seconds:.1f} s of trace in all), {n_skip} skipped with "
+        f"applicable_shapes' reason")
+    log("  roofline over the records (H100: 989e12 FLOP/s, 3.35e12 B/s, "
+        "NVLink 450e9 B/s a direction):")
+    table = roofline.main(["--dir", cells, "--out",
+                           os.path.join(PHASE17_DIR, "roofline.txt")])
+    check(table.count("\n") >= n_ok, "the roofline lacks a row")
+    with open(os.path.join(PHASE17_DIR, "kc.json")) as f:
+        kc = json.load(f)
+    inc = kc["incremental"]
+    log(f"  kc_dryrun default ({kc['n_reads']} reads, 256 PEs): l3_mode "
+        f"{kc['l3_mode']}, store {kc['store_capacity_per_pe']} slots a PE, "
+        f"stream temp {kc['memory']['temp_gb']:.4f} GB, stacked "
+        f"{kc['stacked_receiver']['memory']['temp_gb']:.4f} GB a PE: "
+        f"stacked/stream {kc['receive_memory_ratio_stacked_over_stream']:.3f}"
+        f"x; incremental (4 batches) temp {inc['memory']['temp_gb']:.4f} GB, "
+        f"args {inc['memory']['args_gb']:.4f} GB; bound "
+        f"{kc['roofline']['kmers_per_sec_per_chip_bound']:.4e} k-mers/s a "
+        f"PE ({kc['roofline']['dominant']})")
+    check(kc["n_reads"] == KC_DEFAULT_READS, "the default lowering's reads")
+    check(kc["receive_memory_ratio_stacked_over_stream"] > 1,
+          "the stacked receiver does not hold more than the stream")
+    for line in started["query"].splitlines():
+        if "query executable" in line or "temp=" in line:
+            log("  " + line.strip())
+    check("query dry-run OK" in started["query"], "the query drill failed")
+
+
+def _tree_nbytes(torch, tree):
+    from repro_torch.models import model
+    return sum(t.numel() * t.element_size()
+               for _, t in model.named_leaves(tree))
+
+
+def dryrun_phase(torch, fabsp, ops, genome):
+    """Phase 17. Returns the kernel launches of its runs on the card (the
+    dry-run's meta traces launch nothing and count nothing, which it
+    checks); every gate raises."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun, kc_dryrun, roofline
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import Mesh, device_array
+    from repro_torch.models import model
+
+    card = Mesh(device_array(["abstract:0"], (1, 1)), ("data", "model"))
+    ops.reset_launches()
+
+    def no_meta_launch(before, what):
+        check(ops.launch_counts() == before, f"{what} counted a launch")
+
+    # (a1) phase 9's step
+    cfg = get_config(LM_ARCH)
+    cell = ShapeCell("phase9_step", LM_SEQ, LM_BATCH, "train")
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell(LM_ARCH, cell, card,
+                            num_microbatches=DRYRUN_MICRO,
+                            attn_impl="flash_train")
+    no_meta_launch(dict.fromkeys(ops.launch_counts(), 0),
+                   "the train step's meta trace")
+    check(rec["kernels"]["flash_attention_bwd"]["calls"]
+          == cfg.num_layers * DRYRUN_MICRO,
+          "the trace did not reach row 13 in every layer and microbatch")
+    rec["_mesh_name"] = "card1x1"
+    terms = roofline.roofline_terms(rec)
+    mem = rec["memory"]
+    log(f"  [train] dry-run of phase 9's step ({time.perf_counter() - t0:.1f}"
+        f" s): args {mem['argument_size_in_bytes']} B, temp "
+        f"{mem['temp_size_in_bytes']} B, {rec['cost']['flops']:.4e} FLOP, "
+        f"{rec['cost']['bytes accessed']:.4e} B accessed; bound "
+        f"{terms['bound_time_s']:.4f} s ({terms['dominant']}: compute "
+        f"{terms['t_compute_s']:.4f}, memory {terms['t_memory_s']:.4f})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_lib.train(LM_ARCH, reduced=False, steps=3, batch=LM_BATCH,
+                          seq=LM_SEQ, log_every=1, device=DEV,
+                          microbatches=DRYRUN_MICRO, attn_impl="flash_train")
+    peak = torch.cuda.max_memory_allocated()
+    # the JAX step's arguments: parameters, AdamW moments and its 0-d int32
+    # step (a host int in the port), and the int32 token batch
+    held = (_tree_nbytes(torch, out["params"])
+            + _tree_nbytes(torch, out["opt_state"].mu)
+            + _tree_nbytes(torch, out["opt_state"].nu) + 4
+            + LM_BATCH * LM_SEQ * 4)
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    tokens = LM_BATCH * LM_SEQ
+    model_flops = (6 * out["n_params"] * tokens
+                   + 6 * L * hd * LM_BATCH * H * LM_SEQ * (LM_SEQ + 1))
+    step_s = min(out["step_seconds"][1:])
+    ratio = rec["cost"]["flops"] / model_flops
+    log(f"  [train] measured: steps {out['step_seconds']} s, "
+        f"max_memory_allocated {peak} B; the trainer holds {held} B of "
+        f"arguments (predicted {mem['argument_size_in_bytes']}); predicted "
+        f"peak (args + temp) "
+        f"{mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']} B; "
+        f"FLOPs {ratio:.4f} x the model count {model_flops:.4e}; bound "
+        f"{terms['bound_time_s']:.4f} s against the fastest step "
+        f"{step_s:.4f} s")
+    check(mem["argument_size_in_bytes"] == held,
+          "phase 9's predicted argument bytes differ from the trainer's")
+    check(FLOP_RANGE[0] <= ratio <= FLOP_RANGE[1],
+          f"phase 9's traced FLOPs are {ratio:.4f} x the model count")
+    check(terms["bound_time_s"] <= step_s,
+          "phase 9's roofline bound exceeds the measured step")
+    del out
+    torch.cuda.empty_cache()
+
+    # (a2) one decode step of phase 14's serving
+    cache_len = TIMED_PROMPT + TIMED_GEN + 8     # launch.serve's max_seq
+    cell = ShapeCell("serve_decode", cache_len, TIMED_BATCH, "decode")
+    before = ops.launch_counts()
+    rec = dryrun.lower_cell(LM_ARCH, cell, card)
+    no_meta_launch(before, "the decode step's meta trace")
+    rec["_mesh_name"] = "card1x1"
+    terms = roofline.roofline_terms(rec)
+    mem = rec["memory"]
+    params = model.init_params(cfg, seed=0, device=DEV)
+    caches = model.init_caches(cfg, TIMED_BATCH, cache_len, torch.bfloat16,
+                               device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (TIMED_BATCH, TIMED_PROMPT),
+                           generator=gen, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with torch.no_grad():
+        lg, caches = model.prefill(params, {"tokens": prompt}, caches, cfg)
+        tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+        for i in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = model.decode_step(params, tok, caches,
+                                           TIMED_PROMPT + i, cfg)
+            tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    # the JAX step's arguments: parameters, caches, the (B, 1) int32 tokens
+    # and the 0-d int32 cache index
+    held = (_tree_nbytes(torch, params) + sum(
+        t.numel() * t.element_size() for layer in caches
+        for c in layer.values() for t in c) + TIMED_BATCH * 4 + 4)
+    med = sorted(steps)[len(steps) // 2]
+    log(f"  [decode] batch {TIMED_BATCH}, cache {cache_len}: predicted args "
+        f"{mem['argument_size_in_bytes']} B (held {held}), peak (args + "
+        f"temp) {mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']} "
+        f"B against max_memory_allocated {peak} B; bound "
+        f"{terms['bound_time_s'] * 1e3:.4f} ms ({terms['dominant']}) "
+        f"against measured steps {[round(x * 1e3, 3) for x in steps]} ms "
+        f"(median {med * 1e3:.3f})")
+    check(mem["argument_size_in_bytes"] == held,
+          "the decode step's predicted argument bytes differ from the "
+          "parameters and caches")
+    check(terms["bound_time_s"] <= min(steps),
+          "the decode step's roofline bound exceeds the measured step")
+    del params, caches, lg
+    torch.cuda.empty_cache()
+
+    # (a3) the counter at phase 4's workload
+    n_reads = 1 << 23
+    pes = Mesh(np.asarray([f"abstract:{i}" for i in range(NUM_PES)],
+                          dtype=object), ("pe",))
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    kc = kc_dryrun.lower_kc(n_reads, 150, K, pes, chunk_reads=256)
+    no_meta_launch(before, "the counter's meta trace")
+    log(f"  [count] lower_kc at phase 4's workload ({time.perf_counter() - t0:.1f}"
+        f" s): l3_mode {kc['l3_mode']}, hop2_caps {kc['hop2_caps']}, "
+        f"compact_caps {kc['compact_caps']}, store "
+        f"{kc['store_capacity_per_pe']} slots a PE, temp "
+        f"{kc['memory']['temp_gb']:.4f} GB and args "
+        f"{kc['memory']['args_gb']:.4f} GB a PE, {kc['cost']['bytes']:.4e} "
+        f"B accessed a PE, route {kc['collectives']['total_bytes']:.4e} B "
+        f"a PE")
+    spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=n_reads,
+                              read_len=150, seed=0)
+    reads = genome.sample_reads_torch(spec, DEV)
+    cfg_kc = fabsp.DAKCConfig(k=K, chunk_reads=256)
+    shape = tuple(reads.shape)
+    mode, cap_n, cap_h = fabsp._plan_caps(cfg_kc, NUM_PES, shape,
+                                          cfg_kc.slack)
+    store_cap = fabsp._resolve_store_capacity(reads, cfg_kc, NUM_PES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, stats = fabsp.count_kmers(reads, cfg_kc, num_pes=NUM_PES,
+                                   device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del res, reads
+    r = kc["roofline"]
+    card_bound = NUM_PES * max(r["t_compute_s"], r["t_memory_s"])
+    pred_peak = NUM_PES * (kc["memory"]["temp_gb"] + kc["memory"]["args_gb"])
+    log(f"  [count] planned from the reads: l3_mode {mode}, caps "
+        f"({cap_n}, {cap_h}), store {store_cap} slots a PE "
+        f"(count_kmers' 'sample' sizing; the dry-run, with no reads, takes "
+        f"the instance bound); retries "
+        f"route-slack {stats.retry_route_slack}, store-rehash "
+        f"{stats.retry_store_rehash}")
+    log(f"  [count] route bytes predicted "
+        f"{NUM_PES * kc['collectives']['total_bytes']:.0f}, measured "
+        f"DAKCStats.wire_bytes {int(stats.wire_bytes)}; peak predicted "
+        f"{pred_peak:.3f} GB, measured {peak / 1e9:.3f} GB; bound "
+        f"({NUM_PES} PEs on one card) {card_bound:.4f} s against the "
+        f"measured wall {wall:.3f} s")
+    check(mode == kc["l3_mode"], "the dry-run's l3_mode differs from the "
+          "one planned from the reads")
+    check(card_bound <= wall, "the counter's roofline bound exceeds the "
+          "measured wall")
+    launches = ops.launch_counts()
+    log(f"  launches of phase 17's runs on the card: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    passes = 3 * DRYRUN_MICRO       # 3 steps of DRYRUN_MICRO microbatches
+    check(launches["flash_attention_fwd_lse"] == 2 * cfg.num_layers * passes
+          and launches["flash_attention_bwd"] == cfg.num_layers * passes,
+          "phase 17's training did not launch rows 12 and 13 in every "
+          "layer")
+    for name in COUNT_KERNELS:
+        if name not in ROW1:
+            check(launches[name] > 0, f"{name} did not launch in phase "
+                  f"17's count")
+    torch.cuda.empty_cache()
+    started, cells = dryrun_host_jobs()
+    dryrun_host_check(started, cells)
+    import shutil
+    shutil.rmtree(PHASE17_DIR, ignore_errors=True)
+    return launches
+
+
 # --- phase 6: kernel times --------------------------------------------------
 
 DEVICE_MS_TRIES = 5     # profiler windows before device_ms gives up
@@ -3797,7 +4146,7 @@ def profile_decode_step(torch, arch="qwen1.5-0.5b", steps=4):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
                     help="phases 4, 10, 11 and 12's read count, phase "
@@ -3958,6 +4307,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"[trainer] done ({time.perf_counter() - t0:.1f} s)")
 
+    phase17_launches = None
+    if 17 in phases:
+        t0 = time.perf_counter()
+        log("[dryrun] every cell traced on meta tensors (host), then its "
+            "predictions against real runs on the card")
+        phase17_launches = dryrun_phase(torch, fabsp, ops, genome)
+        torch.cuda.empty_cache()
+        log(f"[dryrun] done ({time.perf_counter() - t0:.1f} s)")
+
     # Phase 10 comes after the phases whose wall times the records keep, as
     # it profiles its kernels for phase 6: once torch.profiler has run, the
     # process launches kernels more slowly (PERF.md §6).
@@ -3993,6 +4351,8 @@ def main(argv=None) -> int:
                                      else phase15_launches[e["name"]])
             e["launches_phase16"] = (None if phase16_launches is None
                                      else phase16_launches[e["name"]])
+            e["launches_phase17"] = (None if phase17_launches is None
+                                     else phase17_launches[e["name"]])
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()

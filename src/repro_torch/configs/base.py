@@ -36,6 +36,10 @@ class SSMConfig:
     dt_min: float = 0.001
     dt_max: float = 0.1
 
+    def d_inner(self, d_model: int) -> int:
+        """The inner width: expand x d_model."""
+        return self.expand * d_model
+
 
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
@@ -147,7 +151,7 @@ class ModelConfig:
     def _mamba_params(self) -> int:
         s = self.ssm
         d = self.d_model
-        d_in = s.expand * d
+        d_in = s.d_inner(d)
         n_heads = d_in // s.headdim
         return (d * (2 * d_in + 2 * s.n_groups * s.d_state + n_heads)  # in_proj
                 + s.conv_width * (d_in + 2 * s.n_groups * s.d_state)   # conv

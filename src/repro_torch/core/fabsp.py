@@ -657,12 +657,14 @@ def _chunk_valid_estimate(reads: torch.Tensor, cfg: DAKCConfig, mode: str,
     slot counts: the max over up to `_SAMPLE_CHUNKS` evenly spaced chunks
     of the read set, pushed through the mode's own compression, and the
     valid slots of the busiest single owner. 'none' ships every instance,
-    so the shape bound is exact. A sample shorter than a chunk is scaled
+    so the shape bound is exact; with no reads (`reads` None: the
+    dry-run's shape-only plan) the estimate is that bound and the peak
+    its mean over the PEs. A sample shorter than a chunk is scaled
     up. The JAX package's function of the same name, on the host here too.
     """
     n_reads, m = shape
     chunk_kmers = cfg.chunk_reads * (m - cfg.k + 1)
-    if mode == "none" or n_reads == 0:
+    if mode == "none" or reads is None or n_reads == 0:
         est_n = (minimizer.expected_superkmers(cfg.chunk_reads, m, cfg.k,
                                                cfg.minimizer_len)
                  if mode == "superkmer"

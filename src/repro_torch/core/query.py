@@ -146,26 +146,15 @@ def pack_queries(kmers, cfg, device=None) -> torch.Tensor:
     return w
 
 
-def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
-                 num_pes: int, grid=None) -> Tuple[np.ndarray, QueryStats]:
-    """Batched lookup of `kmers` against a committed store snapshot of
-    `num_pes` PEs. Returns ((n,) int32 counts in request order, 0 = never
-    counted; QueryStats), exact for any batch: hits, misses, duplicates,
-    the empty batch.
-
-    `grid` is the counter's 2d (rows, cols) or None: both hops then take
-    the 'oneplan' 2d route. The query id is built from the row-major PE
-    index, which the 2d route folds owners into, so answers come back to
-    the PE that asked under either topology."""
-    dev = snap.keys.device
-    p = num_pes
-    words = pack_queries(kmers, cfg, dev)
-    nq = int(words.shape[0])
-    n_local = fabsp._pow2ceil(max(1, -(-nq // p)))
+def route_queries(q: torch.Tensor, cfg, snap, *, num_pes: int, grid=None):
+    """The device half of `query_counts`: (P, n_local) query words,
+    sentinel-padded, each PE's batch -> ((P, n_local + 1) int32 answers in
+    each PE's request order, the last column padding's; (P, 3) int64
+    hits, probe sum and longest walk; the wire bytes each PE moved).
+    Forward route, in-place probe and return route, no host read."""
+    dev = q.device
+    p, n_local = q.shape
     sent = W.sentinel(snap.word_bits)
-    q = torch.full((p * n_local,), sent, dtype=torch.int64, device=dev)
-    q[:nq] = words
-    q = q.view(p, n_local)
     valid = q != sent
     qid = (torch.arange(p * n_local, dtype=torch.int32, device=dev)
            .view(p, n_local) + 1)           # 1-based: 0 marks tile padding
@@ -192,13 +181,36 @@ def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
     dst = torch.where(bqid > 0, (bqid - 1) % n_local, n_local).to(torch.int64)
     out = torch.zeros((p, n_local + 1), dtype=torch.int32, device=dev)
     out.scatter_add_(1, dst, bcounts)
+    return out, lstats, rr.wire_bytes + rr2.wire_bytes
+
+
+def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
+                 num_pes: int, grid=None) -> Tuple[np.ndarray, QueryStats]:
+    """Batched lookup of `kmers` against a committed store snapshot of
+    `num_pes` PEs. Returns ((n,) int32 counts in request order, 0 = never
+    counted; QueryStats), exact for any batch: hits, misses, duplicates,
+    the empty batch.
+
+    `grid` is the counter's 2d (rows, cols) or None: both hops then take
+    the 'oneplan' 2d route. The query id is built from the row-major PE
+    index, which the 2d route folds owners into, so answers come back to
+    the PE that asked under either topology."""
+    dev = snap.keys.device
+    p = num_pes
+    words = pack_queries(kmers, cfg, dev)
+    nq = int(words.shape[0])
+    n_local = fabsp._pow2ceil(max(1, -(-nq // p)))
+    sent = W.sentinel(snap.word_bits)
+    q = torch.full((p * n_local,), sent, dtype=torch.int64, device=dev)
+    q[:nq] = words
+    out, lstats, wire = route_queries(q.view(p, n_local), cfg, snap,
+                                      num_pes=p, grid=grid)
     per_pe = lstats.tolist()
     hits = sum(r[0] for r in per_pe)
     psum = sum(r[1] for r in per_pe)
     pmax = max(r[2] for r in per_pe)
     stats = QueryStats(
-        n_queries=nq, n_hits=hits,
-        wire_bytes=p * (rr.wire_bytes + rr2.wire_bytes), probe_sum=psum,
+        n_queries=nq, n_hits=hits, wire_bytes=p * wire, probe_sum=psum,
         probe_max=pmax, n_local=n_local, batch_fill=nq / (n_local * p))
     return out[:, :n_local].reshape(-1)[:nq].cpu().numpy(), stats
 

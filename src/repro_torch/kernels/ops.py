@@ -2,7 +2,10 @@
 
 A tensor on the CPU goes to the kernel's plain version (`kernels.ref`); a
 CUDA tensor launches the CUDA kernel, and a failed build or launch raises.
-There is no fallback from the card to the plain version.
+There is no fallback from the card to the plain version. A `meta` tensor
+(the dry-run's trace) gets outputs of the kernel's shapes and its work
+charged to the active cost counter (`kernels.meta`); it launches nothing
+and counts no launch.
 
 Each wrapper counts its kernel launches in a plain int attribute,
 `<wrapper>.launches`, so a run can show that it went through the kernels
@@ -17,19 +20,23 @@ import torch
 
 from repro_torch.core import encoding
 from repro_torch.kernels import flash_attention as flash_kernels
-from repro_torch.kernels import (hash_table, minimizer, radix_partition, ref,
-                                 segment_count)
+from repro_torch.kernels import (hash_table, meta, minimizer, radix_partition,
+                                 ref, segment_count)
 from repro_torch.kernels import kmer_extract as extract_kernels
 from repro_torch.kernels import radix_hist as radix_hist_kernels
 from repro_torch.kernels.radix_partition import (PREFIX_MAX_CELLS, TILE,
                                                  PartitionPlan)
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
-        return False
+def _route(t: torch.Tensor, *, meta: bool = True) -> str:
+    """'cpu' (the plain version), 'cuda' (the kernel) or 'meta' (shapes
+    and cost alone). Rows 8-10, which no traced step reaches, pass
+    meta=False: a meta tensor raises there."""
+    if t.device.type == "meta" and not meta:
+        raise ValueError("this kernel has no meta path: no dry-run trace "
+                         "reaches it")
+    if t.device.type in ("cpu", "cuda", "meta"):
+        return t.device.type
     raise ValueError(f"no kernel for device {t.device}")
 
 
@@ -56,7 +63,7 @@ def kmer_extract(reads: torch.Tensor, k: int, bits_per_symbol: int = 2, *,
                          f"than k={k}")
     if canonical and bits_per_symbol != 2:
         raise ValueError("canonical k-mers are defined for 2-bit DNA codes")
-    if _on_cpu(reads):
+    if _route(reads, meta=False) == "cpu":
         return ref.kmer_extract(reads, k, bits_per_symbol, canonical)
     out = extract_kernels.kmer_extract_cuda(reads.contiguous(), k,
                                             bits_per_symbol, canonical)
@@ -76,7 +83,7 @@ def radix_hist(keys: torch.Tensor, shift: int, digit_bits: int = 4,
         raise ValueError(f"shift {shift} and digit_bits {digit_bits}: need "
                          f"shift >= 0 and digit_bits >= 1")
     rows = _rows(keys)
-    if _on_cpu(keys):
+    if _route(keys, meta=False) == "cpu":
         hist = ref.radix_hist(rows, shift, digit_bits, tile)
     else:
         hist = radix_hist_kernels.radix_hist_cuda(rows.contiguous(), shift,
@@ -91,7 +98,7 @@ def segment_boundaries(sorted_keys: torch.Tensor, *,
     the same shape: a valid word that differs from the one before it, the
     sentinel standing before index 0."""
     rows = _rows(sorted_keys)
-    if _on_cpu(sorted_keys):
+    if _route(sorted_keys, meta=False) == "cpu":
         flags = ref.segment_boundaries(rows, sentinel_val)
     else:
         flags = segment_count.segment_boundaries_cuda(rows.contiguous(),
@@ -102,8 +109,11 @@ def segment_boundaries(sorted_keys: torch.Tensor, *,
 
 def bucket_hist(buckets: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """(P, n) int32 ids -> (P, ceil(n / TILE), B) int32 per-tile counts."""
-    if _on_cpu(buckets):
+    route = _route(buckets)
+    if route == "cpu":
         return ref.bucket_hist(buckets, num_buckets, TILE)
+    if route == "meta":
+        return meta.bucket_hist(buckets, num_buckets, TILE)
     out = radix_partition.bucket_hist_cuda(buckets, num_buckets)
     bucket_hist.launches += 1
     return out
@@ -117,10 +127,13 @@ def bucket_prefix(buckets: torch.Tensor, num_buckets: int):
     prefix itself, where a row's (tiles, B) table fits PREFIX_MAX_CELLS;
     a larger row takes `bucket_hist`'s counts and the prefix in tensor
     code (`radix_partition.hist_prefix`)."""
-    if _on_cpu(buckets):
+    route = _route(buckets)
+    if route == "cpu":
         return ref.bucket_prefix(buckets, num_buckets, TILE)
     if -(-buckets.shape[1] // TILE) * num_buckets > PREFIX_MAX_CELLS:
         return radix_partition.hist_prefix(bucket_hist(buckets, num_buckets))
+    if route == "meta":
+        return meta.bucket_prefix(buckets, num_buckets, TILE)
     out = radix_partition.bucket_prefix_cuda(buckets, num_buckets)
     bucket_prefix.launches += 1
     return out
@@ -128,8 +141,11 @@ def bucket_prefix(buckets: torch.Tensor, num_buckets: int):
 
 def bucket_positions(buckets: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """(P, n) int32 ids + (P, n_tiles, B) bases -> (P, n) int32 slots."""
-    if _on_cpu(buckets):
+    route = _route(buckets)
+    if route == "cpu":
         return ref.bucket_positions(buckets, base, TILE)
+    if route == "meta":
+        return meta.bucket_positions(buckets, base)
     out = radix_partition.bucket_positions_cuda(buckets, base)
     bucket_positions.launches += 1
     return out
@@ -143,9 +159,12 @@ def segment_accumulate(sorted_keys: torch.Tensor,
     (is_new, is_end, run_totals); with `compact`, the runs compacted
     instead: (unique keys, counts, num_unique), the slots past num_unique
     holding the sentinel and 0."""
-    if _on_cpu(sorted_keys):
+    route = _route(sorted_keys)
+    if route == "cpu":
         plain = ref.segment_compact if compact else ref.segment_accumulate
         return plain(sorted_keys, weights, sentinel_val)
+    if route == "meta":
+        return meta.segment_accumulate(sorted_keys, weights, compact)
     out = segment_count.segment_accumulate_cuda(sorted_keys, weights,
                                                 sentinel_val, compact)
     segment_accumulate.launches += 1
@@ -169,7 +188,10 @@ def hash_insert(table_keys: torch.Tensor, table_counts: torch.Tensor,
     """
     if slots is None and word_bits is None:
         raise ValueError("hash_insert: slots=None needs word_bits")
-    if _on_cpu(table_keys):
+    route = _route(table_keys)
+    if route == "meta":
+        return meta.hash_insert(keys)
+    if route == "cpu":
         if slots is None:
             slots = ref.home_slots(keys, table_keys.shape[1], word_bits)
         dropped += ref.hash_insert(table_keys, table_counts, keys,
@@ -197,7 +219,10 @@ def hash_lookup(table_keys: torch.Tensor, table_counts: torch.Tensor,
     sums them."""
     if slots is None and word_bits is None:
         raise ValueError("hash_lookup: slots=None needs word_bits")
-    if _on_cpu(table_keys):
+    route = _route(table_keys)
+    if route == "meta":
+        return meta.hash_lookup(keys)
+    if route == "cpu":
         if slots is None:
             slots = ref.home_slots(keys, table_keys.shape[1], word_bits)
         counts, probes = ref.hash_lookup(table_keys, table_counts, keys,
@@ -226,8 +251,11 @@ def sliding_min(vals: torch.Tensor, window: int) -> torch.Tensor:
     """(rows, n_pos) words -> (rows, n_pos - window + 1) windowed minima,
     unsigned (minimizer selection, 'plain' order)."""
     _check_window(vals.shape[-1], window)
-    if _on_cpu(vals):
+    route = _route(vals)
+    if route == "cpu":
         return ref.sliding_min(vals, window)
+    if route == "meta":
+        return meta.sliding_min(vals, window)
     out = minimizer.sliding_min_cuda(vals.contiguous(), window)
     sliding_min.launches += 1
     return out
@@ -237,8 +265,11 @@ def sliding_min_pair(keys: torch.Tensor, vals: torch.Tensor, window: int):
     """Minimum by unsigned KEY over each window, carrying the value lane
     ('hashed' order): ((rows, n_out) keys, (rows, n_out) vals)."""
     _check_window(keys.shape[-1], window)
-    if _on_cpu(keys):
+    route = _route(keys)
+    if route == "cpu":
         return ref.sliding_min_pair(keys, vals, window)
+    if route == "meta":
+        return meta.sliding_min_pair(keys, vals, window)
     out = minimizer.sliding_min_pair_cuda(keys.contiguous(), vals.contiguous(),
                                           window)
     sliding_min_pair.launches += 1
@@ -265,8 +296,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            "'flash_train')")
     band = dict(causal=causal, window=window, softcap=softcap,
                 scale=_resolved_scale(q, scale), q_offset=q_offset)
-    if _on_cpu(q):
+    route = _route(q)
+    if route == "cpu":
         return ref.flash_fwd(q, k, v, **band)
+    if route == "meta":
+        return meta.flash_fwd(q, k, v, with_lse=False, causal=causal,
+                              window=window, q_offset=q_offset,
+                              name="flash_attention")
     out = flash_kernels.flash_fwd_cuda(q.contiguous(), k.contiguous(),
                                        v.contiguous(), with_lse=False, **band)
     flash_attention.launches += 1
@@ -282,8 +318,13 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     (B, Hq, Sq) f32 lse), the residual of the backward."""
     band = dict(causal=causal, window=window, softcap=softcap, scale=scale,
                 q_offset=q_offset)
-    if _on_cpu(q):
+    route = _route(q)
+    if route == "cpu":
         return ref.flash_fwd(q, k, v, with_lse=True, **band)
+    if route == "meta":
+        return meta.flash_fwd(q, k, v, with_lse=True, causal=causal,
+                              window=window, q_offset=q_offset,
+                              name="flash_attention_fwd_lse")
     out = flash_kernels.flash_fwd_cuda(q.contiguous(), k.contiguous(),
                                        v.contiguous(), with_lse=True, **band)
     flash_attention_fwd_lse.launches += 1
@@ -300,8 +341,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     at the full head count -> (dq, dk, dv) like q, k, v."""
     band = dict(causal=causal, window=window, softcap=softcap, scale=scale,
                 q_offset=q_offset)
-    if _on_cpu(q):
+    route = _route(q)
+    if route == "cpu":
         return ref.flash_bwd(q, k, v, o, lse, do, **band)
+    if route == "meta":
+        return meta.flash_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window, q_offset=q_offset)
     out = flash_kernels.flash_bwd_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(), o.contiguous(),
         lse.contiguous(), do.contiguous(), **band)

@@ -17,6 +17,8 @@ def truncated_normal(gen: torch.Generator, shape, scale: float,
                      device) -> torch.Tensor:
     """scale * a standard normal truncated to [-2, 2], f32."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type == "meta":
+        return t
     return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                        generator=gen).mul_(scale)
 

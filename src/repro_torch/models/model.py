@@ -103,7 +103,9 @@ def init_params(cfg: ModelConfig, *, seed: int, device) -> Dict:
     (`convert.params_from_jax`)."""
     check_supported(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # On `meta` (the dry-run's abstract init) there are no numbers to draw.
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     d, kind = cfg.d_model, cfg.frontend.kind
     params: Dict = {}
     if kind != "audio":
@@ -121,6 +123,12 @@ def init_params(cfg: ModelConfig, *, seed: int, device) -> Dict:
                                    device)
                         for i in range(cfg.num_layers)]
     return params
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The tree of `init_params` on `meta`: every leaf's shape and dtype,
+    no storage (the counterpart of `jax.eval_shape(init_params)`)."""
+    return init_params(cfg, seed=0, device="meta")
 
 
 # --- One layer ---------------------------------------------------------------

@@ -32,7 +32,7 @@ class SSMState(NamedTuple):
 
 def _dims(cfg: ModelConfig):
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
+    d_in = s.d_inner(cfg.d_model)
     n_heads = d_in // s.headdim
     conv_dim = d_in + 2 * s.n_groups * s.d_state
     return s, d_in, n_heads, conv_dim

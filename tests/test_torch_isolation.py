@@ -141,6 +141,36 @@ print("LEAKED", bad)
     assert "LEAKED []" in proc.stdout, proc.stdout
 
 
+def test_dry_run_imports_no_jax_and_touches_no_cuda(tmp_path):
+    """The dry-run's modules and CLIs run on the host: no JAX, nothing of
+    `repro`, and CUDA never initialised."""
+    code = rf"""
+import sys
+import torch
+from repro_torch.kernels import meta
+from repro_torch.launch import dryrun, kc_dryrun, roofline, specs
+recs = dryrun.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
+                    "--mesh", "both", "--out", r"{tmp_path}"])
+assert all("memory" in r for r in recs)
+table = roofline.main(["--dir", r"{tmp_path}"])
+assert table.count("mamba2-370m") == 2
+rec = kc_dryrun.main(["--reads", "16384", "--chunk-reads", "64",
+                      "--receiver", "stream", "--out", ""])
+assert rec["memory"]["temp_gb"] > 0
+params, opt = dryrun.abstract_state(dryrun.get_config("qwen1.5-0.5b"),
+                                    dryrun.abstract_mesh(False))
+assert opt.step.tensor.dtype == torch.int32 and opt.step.spec == ()
+assert params["embed"]["tok"].tensor.device.type == "meta"
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print("LEAKED", bad, "CUDA", torch.cuda.is_initialized())
+"""
+    proc = _run(code, env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED [] CUDA False" in proc.stdout, proc.stdout
+
+
 def test_sources_name_no_jax_module():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                          re.M)

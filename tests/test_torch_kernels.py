@@ -232,16 +232,24 @@ def test_hash_insert_matches_ref_64bit(jax64, name):
 # --- dispatch -------------------------------------------------------------------
 
 def test_no_kernel_for_other_devices():
-    """A tensor that is neither on the CPU nor on a card raises: there is
-    no silent route to the plain version."""
+    """A tensor that is neither on the CPU, on a card nor on `meta` (the
+    dry-run's trace) raises: there is no silent route to the plain
+    version. A meta tensor gets the kernel's shapes and no launch, and
+    rows 8-10, which no traced step reaches, raise on it."""
+    from types import SimpleNamespace
+    other = SimpleNamespace(device=SimpleNamespace(type="mps"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops._route(other)
     ids = torch.zeros((1, 8), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        ops.bucket_hist(ids, 2)
+    ops.reset_launches()
+    hist = ops.bucket_hist(ids, 2)
+    assert hist.device.type == "meta" and hist.shape == (1, 1, 2)
+    assert set(ops.launch_counts().values()) == {0}
     words = torch.zeros((1, 8), dtype=torch.int64, device="meta")
     for call in (lambda: ops.radix_hist(words, 0, 4, 8),
                  lambda: ops.segment_boundaries(words, sentinel_val=-1),
                  lambda: ops.kmer_extract(ids.to(torch.uint8), 3)):
-        with pytest.raises(ValueError, match="no kernel for device"):
+        with pytest.raises(ValueError, match="no meta path"):
             call()
 
 
