@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases 1,2,4,15  # the counter's remaining surface
     python3 chip_smoke.py --phases 1,2,16    # the LM trainer's infrastructure
     python3 chip_smoke.py --phases 1,2,17    # the dry-run and its predictions
+    python3 chip_smoke.py --phases 1,2,4,18  # the PEs across a process group
     python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13 and 15's reads
 
 Phases:
@@ -42,6 +43,23 @@ Phases:
      card, checked exactly against an independent torch.unique count;
      every kernel of count_kmers must have launched on this path;
   5. small runs at k=13 (32-bit words, 'dual') and k=21 ('packed');
+  18. the PEs across a process group: a one-rank NCCL group (its file://
+     store under build/chip_smoke_phase18/, deleted afterwards), whose
+     exchanges go through the same all_to_all_single, all_reduce and
+     all_gather calls as a group of several ranks; (a) phase 4's workload
+     through it (2**23 reads, k=31, chunk_reads 256, 8 PEs on rank 0),
+     exact against torch.unique, every PE holding phase 4's (k-mer,
+     count) set, every DAKCStats field equal to phase 4's, rows 1-4
+     launched, wall time and peak memory beside phase 4's; (b) 4096-read
+     runs on the group, each exact: the 2d one-plan route with the compact
+     hop 2 on a (2, 4) grid, the 'perhop' route, a forced store rehash,
+     BSP (n_batches + 1 global syncs), KmerCounter with hashed
+     super-k-mers (2 updates, 2**16 queries); one full-width
+     deepseek-moe-16b layer through moe_block(ep_shards=8, group=) against
+     GShard within 1e-5 of the largest output, no drops at capacity factor
+     8; compress_psum(group=) at frac 1.0 equal to its input; (c) the
+     refusals: spill='auto' with a group (NotImplementedError naming slice
+     17) and a gloo group given the card's tensors (ValueError);
   11. the 2d topology at full size: phase 4's read set counted by 8 PEs as
      a (2, 4) grid on the one-plan route with the compact hop 2, exact
      against torch.unique, every PE holding phase 4's (k-mer, count) set,
@@ -195,14 +213,14 @@ Phases:
      torch.profiler (device time by kernel, the device's busy share, the
      main path's launches per scan step, device launches a decode step).
 
-Phases run in the order 1-5, 11, 12, 8, 13, 9, 14, 15, 16, 17, 10, 6, 7:
-phases
+Phases run in the order 1-5, 18, 11, 12, 8, 13, 9, 14, 15, 16, 17, 10, 6,
+7: phase 18 beside phase 4's result; phases 18,
 11 and 12 before phase 8, whose counter keeps its store until phase 6;
 phase 13 after phase 8, whose counter and histogram it reads, freeing
 what it made before phase 9; and every phase whose wall time is kept
 before phase 10, which profiles. The `kernels` record gives each row's
-launches on phases 13's to 16's paths beside the full run's
-(`launches_phase13` to `launches_phase16`).
+launches on phases 13's to 18's paths beside the full run's
+(`launches_phase13` to `launches_phase18`).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -1007,9 +1025,10 @@ def check_same_owners(torch, got, want, what):
 
 def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
               genome_bases, chunk_reads=256, device="cuda", cfg=None,
-              grid=None, keep_sets=False, reads=None):
+              grid=None, keep_sets=False, reads=None, group=None):
     """count_kmers (phase 4's configuration unless `cfg` is given) of the
-    Synthetic read set, exact against torch.unique. Returns (launches,
+    Synthetic read set, exact against torch.unique; through `group` (a
+    one-rank process group, phase 18) when given. Returns (launches,
     wall, peak, distinct, stats, the per-PE sets if `keep_sets`)."""
     if reads is None:
         spec = genome.ReadSetSpec(genome_bases=genome_bases,
@@ -1026,7 +1045,7 @@ def run_count(torch, fabsp, ops, genome, n_reads, k, num_pes, pieces,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, stats = fabsp.count_kmers(reads, cfg, num_pes=num_pes, grid=grid,
-                                   device=device)
+                                   device=device, group=group)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -1247,6 +1266,253 @@ def bsp_phase(torch, bsp, ops, genome, n_reads, phase4):
             "launches": launches}
 
 
+# --- phase 18: the PEs across a process group --------------------------------
+
+PHASE18_DIR = os.path.join(HERE, "build", "chip_smoke_phase18")
+PHASE18_SMALL_READS = 4096
+EXCHANGE_REPS = 1000    # phase 18: calls of the exchange alone, timed
+
+
+def _accumulate(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def exchange_times(torch, fabsp, rdist, g, n_reads):
+    """One exchange of a scan step's NORMAL tile at phase 4's shape, the
+    stacked transpose against `dist.exchange` over the group (the same
+    lanes, checked equal), each over EXCHANGE_REPS back-to-back calls on
+    the host clock to a synchronise, in turns: transpose, exchange,
+    exchange, transpose. Returns ms a call and the calls a full run
+    makes."""
+    _, cap_n, _ = fabsp._plan_caps(fabsp.DAKCConfig(k=K), NUM_PES,
+                                   (n_reads, 150), 1.5)
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    tile = torch.randint(0, 1 << 62, (NUM_PES, NUM_PES, cap_n),
+                         generator=gen, device=DEV)
+    pes = g.pes(NUM_PES)
+
+    def stacked():
+        return tile.transpose(0, 1).reshape(NUM_PES, -1)
+
+    def grouped():
+        return rdist.exchange(tile, pes).reshape(NUM_PES, -1)
+
+    check(torch.equal(stacked(), grouped()),
+          "dist.exchange differs from the stacked transpose")
+    times = {"transpose": [], "exchange": []}
+    for name, fn in (("transpose", stacked), ("exchange", grouped),
+                     ("exchange", grouped), ("transpose", stacked)):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXCHANGE_REPS):
+            fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / EXCHANGE_REPS * 1e3)
+    # 'dual': a NORMAL word lane and a HEAVY (word, count) pair a step
+    calls = n_reads // NUM_PES // 256 * 3
+    log(f"  [exchange] tile ({NUM_PES}, {NUM_PES}, {cap_n}) int64, "
+        f"{EXCHANGE_REPS} calls each: transpose {times['transpose']} ms, "
+        f"dist.exchange {times['exchange']} ms a call; {calls} calls a "
+        f"full run")
+    return {"tile": [NUM_PES, NUM_PES, cap_n], "ms": times,
+            "calls_a_run": calls}
+
+
+def group_phase(torch, fabsp, bsp, ops, genome, n_reads, phase4):
+    """Phase 18: the PEs across a one-rank NCCL process group, through the
+    same `all_to_all_single`, `all_reduce` and `all_gather` calls a group
+    of several ranks makes. (a) phase 4's workload through the group,
+    held to phase 4's result; (b) small runs of the other paths; (c) the
+    refusals. `phase4` is phase 4's (wall, per-PE sets, stats, peak).
+    Returns the launches of the phase's path and its numbers."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dist as rdist
+    from repro_torch.models import convert, moe
+    from repro_torch.train import compression
+
+    shutil.rmtree(PHASE18_DIR, ignore_errors=True)
+    os.makedirs(PHASE18_DIR)
+    total, numbers = {}, {}
+    g = rdist.init_group("nccl", "file://" + os.path.join(PHASE18_DIR,
+                                                          "store"), 0, 1)
+    try:
+        log(f"  one-rank group: backend {g.backend}, world {g.world}, "
+            f"{NUM_PES} PEs on rank 0 ({g.device})")
+        # (a) phase 4's workload through the group
+        log(f"[group] (a) Synthetic 26, {n_reads} reads of 150 bp, k=31, "
+            f"{NUM_PES} PEs on one rank, the default DAKCConfig")
+        held = torch.cuda.memory_allocated()   # phase 4's sets, kept
+        launches, wall, peak, distinct, stats, sets = run_count(
+            torch, fabsp, ops, genome, n_reads, K, NUM_PES, pieces=4,
+            genome_bases=1 << 26, keep_sets=phase4 is not None, group=g)
+        _accumulate(total, launches)
+        for name in COUNT_KERNELS:
+            if name not in ROW1:
+                check(launches[name] > 0, f"kernel {name} did not launch on "
+                      f"phase 18's path")
+        check(sum(launches[name] for name in ROW1) > 0,
+              "row 1 did not launch on phase 18's path")
+        numbers["full"] = {"wall_s": wall, "peak_bytes": peak,
+                           "distinct": distinct}
+        if phase4 is not None:
+            check_same_owners(torch, sets, phase4[1], "phase 18")
+            for field, got, want in zip(stats._fields, stats, phase4[2]):
+                check(float(got) == float(want), f"phase 18's {field} "
+                      f"{got} differs from phase 4's {want}")
+            log(f"  every DAKCStats field equals phase 4's")
+            log(f"  [group] wall {wall:.3f} s beside phase 4's "
+                f"{phase4[0]:.3f} s (stacked): {wall / phase4[0]:.4f}; "
+                f"peak {peak} B, {peak - held} B above the {held} B held "
+                f"before the call, beside phase 4's {phase4[3]} B")
+            numbers["full"].update(phase4_wall_s=phase4[0],
+                                   phase4_peak_bytes=phase4[3],
+                                   held_bytes=held)
+        del sets
+        torch.cuda.empty_cache()
+        numbers["exchange"] = exchange_times(torch, fabsp, rdist, g, n_reads)
+
+        # (b) small runs on the same group
+        small = (
+            ("2d one-plan route, compact hop 2, k=31, (2, 4)", "2d", 31,
+             GRID, dict(topology="2d", hop2_impl="compact")),
+            ("'perhop' route, k=13, (4, 2)", "perhop", 13, (4, 2),
+             dict(topology="2d", route2d_impl="perhop")),
+            ("forced rehash: store_capacity 4096, k=31", "rehash", 31, None,
+             dict(store_capacity=4096)),
+        )
+        for title, tag, k, grid, knobs in small:
+            log(f"[group small] {title}, {PHASE18_SMALL_READS} reads")
+            ln, _, _, _, st, _ = run_count(
+                torch, fabsp, ops, genome, PHASE18_SMALL_READS, k, NUM_PES,
+                pieces=1, genome_bases=1 << 16,
+                cfg=fabsp.DAKCConfig(k=k, **knobs), grid=grid, group=g)
+            _accumulate(total, ln)
+            numbers[tag] = st._asdict()
+        check(numbers["2d"]["hop2_dropped"] == 0,
+              "the compact hop 2 dropped entries on the group")
+        check(numbers["rehash"]["retry_store_rehash"] >= 1,
+              "store_capacity 4096 forced no rehash round")
+
+        log(f"[group small] BSP, k=31, {PHASE18_SMALL_READS} reads, "
+            f"batch_reads 256")
+        spec = genome.ReadSetSpec(genome_bases=1 << 16,
+                                  n_reads=PHASE18_SMALL_READS, read_len=150,
+                                  seed=0)
+        reads = genome.sample_reads_torch(spec, DEV)
+        ops.reset_launches()
+        res, bst = bsp.count_kmers(reads, bsp.BSPConfig(k=K, batch_reads=256),
+                                   num_pes=NUM_PES, group=g)
+        _accumulate(total, ops.launch_counts())
+        n_batches = PHASE18_SMALL_READS // NUM_PES // 256
+        check(bst.num_global_syncs == n_batches + 1,
+              f"BSP num_global_syncs {bst.num_global_syncs}")
+        distinct = reference_check(torch, reads, K, res, bst, NUM_PES, 1)
+        log(f"  exact against torch.unique: {distinct} distinct k-mers, "
+            f"{bst.num_global_syncs} global syncs")
+
+        log("[group small] KmerCounter, hashed super-k-mers, k=31, 8 PEs, "
+            "2 updates, 2**16 queries")
+        kc, kl, kn = run_counter(
+            torch, fabsp, ops, genome,
+            fabsp.DAKCConfig(k=K, transport_impl="superkmer",
+                             minimizer_order="hashed"),
+            genome.ReadSetSpec(genome_bases=1 << 16,
+                               n_reads=PHASE18_SMALL_READS, read_len=150,
+                               seed=2),
+            NUM_PES, 2, 1 << 16, 1, "group counter", group=g)
+        del kc
+        _accumulate(total, kl)
+        check(kn["query_launches"]["hash_lookup"] > 0,
+              "the group's queries did not launch hash_lookup")
+
+        # (b) the MoE exchange and compression's sum on the group
+        base = dataclasses.replace(get_config("deepseek-moe-16b"),
+                                   compute_dtype="float32")
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=8.0))
+        gen = torch.Generator(device=DEV).manual_seed(21)
+        p = moe.init_moe(gen, cfg, DEV)
+        x = torch.randn(DAKC_TOKENS + (cfg.d_model,), generator=gen,
+                        device=DEV)
+        with torch.no_grad():
+            yd, ad = moe.moe_block(convert.moe_expert_slice(p, 0, g.world),
+                                   x, cfg=cfg, ep_shards=DAKC_SHARDS,
+                                   group=g)
+            yg, ag = moe.moe_block(p, x, cfg=cfg)
+        err, scale = float((yd - yg).abs().max()), float(yg.abs().max())
+        check(float(ad.dropped_frac) == float(ag.dropped_frac) == 0.0,
+              "drops at capacity factor 8 on the group")
+        check(err <= 1e-5 * scale, f"the group's DAKC MoE and GShard differ "
+              f"by {err:.3e} (largest {scale:.3f})")
+        log(f"  [moe] deepseek-moe-16b layer, {DAKC_SHARDS} EP shards on the "
+            f"group vs GShard, {DAKC_TOKENS[0]} x {DAKC_TOKENS[1]} tokens: "
+            f"max abs err {err:.3e} (largest {scale:.3f}), no drops")
+        numbers["moe"] = {"err": err, "scale": scale}
+        del p, x, yd, yg
+        grads = {"w": torch.randn((4096, 1024), generator=gen, device=DEV)}
+        out, e = compression.compress_psum(
+            grads, compression.init_error_feedback(grads), frac=1.0, group=g)
+        check(torch.equal(out["w"], grads["w"]) and not e["w"].any(),
+              "compress_psum(group=) at frac 1.0 is not its input")
+        log("  [compression] compress_psum(group=) at frac 1.0 equals its "
+            "input; the residual is 0")
+        del grads, out, e
+        torch.cuda.empty_cache()
+
+        # (c) the refusals, by type and message
+        try:
+            fabsp.count_kmers(reads, fabsp.DAKCConfig(
+                k=K, spill="auto", spill_dir=os.path.join(PHASE18_DIR,
+                                                          "spill")),
+                num_pes=NUM_PES, group=g)
+            check(False, "spill='auto' ran across a group")
+        except NotImplementedError as e:
+            check("slice 17" in str(e), f"spill refusal says {e}")
+            log(f"  [refusal] spill='auto' with a group: "
+                f"NotImplementedError: {e}")
+        pg = tdist.new_group(backend="gloo")
+        gg = rdist.Group(pg=pg, backend="gloo", rank=0, world=1,
+                         device=torch.device("cpu"))
+        try:
+            rdist.exchange(torch.zeros((NUM_PES, NUM_PES, 4),
+                                       dtype=torch.int64, device=DEV),
+                           gg.pes(NUM_PES))
+            check(False, "a gloo group took a CUDA tensor")
+        except ValueError as e:
+            check("takes cpu tensors" in str(e), f"gloo refusal says {e}")
+            log(f"  [refusal] a CUDA tensor to a gloo group: ValueError: {e}")
+        try:
+            fabsp.count_kmers(reads, fabsp.DAKCConfig(k=K), num_pes=NUM_PES,
+                              group=gg)
+            check(False, "a gloo group counted the card's reads")
+        except ValueError as e:
+            check("the reads lie on cuda" in str(e),
+                  f"gloo refusal says {e}")
+            log(f"  [refusal] the card's reads to a gloo group: "
+                f"ValueError: {e}")
+        tdist.destroy_process_group(pg)
+
+        del reads, res
+    finally:
+        g.destroy()
+        shutil.rmtree(PHASE18_DIR, ignore_errors=True)
+    for name in ("bucket_positions", "segment_accumulate", "hash_insert"):
+        check(total.get(name, 0) > 0, f"kernel {name} did not launch on "
+              f"phase 18's path")
+    launches = {name: total.get(name, 0) for name in ops.launch_counts()}
+    log(f"  launches on phase 18's path {launches}")
+    log(json.dumps({"phase18": numbers}, default=str))
+    return launches, numbers
+
+
 # --- phase 8: the incremental counter and its queries ----------------------
 
 def make_queries(torch, reads, k, n, seed):
@@ -1269,7 +1535,8 @@ def make_queries(torch, reads, k, n, seed):
 
 
 def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
-                n_queries, pieces, label, grid=None, keep_sets=False):
+                n_queries, pieces, label, grid=None, keep_sets=False,
+                group=None):
     """Feed `spec`'s reads to a KmerCounter in `n_updates` equal batches,
     finalize it exactly against torch.unique, then answer `n_queries`
     point queries exactly. Returns (counter, launches, numbers); with
@@ -1283,7 +1550,7 @@ def run_counter(torch, fabsp, ops, genome, cfg, spec, num_pes, n_updates,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    kc = fabsp.KmerCounter(cfg, num_pes=num_pes, grid=grid)
+    kc = fabsp.KmerCounter(cfg, num_pes=num_pes, grid=grid, group=group)
     walls = []
     for i in range(n_updates):
         t0 = time.perf_counter()
@@ -4146,7 +4413,7 @@ def profile_decode_step(torch, arch="qwen1.5-0.5b", steps=4):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
                     help="phases 4, 10, 11 and 12's read count, phase "
@@ -4200,14 +4467,14 @@ def main(argv=None) -> int:
         log("[full size] Synthetic 26, 150 bp reads, k=31, 8 PEs")
         if args.reads != 1 << 23:
             log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
-        launches, count_wall, _, distinct, stats, count_sets = run_count(
-            torch, fabsp, ops, genome, args.reads, K, NUM_PES, pieces=4,
-            genome_bases=1 << 26, keep_sets=True)
+        launches, count_wall, count_peak, distinct, stats, count_sets = \
+            run_count(torch, fabsp, ops, genome, args.reads, K, NUM_PES,
+                      pieces=4, genome_bases=1 << 26, keep_sets=True)
         for name in ROW1:
             check(launches[name] > 0, f"{name} did not launch on the main "
                   f"path at full size")
         count_run = (distinct, stats, launches["hash_insert"])
-        phase4 = (count_wall, count_sets)
+        phase4 = (count_wall, count_sets, stats, count_peak)
         phase4_wall = count_wall
         torch.cuda.empty_cache()
 
@@ -4216,6 +4483,20 @@ def main(argv=None) -> int:
             log(f"[small] k={k}, {p} PEs, 4096 reads")
             run_count(torch, fabsp, ops, genome, 4096, k, p, pieces=1,
                       genome_bases=1 << 16)
+
+    # Phase 18 runs beside phase 4's result, before phase 8, whose counter
+    # keeps its store until phase 6, and before phase 10, which profiles.
+    phase18_launches = None
+    if 18 in phases:
+        t0 = time.perf_counter()
+        log("[group] the PEs across a one-rank NCCL process group: phase 4's "
+            "workload, small runs of the other paths, the refusals")
+        if args.reads != 1 << 23:
+            log(f"  CUT: n_reads {args.reads} instead of {1 << 23}")
+        phase18_launches, _ = group_phase(torch, fabsp, bsp, ops, genome,
+                                          args.reads, phase4)
+        torch.cuda.empty_cache()
+        log(f"[group] done ({time.perf_counter() - t0:.1f} s)")
 
     # Phases 11 and 12 run before phase 8, whose counter keeps its store
     # until phase 6, and before phase 10, which profiles.
@@ -4353,6 +4634,8 @@ def main(argv=None) -> int:
                                      else phase16_launches[e["name"]])
             e["launches_phase17"] = (None if phase17_launches is None
                                      else phase17_launches[e["name"]])
+            e["launches_phase18"] = (None if phase18_launches is None
+                                     else phase18_launches[e["name"]])
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()

@@ -15,6 +15,12 @@ order: hop 1 among the `cols` PEs of a row, the swap, hop 2 among the
 (dest_col, dest_row) key, and with `hop2_capacity` only each bucket's
 first slots travel hop 2 (the compact hop 2); the 'perhop' oracle
 re-derives owners from the words hop 1 delivered and plans again.
+
+With a `group` (`core.dist`), the P PEs are spread over a process
+group's ranks and the lanes hold this rank's PEs only: each transpose
+becomes the same exchange over the group (`dist.exchange` for the 1d
+route, `dist.hop` for each 2d hop), and every per-PE field keeps one row
+per local PE.
 """
 
 from __future__ import annotations
@@ -25,13 +31,22 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import words as W
-from repro_torch.core import encoding
+from repro_torch.core import dist, encoding
 from repro_torch.core.sort import accumulate, radix_sort, sort_with_weights
 from repro_torch.kernels import ops, ref
 
 
+class BucketResult(NamedTuple):
+    """One `bucket_by_owner` tile build; one row per PE."""
+    tile: torch.Tensor       # (P, num_pes, capacity) words, sentinel-padded
+    fill: torch.Tensor       # (P, num_pes) int32 entries per destination
+    overflow: torch.Tensor   # (P,) int32 entries past a bucket's capacity
+    counts: Optional[torch.Tensor] = None  # (P, num_pes, capacity) int32
+
+
 class RouteResult(NamedTuple):
-    """One `route_lanes` exchange; every field has one row per PE."""
+    """One `route_lanes` exchange; every field has one row per PE (per
+    local PE under a group)."""
     lanes: Tuple[torch.Tensor, ...]  # received lanes, each (P, recv_slots)
     sent_valid: torch.Tensor         # (P,) int32 valid slots this PE sent
     wire_bytes: int                  # padded bytes each PE moved
@@ -94,6 +109,27 @@ def route_tiles(lanes, kinds, owners, valid, num_pes: int, capacity: int, *,
     return tuple(tiles), fill, overflow
 
 
+def bucket_by_owner(words: torch.Tensor, owners: torch.Tensor,
+                    valid: torch.Tensor, num_pes: int, capacity: int,
+                    counts: Optional[torch.Tensor] = None, *, word_bits: int,
+                    impl: str = "radix") -> BucketResult:
+    """Pack each row's words into a destination-major (num_pes, capacity)
+    tile (the L2 layer): the two-lane wrapper over `route_tiles` that the
+    JAX package keeps for the partition benchmarks and tests.
+
+    words, owners, valid: (P, n); counts: an optional (P, n) int32 second
+    lane (HEAVY {kmer, count} packets), zero where the words tile holds
+    the sentinel. On overflow the first `capacity` entries per destination
+    in stream order are kept, under either `impl`."""
+    lanes = (words,) if counts is None else (words, counts)
+    kinds = ("word",) if counts is None else ("word", "i32")
+    tiles, fill, overflow = route_tiles(lanes, kinds, owners, valid, num_pes,
+                                        capacity, word_bits=word_bits,
+                                        impl=impl)
+    return BucketResult(tile=tiles[0], fill=fill, overflow=overflow,
+                        counts=tiles[1] if counts is not None else None)
+
+
 def oneplan_bucket_key(owners: torch.Tensor, rows: int,
                        cols: int) -> torch.Tensor:
     """Two-digit bucket key of the one-plan 2d route, col-major
@@ -103,11 +139,15 @@ def oneplan_bucket_key(owners: torch.Tensor, rows: int,
                                               rounding_mode="floor")
 
 
-def _oneplan_two_hop(tiles, rows: int, cols: int, cap2: int):
+def _oneplan_two_hop(tiles, rows: int, cols: int, cap2: int, group=None):
     """Both hops of tiles bucketed by `oneplan_bucket_key`: (P, P, cap)
     stacks indexed [(src_row, src_col), (dest_col, dest_row)] -> (P,
     P * cap2) receive lanes in source-major order. Each bucket keeps its
-    first `cap2` slots after the swap, as the JAX package slices hop 2."""
+    first `cap2` slots after the swap, as the JAX package slices hop 2.
+    With a group, the local PEs' rows through two `dist.hop`s."""
+    if group is not None:
+        return tuple(_oneplan_two_hop_group(t, rows, cols, cap2, group)
+                     for t in tiles)
     out = []
     for t in tiles:
         t = t.view(rows, cols, cols, rows, t.shape[-1])
@@ -123,10 +163,35 @@ def _oneplan_two_hop(tiles, rows: int, cols: int, cap2: int):
     return tuple(out)
 
 
-def _hop_transpose(tiles, rows: int, cols: int, axis: str):
+def _oneplan_two_hop_group(t, rows: int, cols: int, cap2: int, group):
+    L, cap = t.shape[0], t.shape[-1]
+    # hop 1 over 'col': chunk dest_col of every PE of the row ->
+    # [src_col, dest_row, cap]
+    h1 = dist.hop(t.view(L, cols, rows * cap), group, (rows, cols), "col")
+    # the swap and the compact slice -> [dest_row, src_col, cap2]
+    h1 = h1.view(L, cols, rows, cap).transpose(1, 2)[..., :cap2]
+    # hop 2 over 'row' -> [src_row, src_col, cap2]
+    h2 = dist.hop(h1.reshape(L, rows, cols * cap2), group, (rows, cols),
+                  "row")
+    return h2.reshape(L, -1)
+
+
+def _exchange_1d(t, num_pes: int, group=None):
+    """The 1d tiled `all_to_all` of (P, P, cap) tiles: (P, P * cap)
+    lanes in source-major order; with a group, of the local rows."""
+    if group is None:
+        return t.transpose(0, 1).reshape(num_pes, -1)
+    return dist.exchange(t, group).reshape(t.shape[0], -1)
+
+
+def _hop_transpose(tiles, rows: int, cols: int, axis: str, group=None):
     """One tiled `all_to_all` over the grid's 'col' (within a row) or
     'row' (within a column) axis of (P, B, cap) tiles whose B buckets are
-    that axis' PEs: (P, B * cap) lanes, concatenated by source index."""
+    that axis' PEs: (P, B * cap) lanes, concatenated by source index.
+    With a group, the local PEs' rows through `dist.hop`."""
+    if group is not None:
+        return tuple(dist.hop(t, group, (rows, cols), axis)
+                     .reshape(t.shape[0], -1) for t in tiles)
     out = []
     for t in tiles:
         cap = t.shape[-1]
@@ -142,7 +207,7 @@ def route_lanes(lanes, kinds, owners, valid, *, num_pes: int, capacity: int,
                 word_bits: int, grid=None, impl: str = "radix",
                 route2d: str = "oneplan",
                 hop2_capacity: Optional[int] = None,
-                rederive_owners=None) -> RouteResult:
+                rederive_owners=None, group=None) -> RouteResult:
     """Bucket a lane list by owner, exchange, account exact wire bytes.
 
     grid: None for the 1d topology, or (rows, cols) with rows * cols ==
@@ -153,8 +218,18 @@ def route_lanes(lanes, kinds, owners, valid, *, num_pes: int, capacity: int,
     owner PEs). Received lanes are (P, P * capacity), or (P, P * cap2)
     under the compact hop 2. Wire bytes and `sent_valid` follow the JAX
     package: each PE charges its own fills for both hops.
+
+    group: None (every PE's lanes stacked here) or a `dist.PEGroup` of
+    `num_pes` PEs, when the lanes are this rank's `local_pes` rows and
+    each exchange runs over the group.
     """
     slot_bytes = lane_wire_bytes(kinds, word_bits)
+    if group is not None and (group.num_pes != num_pes
+                              or lanes[0].shape[0] != group.local_pes):
+        raise ValueError(
+            f"a group of {group.num_pes} PEs ({group.local_pes} a rank) "
+            f"routes {group.local_pes} local rows of {num_pes} PEs, got "
+            f"{lanes[0].shape[0]} rows of {num_pes}")
     if grid is None:
         if hop2_capacity is not None:
             raise ValueError("hop2_capacity (compact hop 2) requires the "
@@ -163,8 +238,7 @@ def route_lanes(lanes, kinds, owners, valid, *, num_pes: int, capacity: int,
         tiles, fill, ovf = route_tiles(lanes, kinds, owners, valid, num_pes,
                                        capacity, word_bits=word_bits,
                                        impl=impl)
-        out = tuple(t.transpose(0, 1).reshape(num_pes, num_pes * capacity)
-                    for t in tiles)
+        out = tuple(_exchange_1d(t, num_pes, group) for t in tiles)
         return RouteResult(
             lanes=out, sent_valid=fill.sum(1, dtype=torch.int32),
             wire_bytes=num_pes * capacity * slot_bytes, overflow=ovf,
@@ -180,7 +254,7 @@ def route_lanes(lanes, kinds, owners, valid, *, num_pes: int, capacity: int,
         tiles, fill, ovf = route_tiles(
             lanes, kinds, oneplan_bucket_key(owners, rows, cols), valid,
             num_pes, capacity, word_bits=word_bits, impl=impl)
-        out = _oneplan_two_hop(tiles, rows, cols, cap2)
+        out = _oneplan_two_hop(tiles, rows, cols, cap2, group)
         # each PE charges its own fills for both hops; entries past cap2
         # in a bucket are sliced off on hop 2
         fwd = torch.clamp(fill, max=cap2)
@@ -206,20 +280,20 @@ def route_lanes(lanes, kinds, owners, valid, *, num_pes: int, capacity: int,
     tiles1, fill1, ovf1 = route_tiles(lanes, kinds, owners % cols, valid,
                                       cols, cap1, word_bits=word_bits,
                                       impl=impl)
-    recv1 = _hop_transpose(tiles1, rows, cols, "col")
+    recv1 = _hop_transpose(tiles1, rows, cols, "col", group)
     valid1 = recv1[0] != W.sentinel(word_bits)
     dest_row = torch.div(rederive_owners(recv1[0]), cols,
                          rounding_mode="floor")
     cap2 = capacity * cols
     tiles2, fill2, ovf2 = route_tiles(recv1, kinds, dest_row, valid1, rows,
                                       cap2, word_bits=word_bits, impl=impl)
-    out = _hop_transpose(tiles2, rows, cols, "row")
+    out = _hop_transpose(tiles2, rows, cols, "row", group)
     return RouteResult(
         lanes=out,
         sent_valid=(fill1.sum(1) + fill2.sum(1)).to(torch.int32),
         wire_bytes=(cols * cap1 + rows * cap2) * slot_bytes,
         overflow=ovf1 + ovf2, hop2_dropped=torch.zeros_like(ovf1),
-        fill=torch.zeros((num_pes, num_pes), dtype=torch.int32,
+        fill=torch.zeros((ovf1.shape[0], num_pes), dtype=torch.int32,
                          device=ovf1.device))
 
 
@@ -272,6 +346,27 @@ def plan_capacity(num_items: int, num_pes: int, slack: float = 1.5,
     expected = num_items / num_pes
     cap = int(math.ceil(expected * slack))
     return max(align, ((cap + align - 1) // align) * align)
+
+
+def l3_max_block(k: int, bits_per_symbol: int = 2) -> int:
+    """Largest L3 block whose block-local counts always fit the spare
+    bits."""
+    return encoding.count_capacity(k, bits_per_symbol)
+
+
+def aggregation_memory_bytes(num_pes: int, protocol: str = "1d",
+                             c1: int = 1024, c2: int = 32, c3: int = 10_000,
+                             word_bytes: int = 8) -> dict:
+    """The paper's Table III: per-PE memory of each aggregation layer. L0
+    follows the Conveyors buffer law 40 KB * P**x, x = 1, 1/2 or 1/3 for
+    the 1d, 2d and 3d protocols."""
+    x = {"1d": 1.0, "2d": 0.5, "3d": 1.0 / 3.0}[protocol]
+    return {
+        "L0": 40_000 * (num_pes ** x),
+        "L1": c1 * 264,                    # the paper's 264 KB at C1=1024
+        "L2": c2 * 8.25 * num_pes,         # 264 B a PE at C2=32
+        "L3": c3 * word_bytes,
+    }
 
 
 def l3_compress(words: torch.Tensor, k: int, bits_per_symbol: int = 2, *,

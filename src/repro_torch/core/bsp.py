@@ -17,6 +17,10 @@ round sorts each PE's received words (`sort.radix_sort`, then
 The P PEs are the leading dimension of every tensor on one device, as in
 `fabsp`. The rounds write into one preallocated (P, P, n_batches, cap)
 receive buffer, the JAX package's [source][batch][slot] order per PE.
+With `group=` (a `core.dist.Group`) the PEs are spread over the group's
+ranks as in `fabsp`: each rank holds its PEs' rows of the buffer, each
+round exchanges over the group and ends in `dist.barrier` as well, and
+the stats are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core import aggregation, encoding, fabsp
+from repro_torch.core import aggregation, dist, encoding, fabsp
 from repro_torch.core.aggregation import plan_capacity
 from repro_torch.core.owner import owner_pe
 from repro_torch.core.sort import (AccumResult, accumulate, radix_sort,
@@ -61,10 +65,11 @@ class BSPStats(NamedTuple):
 
 
 def _batch_round(batch: torch.Tensor, *, cfg: BSPConfig, num_pes: int,
-                 cap: int):
+                 cap: int, group=None):
     """One superstep's exchange: (P, batch_reads, m) codes -> every PE's
     raw k-mer words routed to their owners. Returns the (P, P * cap)
-    receive lanes and the (P,) overflow and sent counts."""
+    receive lanes and the (P,) overflow and sent counts (P the local PEs
+    under a `group`)."""
     wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
     words = encoding.extract_kmers(batch, cfg.k, cfg.bits_per_symbol,
                                    canonical=cfg.canonical)
@@ -72,7 +77,7 @@ def _batch_round(batch: torch.Tensor, *, cfg: BSPConfig, num_pes: int,
         (words,), ("word",), owner_pe(words, num_pes, wb),
         torch.ones(words.shape, dtype=torch.bool, device=words.device),
         num_pes=num_pes, capacity=cap, word_bits=wb,
-        impl=cfg.partition_impl)
+        impl=cfg.partition_impl, group=group)
     return rr.lanes[0], rr.overflow, rr.sent_valid
 
 
@@ -90,13 +95,14 @@ def _final_round(recv_all: torch.Tensor, *, cfg: BSPConfig) -> AccumResult:
 
 
 def _superstep_barrier(dev: torch.device) -> None:
-    """The host waits for the round's exchange to finish (the T_sync)."""
+    """The host waits for the round's exchange to finish (the T_sync); under
+    a group `dist.barrier` follows, for every other rank."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
-def count_kmers(reads, cfg: BSPConfig, *, num_pes: int, device=None
-                ) -> Tuple[AccumResult, BSPStats]:
+def count_kmers(reads, cfg: BSPConfig, *, num_pes: int, device=None,
+                group=None) -> Tuple[AccumResult, BSPStats]:
     """Host-synchronous batched BSP counting of P PEs on one device.
 
     reads: (n_reads, m) uint8 codes; PE p owns rows [p * n_local,
@@ -104,10 +110,14 @@ def count_kmers(reads, cfg: BSPConfig, *, num_pes: int, device=None
     runs on the CUDA card (and raises without one). Returns the per-PE
     AccumResult laid out as the JAX package's and the BSPStats. A routing
     overflow raises RuntimeError: there is no retry, and no L3 layer to
-    absorb skew.
+    absorb skew. `group`: as in `fabsp.count_kmers` (the global reads on
+    every rank; this rank's PEs' rows of the result, global stats).
     """
-    dev = fabsp.resolve_device(device)
-    reads = fabsp._as_device_reads(reads, dev)
+    if group is not None:
+        group = group.pes(num_pes)
+    dev = fabsp.resolve_device(device, group)
+    reads, local = fabsp._place_reads(reads, num_pes, dev, group)
+    rows = local.shape[0]
     n_reads, m = reads.shape
     per_pe = n_reads // num_pes
     if per_pe % cfg.batch_reads != 0:
@@ -119,29 +129,31 @@ def count_kmers(reads, cfg: BSPConfig, *, num_pes: int, device=None
     cap = plan_capacity(batch_kmers, num_pes, cfg.slack)
     wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
 
-    reads_r = fabsp._split(reads, num_pes).reshape(
-        num_pes, n_batches, cfg.batch_reads, m)
-    recv_all = torch.empty((num_pes, num_pes, n_batches, cap),
+    reads_r = local.reshape(rows, n_batches, cfg.batch_reads, m)
+    recv_all = torch.empty((rows, num_pes, n_batches, cap),
                            dtype=torch.int64, device=dev)
-    overflow = torch.zeros((num_pes,), dtype=torch.int64, device=dev)
+    overflow = torch.zeros((rows,), dtype=torch.int64, device=dev)
     sent_words = torch.zeros_like(overflow)
     for b in range(n_batches):
         recv, ovf, sw = _batch_round(reads_r[:, b], cfg=cfg,
-                                     num_pes=num_pes, cap=cap)
-        recv_all[:, :, b] = recv.view(num_pes, num_pes, cap)
+                                     num_pes=num_pes, cap=cap, group=group)
+        recv_all[:, :, b] = recv.view(rows, num_pes, cap)
         overflow += ovf
         sent_words += sw
         del recv
         _superstep_barrier(dev)
-    overflow, sent_words = (int(x) for x in
-                            torch.stack([overflow.sum(), sent_words.sum()])
-                            .tolist())
+        if group is not None:
+            dist.barrier(group)
+    totals = torch.stack([overflow.sum(), sent_words.sum()])
+    if group is not None:
+        totals = dist.all_sum(totals, group)
+    overflow, sent_words = (int(x) for x in totals.tolist())
     if overflow > 0:
         raise RuntimeError(
             f"BSP capacity overflow: {overflow} entries; raise slack "
             f"(no L3 layer to absorb skew -- that is the paper's point)")
 
-    result = _final_round(recv_all.view(num_pes, -1), cfg=cfg)
+    result = _final_round(recv_all.view(rows, -1), cfg=cfg)
     # exact wire bytes in Python ints: every round each PE moves one padded
     # single-word-lane tile
     slot_b = aggregation.lane_wire_bytes(("word",), wb)

@@ -33,6 +33,16 @@ elastic reshard), and `cfg.spill` moves the counts into disk bins
 and `count` serves them through the spilled-bin query tier
 (`query.query_spilled_counts`). `count_kmers` with a spill setting runs
 one such counter.
+
+Across processes: with `group=` (a `core.dist.Group`), the P PEs are
+spread over the group's ranks, `num_pes // world` a rank. Every rank is
+given the global read set and plans the same capacities from it, moves
+only its PEs' rows to its device, and runs the same scan on them; each
+route's exchange goes over the group (`aggregation.route_lanes`), and a
+retry round's stats are one `dist.all_sum`, so every rank's retry
+controller sees the same numbers and takes the same path. A rank's
+result is its PEs' rows of the per-PE result; the stats are global. The
+checkpoint and the spill tier do not run across ranks yet.
 """
 
 from __future__ import annotations
@@ -45,8 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch import words as W
-from repro_torch.core import (aggregation, countstore, encoding, minimizer,
-                              resilience, spill)
+from repro_torch.core import (aggregation, countstore, dist, encoding,
+                              minimizer, resilience, spill)
 from repro_torch.core.aggregation import plan_capacity
 from repro_torch.core.owner import owner_pe
 from repro_torch.core.sort import (AccumResult, accumulate, radix_sort,
@@ -262,7 +272,7 @@ def _l3_split_dual(words: torch.Tensor, valid: torch.Tensor, k: int,
 def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
                  cap_n: int, cap_h: int, mode: str, grid=None,
                  hop2_caps=None, compact_caps=None, chunk_idx: int = 0,
-                 fault: Optional[resilience.FaultPlan] = None):
+                 fault: Optional[resilience.FaultPlan] = None, group=None):
     """One scan step for every PE: (P, chunk_reads, m) codes -> k-mers or
     super-k-mers -> one `route_lanes` exchange per lane set.
 
@@ -280,6 +290,9 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
     `fault` is an armed 'route_drop' plan (or None): its mask at scan
     step `chunk_idx` invalidates entries of the primary lane before the
     route, and the drops count as routing overflow.
+
+    `group` is None or the `dist.PEGroup` whose local PEs `chunk` holds;
+    every route then exchanges over it.
 
     Returns (recv, (raw, sent_valid, wire_bytes, overflow, hop2_dropped,
     fill)): `raw` and `wire_bytes` are per-PE ints (the same on every PE),
@@ -309,7 +322,8 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
         rr = aggregation.route_lanes(
             lanes, kinds, owners, valid, num_pes=num_pes, capacity=capacity,
             word_bits=wb, grid=grid, impl=cfg.partition_impl,
-            route2d=route2d, hop2_capacity=hop2, rederive_owners=rederive)
+            route2d=route2d, hop2_capacity=hop2, rederive_owners=rederive,
+            group=group)
         return rr._replace(overflow=rr.overflow + covf)
 
     if mode == "superkmer":
@@ -439,14 +453,16 @@ def _drop_inserts(store: countstore.CountStore, kmers: torch.Tensor,
 def _stream_fold(chunks: torch.Tensor, store: Optional[countstore.CountStore],
                  *, cfg: DAKCConfig, num_pes: int, cap_n: int, cap_h: int,
                  mode: str, grid=None, hop2_caps=None, compact_caps=None,
-                 fault: Optional[resilience.FaultPlan] = None, sink=None):
+                 fault: Optional[resilience.FaultPlan] = None, sink=None,
+                 group=None):
     """The Phase-1 scan: route chunk i of every PE, then fold the decoded
     receive tiles into the count store (the streaming receiver), hand
     them to `sink` (the spill tier), or keep them for `_phase2` when
     neither is given (the stacked oracle). An armed 'route_drop' `fault`
     rides into `_phase1_step`, a 'store_drop' one into `_drop_inserts`.
 
-    chunks: (P, n_chunks, chunk_reads, m). No host sync happens here: the
+    chunks: (P, n_chunks, chunk_reads, m), or the local PEs' rows under a
+    `group` (whose routes exchange over it). No host sync happens here: the
     running stats stay on the device. Returns (store or the list of receive
     tiles, (raw, sent_words, wire_bytes, route_overflow, hop2_dropped,
     fill)), raw and wire_bytes as per-PE ints, the rest per-PE device
@@ -464,7 +480,7 @@ def _stream_fold(chunks: torch.Tensor, store: Optional[countstore.CountStore],
         recv, (raw, sent_w, wire, ovf, h2, fl) = _phase1_step(
             chunks[:, i], cfg=cfg, num_pes=num_pes, cap_n=cap_n,
             cap_h=cap_h, mode=mode, grid=grid, hop2_caps=hop2_caps,
-            compact_caps=compact_caps, chunk_idx=i, fault=fault)
+            compact_caps=compact_caps, chunk_idx=i, fault=fault, group=group)
         if sink is not None:
             sink(recv)
         elif store is None:
@@ -511,23 +527,25 @@ def _flat(result: AccumResult) -> AccumResult:
 
 def _local_count(reads_local: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
                  cap_n: int, cap_h: int, store_cap: int, mode: str,
-                 grid=None, hop2_caps=None, compact_caps=None, fault=None):
+                 grid=None, hop2_caps=None, compact_caps=None, fault=None,
+                 group=None):
     """One round: every PE's scan, then its histogram (of the store, or of
     the stacked receive tiles). Returns the flat per-PE AccumResult and the
-    round's stats (`_round_stats`)."""
+    round's stats (`_round_stats`), of the local PEs under a `group`."""
     chunks = _chunked(reads_local, cfg.chunk_reads)
+    rows = chunks.shape[0]
     kw = dict(cfg=cfg, num_pes=num_pes, cap_n=cap_n, cap_h=cap_h, mode=mode,
               grid=grid, hop2_caps=hop2_caps, compact_caps=compact_caps,
-              fault=fault)
+              fault=fault, group=group)
     if cfg.receiver_impl == "stacked":
         recvs, fold_stats = _stream_fold(chunks, None, **kw)
         result = _phase2(recvs, cfg=cfg, mode=mode)
         del recvs
         return _flat(result), _round_stats(
-            num_pes, torch.zeros((num_pes,), dtype=torch.int32,
+            num_pes, torch.zeros((rows,), dtype=torch.int32,
                                  device=chunks.device), fold_stats)
     wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
-    store = countstore.empty_store(num_pes, store_cap, wb, chunks.device)
+    store = countstore.empty_store(rows, store_cap, wb, chunks.device)
     store, fold_stats = _stream_fold(chunks, store, **kw)
     result = countstore.store_histogram(
         store, total_bits=encoding.kmer_bits(cfg.k, cfg.bits_per_symbol),
@@ -551,13 +569,14 @@ def _default_store_capacity(cfg: DAKCConfig, shape, num_pes: int) -> int:
 
 
 def _sampled_distinct_estimate(reads: torch.Tensor, cfg: DAKCConfig,
-                               num_pes: int) -> Optional[int]:
+                               num_pes: int, dev=None) -> Optional[int]:
     """Global distinct-count estimate from one sample chunk, inverted under
     the uniform-pool model (see the JAX package); None when the sample is
-    fully distinct. Runs on the host, as the JAX package's does."""
+    fully distinct. The sample's k-mers are extracted on `dev` (None: where
+    the reads lie) and counted on the host, as the JAX package's are."""
     n_reads, m = reads.shape
     k, bps = cfg.k, cfg.bits_per_symbol
-    sample = reads[:min(cfg.chunk_reads, n_reads)]
+    sample = reads[:min(cfg.chunk_reads, n_reads)].to(dev)
     words = encoding.extract_kmers(
         sample, k, bps, canonical=cfg.canonical,
         canonical_impl=cfg.canonical_impl).cpu().numpy()
@@ -586,10 +605,10 @@ def _sampled_distinct_estimate(reads: torch.Tensor, cfg: DAKCConfig,
 
 
 def _sampled_store_capacity(reads: torch.Tensor, cfg: DAKCConfig,
-                            num_pes: int) -> int:
+                            num_pes: int, dev=None) -> int:
     """Per-PE store slots from the sample estimate, rounded up to a power
     of two (the JAX package's quantization, kept so the layouts agree)."""
-    est = _sampled_distinct_estimate(reads, cfg, num_pes)
+    est = _sampled_distinct_estimate(reads, cfg, num_pes, dev)
     if est is None:
         return _default_store_capacity(cfg, tuple(reads.shape), num_pes)
     cap = plan_capacity(est, num_pes, cfg.store_slack)
@@ -597,14 +616,14 @@ def _sampled_store_capacity(reads: torch.Tensor, cfg: DAKCConfig,
 
 
 def _resolve_store_capacity(reads: torch.Tensor, cfg: DAKCConfig,
-                            num_pes: int) -> int:
+                            num_pes: int, dev=None) -> int:
     """Explicit override > 'sample' estimate > shape-only bound."""
     if cfg.receiver_impl != "stream":
         return 0
     if cfg.store_capacity is not None:
         return cfg.store_capacity
     if cfg.store_sizing == "sample":
-        return _sampled_store_capacity(reads, cfg, num_pes)
+        return _sampled_store_capacity(reads, cfg, num_pes, dev)
     return _default_store_capacity(cfg, tuple(reads.shape), num_pes)
 
 
@@ -651,7 +670,7 @@ def _owner_peak(words: torch.Tensor, cfg: DAKCConfig, num_pes: int,
 
 
 def _chunk_valid_estimate(reads: torch.Tensor, cfg: DAKCConfig, mode: str,
-                          shape, num_pes: int = 1
+                          shape, num_pes: int = 1, dev=None
                           ) -> Tuple[int, int, int, int]:
     """Measured per-chunk (normal, heavy, peak_normal, peak_heavy) valid
     slot counts: the max over up to `_SAMPLE_CHUNKS` evenly spaced chunks
@@ -660,7 +679,8 @@ def _chunk_valid_estimate(reads: torch.Tensor, cfg: DAKCConfig, mode: str,
     so the shape bound is exact; with no reads (`reads` None: the
     dry-run's shape-only plan) the estimate is that bound and the peak
     its mean over the PEs. A sample shorter than a chunk is scaled
-    up. The JAX package's function of the same name, on the host here too.
+    up. The JAX package's function of the same name, on the host here too;
+    the sample chunks move to `dev` (None: where the reads lie).
     """
     n_reads, m = shape
     chunk_kmers = cfg.chunk_reads * (m - cfg.k + 1)
@@ -677,7 +697,7 @@ def _chunk_valid_estimate(reads: torch.Tensor, cfg: DAKCConfig, mode: str,
     for c in sorted({(i * n_chunks) // _SAMPLE_CHUNKS
                      for i in range(min(_SAMPLE_CHUNKS, n_chunks))}):
         lo = c * cfg.chunk_reads
-        sample = reads[lo:lo + min(cfg.chunk_reads, n_reads)]
+        sample = reads[lo:lo + min(cfg.chunk_reads, n_reads)].to(dev)
         scale = -(-cfg.chunk_reads // sample.shape[0])
         if mode == "superkmer":
             sk = minimizer.segment_superkmers(
@@ -802,14 +822,14 @@ def _retry_hop2_caps(cfg: DAKCConfig, num_pes: int, shape,
 
 
 def _valid_estimate(reads: torch.Tensor, cfg: DAKCConfig, num_pes: int,
-                    shape, hop2: bool):
+                    shape, hop2: bool, dev=None):
     """The measured valid-slot sample (`_chunk_valid_estimate`) that the
     compact hop 2 (when `hop2`, it engages) and the pre-route compaction
     plan from, taken once per call or batch; None when neither engages."""
     if not (hop2 or _compact_engaged(cfg)):
         return None
     mode = _plan_caps(cfg, num_pes, shape, cfg.slack)[0]
-    return _chunk_valid_estimate(reads, cfg, mode, shape, num_pes)
+    return _chunk_valid_estimate(reads, cfg, mode, shape, num_pes, dev)
 
 
 # Words a piece when `_ownership_keys` recomputes minimizers: each word
@@ -908,23 +928,38 @@ def _ownership_tag(cfg: DAKCConfig) -> dict:
             "minimizer_order": cfg.minimizer_order if sk else None}
 
 
-def _host_stats(raw_stats) -> DAKCStats:
-    """The round's one device-to-host read of the stats."""
+def _host_stats(raw_stats, group=None) -> Tuple[DAKCStats, list]:
+    """The round's one device-to-host read of the stats; under a `group`
+    after one `dist.all_sum` of them, packed, so that every rank reads the
+    same numbers. Returns the stats and the summed fill histogram."""
     route_ovf, store_ovf, sent_w, wire, raw, h2, fill = raw_stats
-    host = torch.cat([torch.stack([route_ovf, store_ovf, sent_w, h2])
-                      .to(torch.int64), fill.to(torch.int64)]).tolist()
+    packed = torch.cat([torch.stack([route_ovf, store_ovf, sent_w, h2])
+                        .to(torch.int64), fill.to(torch.int64)])
+    if group is not None:
+        packed = dist.all_sum(packed, group)
+    host = packed.tolist()
     route_ovf, store_ovf, sent_w, h2 = host[:4]
     lmm, p99 = _imbalance(host[4:])
     return DAKCStats(overflow=route_ovf, sent_words=sent_w,
                      wire_bytes=np.int64(wire), raw_kmers=raw,
                      num_global_syncs=3, store_overflow=store_ovf,
                      hop2_dropped=h2, load_max_over_mean=lmm,
-                     owner_fill_p99=p99)
+                     owner_fill_p99=p99), host[4:]
 
 
-def resolve_device(device=None) -> torch.device:
+def _refuse_spill(cfg: DAKCConfig) -> None:
+    if cfg.spill != "off":
+        raise NotImplementedError(
+            f"spill={cfg.spill!r} across a process group: the spill tier "
+            f"runs on one process until {dist.SLICE17}")
+
+
+def resolve_device(device=None, group=None) -> torch.device:
     """`device`, or the CUDA card when None; raises when CUDA is asked for
-    and absent (the port never carries on silently on the CPU)."""
+    and absent (the port never carries on silently on the CPU). Under a
+    `group`, the group's device (`dist.resolve_device`)."""
+    if group is not None:
+        return dist.resolve_device(group, device)
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -946,8 +981,27 @@ def _split(reads: torch.Tensor, num_pes: int) -> torch.Tensor:
     return reads.reshape(num_pes, n_reads // num_pes, m)
 
 
+def _place_reads(reads, num_pes: int, dev: torch.device, group=None):
+    """(the global read set the planning reads, the (P, n_local, m) rows
+    the scan reads on `dev`). Under a `group` only this rank's PEs' rows
+    are moved to `dev`, and the planning moves its sample chunks there; a
+    card's reads given to a CPU group raise (nothing is staged through
+    the host)."""
+    if group is None:
+        reads = _as_device_reads(reads, dev)
+        return reads, _split(reads, num_pes)
+    if not isinstance(reads, torch.Tensor):
+        reads = torch.from_numpy(np.ascontiguousarray(reads))
+    if reads.device.type not in ("cpu", dev.type):
+        raise ValueError(f"a {group.backend!r} group runs on {dev.type}; "
+                         f"the reads lie on {reads.device}")
+    first = group.first_pe
+    return reads, _split(reads, num_pes)[first:first + group.local_pes].to(
+        dev)
+
+
 def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
-                device=None) -> Tuple[AccumResult, DAKCStats]:
+                device=None, group=None) -> Tuple[AccumResult, DAKCStats]:
     """Distributed asynchronous k-mer counting (DAKC) of P PEs on one device.
 
     reads: (n_reads, m) integer symbol codes below 2**bits_per_symbol
@@ -959,16 +1013,25 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
            under '1d'.
     device: None runs on the CUDA card (and raises without one); tests
            pass "cpu".
+    group: None (every PE on this device) or a `core.dist.Group` whose
+           world divides num_pes; `reads` is then the global read set on
+           every rank, `device` defaults to the group's, and the result
+           holds this rank's PEs only (module docstring).
     Returns the per-PE AccumResult laid out as the JAX package's: unique
     (P * L,) int64 words (sentinel past each PE's num_unique), counts
-    (P * L,) int32, num_unique (P,); and the DAKCStats.
+    (P * L,) int32, num_unique (P,), with local_pes for P under a group;
+    and the DAKCStats, over all PEs.
 
     Overflow rounds run through `cfg.retry`: a routing overflow replays at
     doubled slack, a full count store replays at doubled capacity (a
     rehash round), a compact hop-2 misfit replays on the padded tile; the
     per-cause round counts come back in `retry_*`. With `cfg.spill` on,
-    the call is one `KmerCounter` update and its drain.
+    the call is one `KmerCounter` update and its drain (not under a group:
+    NotImplementedError).
     """
+    if group is not None:
+        group = group.pes(num_pes)
+        _refuse_spill(cfg)
     if cfg.spill != "off":
         # The out-of-core path runs one incremental counter (an update and
         # its drain), so the spill tier lives in one place for both entry
@@ -984,12 +1047,12 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
             spilled_bytes=fstats.spilled_bytes,
             bins_folded=fstats.bins_folded)
     grid = _topology_grid(cfg, num_pes, grid)
-    reads = _as_device_reads(reads, resolve_device(device))
-    local = _split(reads, num_pes)
+    dev = resolve_device(device, group)
+    reads, local = _place_reads(reads, num_pes, dev, group)
     shape = tuple(reads.shape)
-    store_cap = _resolve_store_capacity(reads, cfg, num_pes)
+    store_cap = _resolve_store_capacity(reads, cfg, num_pes, dev)
     engaged = _hop2_engaged(cfg)
-    est = _valid_estimate(reads, cfg, num_pes, shape, engaged)
+    est = _valid_estimate(reads, cfg, num_pes, shape, engaged, dev)
     ctrl = resilience.RetryController(cfg.retry, slack=cfg.slack,
                                       store_cap=store_cap,
                                       hop2_padded=not engaged)
@@ -1002,8 +1065,9 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
             local, cfg=cfg, num_pes=num_pes, cap_n=cap_n, cap_h=cap_h,
             store_cap=ctrl.store_cap, mode=mode, grid=grid,
             hop2_caps=hop2_caps, compact_caps=compact_caps,
-            fault=resilience.active_trace_fault(cfg.faults, ctrl.attempts))
-        stats = _host_stats(raw_stats)
+            fault=resilience.active_trace_fault(cfg.faults, ctrl.attempts),
+            group=group)
+        stats, _ = _host_stats(raw_stats, group)
         if not ctrl.observe(route_dropped=stats.overflow,
                             store_dropped=stats.store_overflow,
                             hop2_dropped=stats.hop2_dropped):
@@ -1052,7 +1116,11 @@ class KmerCounter:
 
     Store capacity starts from `cfg.store_capacity`, else from the first
     batch's sample estimate ('sample') or its instance bound ('bound').
-    `grid` is as in `count_kmers`.
+    `grid` and `group` are as in `count_kmers`: under a group every rank
+    feeds the same global batches and queries, holds its PEs' stores,
+    `finalize` returns its PEs' rows and `count` the global answers on
+    every rank; `save`, `restore` and the spill tier raise
+    NotImplementedError there.
     """
 
     # Once the tier engages, the resident store only has to exist for
@@ -1060,13 +1128,19 @@ class KmerCounter:
     _SPILL_STORE_CAP = 8
 
     def __init__(self, cfg: DAKCConfig, *, num_pes: int, grid=None,
-                 device=None):
+                 device=None, group=None):
         if cfg.receiver_impl != "stream":
             raise ValueError("KmerCounter requires receiver_impl='stream'")
         self._cfg = cfg
         self._num_pes = num_pes
         self._grid = _topology_grid(cfg, num_pes, grid)
-        self._dev = resolve_device(device)
+        self._group = None if group is None else group.pes(num_pes)
+        if group is not None:
+            _refuse_spill(cfg)
+        self._dev = resolve_device(device, self._group)
+        # the store's rows: every PE, or this rank's under a group
+        self._rows = (num_pes if self._group is None
+                      else self._group.local_pes)
         self._wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
         self._slack = cfg.slack
         # once a batch's hop-1 fills miss the compact hop-2 tile, the
@@ -1102,20 +1176,20 @@ class KmerCounter:
     def _alloc(self, reads: torch.Tensor) -> None:
         cfg = self._cfg
         if self._distinct_est is None and cfg.store_sizing == "sample":
-            self._distinct_est = _sampled_distinct_estimate(reads, cfg,
-                                                            self._num_pes)
+            self._distinct_est = _sampled_distinct_estimate(
+                reads, cfg, self._num_pes, self._dev)
         if self._store_cap is None:
             if self._distinct_est is not None:
                 cap = plan_capacity(self._distinct_est, self._num_pes,
                                     cfg.store_slack)
                 self._store_cap = 1 << (cap - 1).bit_length()
             else:
-                self._store_cap = _resolve_store_capacity(reads, cfg,
-                                                          self._num_pes)
+                self._store_cap = _resolve_store_capacity(
+                    reads, cfg, self._num_pes, self._dev)
         self._alloc_store()
 
     def _alloc_store(self) -> None:
-        self._store = countstore.empty_store(self._num_pes, self._store_cap,
+        self._store = countstore.empty_store(self._rows, self._store_cap,
                                              self._wb, self._dev)
 
     def _grow(self, new_cap: int) -> None:
@@ -1158,13 +1232,14 @@ class KmerCounter:
             raise resilience.InjectedFault(
                 f"injected failure at update #{self._n_updates} "
                 f"(FaultPlan site='update_fail')")
-        reads = _as_device_reads(reads, self._dev)
+        reads, local = _place_reads(reads, self._num_pes, self._dev,
+                                    self._group)
         if self._spill is None and self._cfg.spill == "always":
             self._engage_spill()
         if self._spill is not None:
             return self._spill_update(reads)
         try:
-            return self._incore_update(reads)
+            return self._incore_update(reads, local)
         except resilience.CapacityExhausted as e:
             if (self._cfg.spill != "auto"
                     or e.cause != resilience.STORE_REHASH):
@@ -1177,15 +1252,18 @@ class KmerCounter:
             self._engage_spill()
             return self._spill_update(reads)
 
-    def _incore_update(self, reads: torch.Tensor) -> DAKCStats:
+    def _incore_update(self, reads: torch.Tensor,
+                       local: torch.Tensor) -> DAKCStats:
+        """One in-core batch: `reads` the global batch the planning reads,
+        `local` the (rows, n_local, m) reads of this device's PEs."""
         cfg, p = self._cfg, self._num_pes
         plan = cfg.faults
-        chunks = _chunked(_split(reads, p), cfg.chunk_reads)
+        chunks = _chunked(local, cfg.chunk_reads)
         if self._store is None:
             self._alloc(reads)
         shape = tuple(reads.shape)
         engaged = _hop2_engaged(cfg) and not self._hop2_padded
-        est = _valid_estimate(reads, cfg, p, shape, engaged)
+        est = _valid_estimate(reads, cfg, p, shape, engaged, self._dev)
         ctrl = resilience.RetryController(
             cfg.retry, slack=self._slack, store_cap=self._store_cap,
             hop2_padded=not engaged, history=self._rounds)
@@ -1201,9 +1279,10 @@ class KmerCounter:
                 num_pes=p, cap_n=cap_n, cap_h=cap_h, mode=mode,
                 grid=self._grid, hop2_caps=hop2_caps,
                 compact_caps=compact_caps,
-                fault=resilience.active_trace_fault(plan, ctrl.attempts))
+                fault=resilience.active_trace_fault(plan, ctrl.attempts),
+                group=self._group)
             raw_stats = _round_stats(p, work.dropped, fold_stats)
-            stats = _host_stats(raw_stats)
+            stats, fill = _host_stats(raw_stats, self._group)
             if not ctrl.observe(route_dropped=stats.overflow,
                                 store_dropped=stats.store_overflow,
                                 hop2_dropped=stats.hop2_dropped):
@@ -1220,12 +1299,12 @@ class KmerCounter:
         self._raw += stats.raw_kmers
         self._sent += stats.sent_words
         self._wire_bytes += int(stats.wire_bytes)
-        self._add_fill(raw_stats[6])
+        self._add_fill(fill)
         self._publish()
         return _stamp_retries(stats, ctrl.counts)
 
-    def _add_fill(self, fill: torch.Tensor) -> None:
-        fill = fill.to(torch.int64).cpu().numpy()
+    def _add_fill(self, fill: list) -> None:
+        fill = np.asarray(fill, dtype=np.int64)
         self._fill = fill if self._fill is None else self._fill + fill
 
     # --- the spill tier (core/spill.py) --------------------------------------
@@ -1328,7 +1407,7 @@ class KmerCounter:
             raw_stats = _round_stats(
                 p, torch.zeros((p,), dtype=torch.int32, device=reads.device),
                 fold_stats)
-            stats = _host_stats(raw_stats)
+            stats, fill = _host_stats(raw_stats)
             if not ctrl.observe(route_dropped=stats.overflow,
                                 hop2_dropped=stats.hop2_dropped):
                 w.commit()             # seal this batch into the manifest
@@ -1342,7 +1421,7 @@ class KmerCounter:
         self._raw += stats.raw_kmers
         self._sent += stats.sent_words
         self._wire_bytes += int(stats.wire_bytes)
-        self._add_fill(raw_stats[6])
+        self._add_fill(fill)
         self._publish()
         stats = stats._replace(spilled_bins=w.spilled_bins,
                                spilled_bytes=w.spilled_bytes,
@@ -1479,7 +1558,8 @@ class KmerCounter:
         else:
             counts, stats = query.query_counts(kmers, self._cfg, snap,
                                                num_pes=self._num_pes,
-                                               grid=self._grid)
+                                               grid=self._grid,
+                                               group=self._group)
         self.last_query_stats = stats
         return counts
 
@@ -1500,6 +1580,11 @@ class KmerCounter:
         checkpoint as it was. Pass `ckpt_dir` for a blocking save (returns
         the checkpoint's directory) or `saver=AsyncSaver(...)` to write on
         its thread (returns None; its `wait()` raises a failed write)."""
+        if self._group is not None:
+            raise NotImplementedError(
+                f"KmerCounter.save across a process group: each rank holds "
+                f"its PEs' stores, and their checkpoint waits for "
+                f"{dist.SLICE17}")
         if self._store is None:
             raise RuntimeError("KmerCounter.save before any update")
         if (ckpt_dir is None) == (saver is None):
@@ -1539,8 +1624,8 @@ class KmerCounter:
 
     @classmethod
     def restore(cls, ckpt_dir: str, cfg: DAKCConfig, *, num_pes: int,
-                grid=None, device=None,
-                step: Optional[int] = None) -> "KmerCounter":
+                grid=None, device=None, step: Optional[int] = None,
+                group=None) -> "KmerCounter":
         """Rebuild a counter mid-stream from a checkpoint (the latest
         complete step unless `step` is given), on `device` (None: the
         card).
@@ -1553,7 +1638,12 @@ class KmerCounter:
         must match the saved fingerprint (k, bits_per_symbol, canonical),
         else `ValueError`. A checkpoint with the spill tier engaged needs
         a spill cfg and the bins' `spill_dir`; its manifest is attached,
-        and segment files it does not list are deleted."""
+        and segment files it does not list are deleted. Not under a
+        `group` (NotImplementedError)."""
+        if group is not None:
+            raise NotImplementedError(
+                f"KmerCounter.restore across a process group waits for "
+                f"{dist.SLICE17}")
         from repro_torch.train import checkpoint as ckpt_lib
         if step is None:
             step = ckpt_lib.latest_step(ckpt_dir)

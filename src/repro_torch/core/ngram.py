@@ -39,15 +39,15 @@ def ngram_config(vocab_size: int, n: int, **kw) -> fabsp.DAKCConfig:
 
 
 def count_ngrams(tokens, vocab_size: int, n: int, *, num_pes: int,
-                 chunk_rows: int = 64, grid=None, device=None, **kw
-                 ) -> Tuple[AccumResult, fabsp.DAKCStats]:
+                 chunk_rows: int = 64, grid=None, device=None, group=None,
+                 **kw) -> Tuple[AccumResult, fabsp.DAKCStats]:
     """tokens: (rows, seq) int token ids (numpy array or tensor); PE p owns
     rows [p * rows / P, (p + 1) * rows / P), in chunks of `chunk_rows`.
 
     Returns the distributed n-gram histogram (per-PE segments, disjoint
-    owner sets) and its stats, as `fabsp.count_kmers` does; `grid` and
-    `device` as there, `kw` further `DAKCConfig` fields.
+    owner sets) and its stats, as `fabsp.count_kmers` does; `grid`,
+    `device` and `group` as there, `kw` further `DAKCConfig` fields.
     """
     cfg = ngram_config(vocab_size, n, chunk_reads=chunk_rows, **kw)
     return fabsp.count_kmers(tokens, cfg, num_pes=num_pes, grid=grid,
-                             device=device)
+                             device=device, group=group)

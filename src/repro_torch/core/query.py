@@ -19,6 +19,11 @@ Both hops route at capacity n_local, the per-PE padded query count, the
 pow2 ceiling of nq / P: a sender has no more than n_local items, so no
 bucket overflows and a query never needs a retry round.
 
+Under a process group (`core.dist`) every rank is given the same global
+batch, sends its PEs' rows of it through both routes over the group,
+and gathers every rank's answers and stats, so each rank returns the
+global answer in request order.
+
 The spilled-bin tier (`query_spilled_counts`): a counter whose spill tier
 is engaged keeps its counts in disk bins beside a vestigial store, so a
 query runs in two stages. Stage 1 is the probe above against the
@@ -39,7 +44,8 @@ import numpy as np
 import torch
 
 from repro_torch import words as W
-from repro_torch.core import aggregation, countstore, encoding, fabsp, spill
+from repro_torch.core import (aggregation, countstore, dist, encoding,
+                              fabsp, spill)
 from repro_torch.core.owner import owner_pe
 
 
@@ -146,46 +152,51 @@ def pack_queries(kmers, cfg, device=None) -> torch.Tensor:
     return w
 
 
-def route_queries(q: torch.Tensor, cfg, snap, *, num_pes: int, grid=None):
+def route_queries(q: torch.Tensor, cfg, snap, *, num_pes: int, grid=None,
+                  group=None):
     """The device half of `query_counts`: (P, n_local) query words,
     sentinel-padded, each PE's batch -> ((P, n_local + 1) int32 answers in
     each PE's request order, the last column padding's; (P, 3) int64
     hits, probe sum and longest walk; the wire bytes each PE moved).
-    Forward route, in-place probe and return route, no host read."""
+    Forward route, in-place probe and return route, no host read. Under a
+    `group`, P is this rank's local PEs (and `snap` their stores)."""
     dev = q.device
-    p, n_local = q.shape
+    p = num_pes
+    rows, n_local = q.shape
+    base = 0 if group is None else group.first_pe * n_local
     sent = W.sentinel(snap.word_bits)
     valid = q != sent
-    qid = (torch.arange(p * n_local, dtype=torch.int32, device=dev)
-           .view(p, n_local) + 1)           # 1-based: 0 marks tile padding
+    qid = (torch.arange(rows * n_local, dtype=torch.int32, device=dev)
+           .view(rows, n_local) + base + 1)  # 1-based: 0 marks tile padding
     owners = owner_pe(fabsp._ownership_keys(q, cfg), p,
                       fabsp._ownership_word_bits(cfg))
     rr = aggregation.route_lanes(
         (q, qid), ("word", "i32"), owners, valid, num_pes=p,
         capacity=n_local, word_bits=snap.word_bits, grid=grid,
-        impl=cfg.partition_impl, route2d="oneplan")
+        impl=cfg.partition_impl, route2d="oneplan", group=group)
     rwords, rqid = rr.lanes
     rvalid = rwords != sent
     # (hits, probe sum, longest walk) of each PE's live queries, summed by
     # the lookup itself
-    lstats = torch.zeros((p, 3), dtype=torch.int64, device=dev)
+    lstats = torch.zeros((rows, 3), dtype=torch.int64, device=dev)
     counts, _ = countstore.store_lookup(snap, rwords, lstats)
     back = torch.div(rqid - 1, n_local, rounding_mode="floor")
     rr2 = aggregation.route_lanes(
         (rqid, counts), ("i32", "i32"), back, rvalid, num_pes=p,
         capacity=n_local, word_bits=snap.word_bits, grid=grid,
-        impl=cfg.partition_impl, route2d="oneplan")
+        impl=cfg.partition_impl, route2d="oneplan", group=group)
     bqid, bcounts = rr2.lanes
     # qids are unique, so each live answer owns its slot; padding (qid 0)
     # goes to one extra slot that is cut off
     dst = torch.where(bqid > 0, (bqid - 1) % n_local, n_local).to(torch.int64)
-    out = torch.zeros((p, n_local + 1), dtype=torch.int32, device=dev)
+    out = torch.zeros((rows, n_local + 1), dtype=torch.int32, device=dev)
     out.scatter_add_(1, dst, bcounts)
     return out, lstats, rr.wire_bytes + rr2.wire_bytes
 
 
 def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
-                 num_pes: int, grid=None) -> Tuple[np.ndarray, QueryStats]:
+                 num_pes: int, grid=None,
+                 group=None) -> Tuple[np.ndarray, QueryStats]:
     """Batched lookup of `kmers` against a committed store snapshot of
     `num_pes` PEs. Returns ((n,) int32 counts in request order, 0 = never
     counted; QueryStats), exact for any batch: hits, misses, duplicates,
@@ -194,7 +205,10 @@ def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
     `grid` is the counter's 2d (rows, cols) or None: both hops then take
     the 'oneplan' 2d route. The query id is built from the row-major PE
     index, which the 2d route folds owners into, so answers come back to
-    the PE that asked under either topology."""
+    the PE that asked under either topology.
+
+    `group`: a `dist.PEGroup` whose local PEs `snap` holds; every rank
+    passes the same batch and returns the same answers and stats."""
     dev = snap.keys.device
     p = num_pes
     words = pack_queries(kmers, cfg, dev)
@@ -203,8 +217,14 @@ def query_counts(kmers, cfg, snap: countstore.StoreSnapshot, *,
     sent = W.sentinel(snap.word_bits)
     q = torch.full((p * n_local,), sent, dtype=torch.int64, device=dev)
     q[:nq] = words
-    out, lstats, wire = route_queries(q.view(p, n_local), cfg, snap,
-                                      num_pes=p, grid=grid)
+    q = q.view(p, n_local)
+    if group is not None:
+        q = q[group.first_pe:group.first_pe + group.local_pes]
+    out, lstats, wire = route_queries(q, cfg, snap, num_pes=p, grid=grid,
+                                      group=group)
+    if group is not None:
+        out = dist.gather_rows(out, group)
+        lstats = dist.gather_rows(lstats, group)
     per_pe = lstats.tolist()
     hits = sum(r[0] for r in per_pe)
     psum = sum(r[1] for r in per_pe)

@@ -6,10 +6,16 @@ distributed count must produce exactly this histogram.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import encoding
 from repro_torch.core.sort import AccumResult, accumulate, sort_with_weights
+
+
+class KCStats(NamedTuple):
+    total_kmers: int   # k-mer instances counted
 
 
 def count_kmers_serial(reads: torch.Tensor, k: int, canonical: bool = False,

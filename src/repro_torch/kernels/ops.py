@@ -425,6 +425,20 @@ def tc_launch_counts() -> Dict[str, int]:
     return {k.__name__: k.tc_launches for k in FLASH_KERNELS}
 
 
+def radix_partition_plan(buckets: torch.Tensor, num_buckets: int):
+    """(positions, per-bucket totals) of the stable sort-free partition of
+    every row (`make_partition_plan` without its starts)."""
+    plan = make_partition_plan(buckets, num_buckets)
+    return plan.positions, plan.totals
+
+
+def make_partition_plan_ref(buckets: torch.Tensor,
+                            num_buckets: int) -> PartitionPlan:
+    """The stable-argsort oracle of `make_partition_plan`, the same plan
+    (`ref.partition_plan`); the routes' impl='argsort' builds it."""
+    return ref.partition_plan(buckets, num_buckets)
+
+
 def make_partition_plan(buckets: torch.Tensor,
                         num_buckets: int) -> PartitionPlan:
     """Stable partition plan of every row of (P, n) int32 bucket ids: the

@@ -38,6 +38,21 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device) -> Dict:
                           lambda a, g: leaf(np.asarray(a)[g]))
 
 
+def moe_expert_slice(moe_params: Dict, rank: int, world: int) -> Dict:
+    """One rank's share of an MoE layer's parameters for `moe_block(...,
+    group=)`: the experts' wi, wg and wo of the contiguous block
+    [rank * E / world, (rank + 1) * E / world) (the experts of its EP
+    shards), the router and shared experts whole. Views, no copies."""
+    e = moe_params["wi"].shape[0]
+    if e % world:
+        raise ValueError(f"{e} experts do not split over {world} ranks")
+    lo, hi = rank * e // world, (rank + 1) * e // world
+    out = dict(moe_params)
+    for name in ("wi", "wg", "wo"):
+        out[name] = moe_params[name][lo:hi]
+    return out
+
+
 def unstack_blocks(tree: Dict, cfg: ModelConfig, leaf, layer_leaf) -> Dict:
     """A tree in the JAX package's parameter layout -> the port's: `leaf`
     maps every leaf outside the blocks, `layer_leaf(a, g)` gives group g

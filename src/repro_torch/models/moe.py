@@ -19,6 +19,12 @@ paths compute the same function:
   and the JAX package's pmean a mean over the shard axis. Token counts
   that do not split into S shards of at least one token (tiny decode
   batches) take the GShard path, as the JAX rule does.
+- DAKC over a process group (`ep_shards=S, group=`, a `core.dist.Group`
+  of `world` ranks): each rank holds S / world shards' token rows and
+  their experts' weights (`convert.moe_expert_slice`); the exchange and
+  its inverse are `dist.exchange` calls, and the aux loss and dropped
+  share are summed over the ranks before the mean. The JAX mesh's 'data'
+  axis is not modelled.
 
 Shared experts are one always-on MLP of width num_shared * expert_d_ff.
 """
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dist
 from repro_torch.models import layers
 
 
@@ -115,21 +122,22 @@ def _gshard_dispatch(params: dict, x2d: torch.Tensor, ids: torch.Tensor,
 
 
 def _dakc_dispatch(params: dict, x2d: torch.Tensor, cfg: ModelConfig,
-                   shards: int, capacity: int):
-    """The packed-tile engine over `shards` stacked EP shards. Returns
-    (y (N, D), aux, dropped share), aux and dropped averaged over the
-    shards."""
+                   shards: int, capacity: int, group=None):
+    """The packed-tile engine over `shards` stacked EP shards, or over this
+    rank's shards of a `dist.PEGroup` (x2d and the experts then this
+    rank's). Returns (y (N, D), aux, dropped share), aux and dropped
+    averaged over all the shards."""
     m = cfg.moe
     cdt = getattr(torch, cfg.compute_dtype)
     n, d = x2d.shape
     e, k = m.num_experts, m.top_k
-    e_loc, n_loc = e // shards, n // shards
-    xs = x2d.reshape(shards, n_loc, d)
+    s_here = shards if group is None else group.local_pes
+    e_loc, n_loc = e // shards, n // s_here
+    xs = x2d.reshape(s_here, n_loc, d)
     ids, weights, aux = _router(params, xs, cfg)         # (S, n_loc, K)
-    aux = aux.mean()
     # Bucketing, destination-major: each shard's pairs sorted stably by
     # expert, the rank within the expert read off the sorted order.
-    flat_ids = ids.reshape(shards, n_loc * k)
+    flat_ids = ids.reshape(s_here, n_loc * k)
     order = torch.argsort(flat_ids, dim=1, stable=True)
     s_ids = flat_ids.gather(1, order)
     hist = F.one_hot(flat_ids, e).sum(1)                 # (S, E)
@@ -137,24 +145,34 @@ def _dakc_dispatch(params: dict, x2d: torch.Tensor, cfg: ModelConfig,
     within = (torch.arange(n_loc * k, device=x2d.device)[None, :]
               - offsets.gather(1, s_ids))
     ok = within < capacity
-    dropped = (1.0 - ok.float().mean(1)).mean()
+    dropped = 1.0 - ok.float().mean(1)
+    if group is None:
+        aux, dropped = aux.mean(), dropped.mean()
+    else:
+        aux, dropped = dist.all_sum(torch.stack([aux.sum(), dropped.sum()]),
+                                    group) / shards
     rows = torch.where(ok, s_ids, e)
     cols = torch.where(ok, within, 0)
-    src = torch.arange(shards, device=x2d.device)[:, None].expand_as(rows)
+    src = torch.arange(s_here, device=x2d.device)[:, None].expand_as(rows)
     xk = xs.to(cdt).repeat_interleave(k, 1)              # (S, n_loc K, D)
-    tiles = torch.zeros((shards, e + 1, capacity, d), dtype=cdt,
+    tiles = torch.zeros((s_here, e + 1, capacity, d), dtype=cdt,
                         device=x2d.device)
     tiles[src, rows, cols] = xk.gather(1, order[..., None].expand(-1, -1, d))
+
+    def swap(t):
+        """[this shard, other shard] tiles -> [other, this]: the
+        all_to_all, a transpose of the stacked shards or one exchange."""
+        return t.transpose(0, 1) if group is None else dist.exchange(t, group)
+
     # The exchange: tile [src, dst] goes to shard dst, which groups its
     # experts' tokens from every source shard.
-    send = tiles[:, :e].reshape(shards, shards, e_loc * capacity, d)
-    recv = send.transpose(0, 1)                          # [dst, src]
-    grouped = recv.reshape(shards, shards, e_loc, capacity, d).transpose(
-        1, 2).reshape(e, shards * capacity, d)
+    recv = swap(tiles[:, :e].reshape(s_here, shards, e_loc * capacity, d))
+    grouped = recv.reshape(s_here, shards, e_loc, capacity, d).transpose(
+        1, 2).reshape(s_here * e_loc, shards * capacity, d)
     y = _expert_ffn(params["wi"], params["wg"], params["wo"], grouped, cdt)
     # The return trip restores each source shard's (E, cap, D) layout.
-    back = y.reshape(shards, e_loc, shards, capacity, d).permute(
-        2, 0, 1, 3, 4).reshape(shards, e, capacity, d)
+    back = swap(y.reshape(s_here, e_loc, shards, capacity, d).transpose(
+        1, 2)).reshape(s_here, e, capacity, d)
     gathered = back[src, torch.where(ok, s_ids, 0), cols]
     gathered = torch.where(ok[..., None], gathered, 0)
     unsort = torch.zeros_like(gathered).scatter_(
@@ -164,11 +182,15 @@ def _dakc_dispatch(params: dict, x2d: torch.Tensor, cfg: ModelConfig,
 
 
 def moe_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
-              ep_shards: Optional[int] = None
+              ep_shards: Optional[int] = None, group=None
               ) -> Tuple[torch.Tensor, MoEAux]:
     """x (B, S, D) -> (y, aux): the routed experts plus the shared ones.
     `ep_shards` picks the DAKC engine over that many stacked EP shards
-    (module docstring); None is the GShard path."""
+    (module docstring); None is the GShard path. With `group` (a
+    `core.dist.Group` whose world divides ep_shards), x is this rank's
+    token rows, `params` holds this rank's experts
+    (`convert.moe_expert_slice`), and the engine must apply: the GShard
+    path needs every expert, so a batch it would take raises."""
     m = cfg.moe
     cdt = getattr(torch, cfg.compute_dtype)
     b, s_len, d = x.shape
@@ -177,13 +199,24 @@ def moe_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     if ep_shards is not None and m.num_experts % ep_shards:
         raise ValueError(f"{m.num_experts} experts do not split over "
                          f"{ep_shards} EP shards")
+    n_shards = ep_shards
+    if group is not None:
+        if ep_shards is None:
+            raise ValueError("a group runs the DAKC engine: pass ep_shards")
+        group = group.pes(ep_shards)
+        n_shards = group.local_pes     # the shards this rank's tokens fill
     use_dakc = (ep_shards is not None and m.dispatch == "dakc"
-                and n % ep_shards == 0 and n >= ep_shards)
+                and n % n_shards == 0 and n >= n_shards)
+    if group is not None and not use_dakc:
+        raise ValueError(
+            f"{n} tokens a rank do not fill {n_shards} EP shards of the "
+            f"DAKC engine (dispatch {m.dispatch!r}); the GShard path needs "
+            f"every expert on one rank")
     if use_dakc:
-        capacity = _capacity(n // ep_shards * m.top_k, m.num_experts,
+        capacity = _capacity(n // n_shards * m.top_k, m.num_experts,
                              m.capacity_factor)
         y2d, aux, dropped = _dakc_dispatch(params, x2d, cfg, ep_shards,
-                                           capacity)
+                                           capacity, group)
     else:
         ids, weights, aux = _router(params, x2d, cfg)
         capacity = _capacity(n * m.top_k, m.num_experts, m.capacity_factor)

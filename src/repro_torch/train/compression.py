@@ -11,8 +11,11 @@ The JAX package reduces over a named mesh axis with `psum / n` inside
 `shard_map`. The port holds the shard axis as a leading dimension on one
 device (`sharded=True`): each shard picks its own top-k, the kept values
 are summed over that dimension and divided by the shard count, and each
-shard keeps its own residual. Without it the compression round-trips
-locally, as the JAX function does without `axis_name`.
+shard keeps its own residual. With `group=` (a `core.dist.Group`) each
+rank is one shard: its scattered buffer goes through one
+`all_reduce(SUM)` over the group and is divided by the world size, the
+JAX `psum / n`. Without either the compression round-trips locally, as
+the JAX function does without `axis_name`.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import dist
 from repro_torch.models.model import map_leaves, named_leaves
 
 
@@ -32,7 +36,8 @@ def init_error_feedback(grads):
 
 
 def _compress_leaf(g: torch.Tensor, e: torch.Tensor, frac: float,
-                   sharded: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                   sharded: bool, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     n = g.shape[0] if sharded else 1
     acc = g.float().reshape(n, -1) + e.reshape(n, -1)
     k = max(1, int(acc.shape[1] * frac))
@@ -41,13 +46,15 @@ def _compress_leaf(g: torch.Tensor, e: torch.Tensor, frac: float,
     new_e = (acc - sparse).reshape(e.shape)
     if sharded:
         out = (sparse.sum(0) / n).reshape(g.shape[1:])
+    elif group is not None:
+        out = (dist.all_sum(sparse, group) / group.world).reshape(g.shape)
     else:
         out = sparse.reshape(g.shape)
     return out.to(g.dtype), new_e
 
 
 def compress_psum(grads, error, *, frac: float = 0.01,
-                  sharded: bool = False):
+                  sharded: bool = False, group=None):
     """Top-k sparsified, error-fed gradient reduction. Returns
     (compressed grads, new error), trees shaped like `grads` and `error`.
 
@@ -55,10 +62,14 @@ def compress_psum(grads, error, *, frac: float = 0.01,
     dimension n; the compressed grads are the mean over it of each
     shard's scattered pairs (the leaf's shape without that dimension, what
     every shard holds after the JAX all-reduce), and the error keeps one
-    residual per shard."""
+    residual per shard. With `group`, this rank's leaves are its shard and
+    the compressed grads the mean over the group's ranks."""
+    if sharded and group is not None:
+        raise ValueError("sharded=True stacks the shards on one device; a "
+                         "group holds one shard a rank")
     g_leaves = [g for _, g in named_leaves(grads)]
     e_leaves = [e for _, e in named_leaves(error)]
-    outs = [_compress_leaf(g, e, frac, sharded)
+    outs = [_compress_leaf(g, e, frac, sharded, group)
             for g, e in zip(g_leaves, e_leaves)]
     it_g, it_e = iter([o[0] for o in outs]), iter([o[1] for o in outs])
     return (map_leaves(lambda _: next(it_g), grads),

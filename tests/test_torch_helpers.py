@@ -14,7 +14,12 @@ in this process (numpy-only functions and 32-bit JAX ones):
 - `analytical_model.predict`, `cache_misses`, `op_intensity` and the
   phase terms on `PHOENIX_INTEL`, equal floats over a grid of workloads;
   `H100_SXM` from its stated derivation;
-- the names `repro_torch.core` and `repro_torch.data` expose.
+- the names `repro_torch.core` and `repro_torch.data` expose;
+- `aggregation.bucket_by_owner` (each row against the JAX function on
+  the same words, owners and validity, with and without the count lane,
+  under both plans, with overflow; 64-bit words in one x64 subprocess),
+  `l3_max_block`, `aggregation_memory_bytes`, `ops.radix_partition_plan`,
+  `ops.make_partition_plan_ref` and `serial.KCStats`.
 """
 
 import dataclasses
@@ -26,6 +31,7 @@ import pytest
 import torch
 
 from repro.configs import dakc_kc as jdakc_kc
+from repro.core import aggregation as jaggregation
 from repro.core import analytical_model as jam
 from repro.core import encoding as jencoding
 from repro.core import serial as jserial
@@ -33,6 +39,7 @@ from repro.core import sort as jsort
 from repro.data import genome as jgenome
 from repro_torch import words as W
 from repro_torch.configs import dakc_kc
+from repro_torch.core import aggregation
 from repro_torch.core import analytical_model as am
 from repro_torch.core import encoding, serial, sort
 from repro_torch.data import genome
@@ -229,3 +236,136 @@ def test_packages_expose_the_reference_names():
     for name in ("corpus_stats", "genome", "tokens"):
         assert hasattr(jdata, name) and hasattr(data, name), name
     assert core.count_kmers_bsp is core.bsp.count_kmers
+
+
+def _bucket_rows(word_bits, seed):
+    """Three rows of words (the sentinel among them), owners and validity;
+    a dense row overflows capacity 48 on its hot owners."""
+    rng = np.random.default_rng(seed)
+    n, rows = 512, 3
+    dt = np.uint64 if word_bits == 64 else np.uint32
+    words = rng.integers(0, 1 << (word_bits - 2), (rows, n)).astype(dt)
+    words[:, ::97] = np.iinfo(dt).max
+    owners = rng.integers(0, 8, (rows, n)).astype(np.int32)
+    owners[2, :300] = 3
+    valid = rng.random((rows, n)) < 0.9
+    counts = rng.integers(1, 1000, (rows, n)).astype(np.int32)
+    return words, owners, valid, counts
+
+
+def _port_buckets(words, owners, valid, counts, word_bits, impl):
+    w = W.to_torch_words(words, "cpu")[0]
+    return aggregation.bucket_by_owner(
+        w, torch.from_numpy(owners), torch.from_numpy(valid), 8, 48,
+        None if counts is None else torch.from_numpy(counts),
+        word_bits=word_bits, impl=impl)
+
+
+@pytest.mark.parametrize("impl", ["radix", "argsort"])
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_bucket_by_owner_32_matches_jax(impl, with_counts):
+    words, owners, valid, counts = _bucket_rows(32, 5)
+    counts = counts if with_counts else None
+    got = _port_buckets(words, owners, valid, counts, 32, impl)
+    assert got.overflow[2] > 0
+    for r in range(words.shape[0]):
+        want = jaggregation.bucket_by_owner(
+            jnp.asarray(words[r]), jnp.asarray(owners[r]),
+            jnp.asarray(valid[r]), 8, 48,
+            None if counts is None else jnp.asarray(counts[r]), impl=impl)
+        np.testing.assert_array_equal(
+            W.to_numpy_words(got.tile[r], 32), np.asarray(want.tile))
+        np.testing.assert_array_equal(got.fill[r].numpy(),
+                                      np.asarray(want.fill))
+        assert int(got.overflow[r]) == int(want.overflow)
+        if counts is None:
+            assert got.counts is None and want.counts is None
+        else:
+            np.testing.assert_array_equal(got.counts[r].numpy(),
+                                          np.asarray(want.counts))
+
+
+L3_BLOCKS = [(5, 2), (13, 2), (15, 2), (21, 2), (31, 2), (3, 18)]
+
+
+@pytest.fixture(scope="module")
+def jax_x64(tmp_path_factory):
+    """One x64 subprocess: `bucket_by_owner` of 64-bit words under both
+    plans, and `l3_max_block` of the widths that need 64-bit words."""
+    from _torch_parity import run_jax
+    words, owners, valid, counts = _bucket_rows(64, 6)
+    body = f"L3_BLOCKS = {L3_BLOCKS!r}\n" + """
+from repro.core.aggregation import bucket_by_owner, l3_max_block
+for impl in ("radix", "argsort"):
+    for r in range(I["words"].shape[0]):
+        res = bucket_by_owner(jnp.asarray(I["words"][r]),
+                              jnp.asarray(I["owners"][r]),
+                              jnp.asarray(I["valid"][r]), 8, 48,
+                              jnp.asarray(I["counts"][r]), impl=impl)
+        for f in ("tile", "fill", "overflow", "counts"):
+            O[f"{impl}_{r}_{f}"] = getattr(res, f)
+for k, bps in L3_BLOCKS:
+    O[f"l3_{k}_{bps}"] = l3_max_block(k, bps)
+"""
+    return run_jax(tmp_path_factory.mktemp("helpers64"), body,
+                   dict(words=words, owners=owners, valid=valid,
+                        counts=counts), x64=True)
+
+
+@pytest.mark.parametrize("impl", ["radix", "argsort"])
+def test_bucket_by_owner_64_matches_jax_x64(jax_x64, impl):
+    words, owners, valid, counts = _bucket_rows(64, 6)
+    got = _port_buckets(words, owners, valid, counts, 64, impl)
+    assert got.overflow[2] > 0
+    for r in range(words.shape[0]):
+        np.testing.assert_array_equal(W.to_numpy_words(got.tile[r], 64),
+                                      jax_x64[f"{impl}_{r}_tile"])
+        np.testing.assert_array_equal(got.fill[r].numpy(),
+                                      jax_x64[f"{impl}_{r}_fill"])
+        assert int(got.overflow[r]) == int(jax_x64[f"{impl}_{r}_overflow"])
+        np.testing.assert_array_equal(got.counts[r].numpy(),
+                                      jax_x64[f"{impl}_{r}_counts"])
+
+
+@pytest.mark.parametrize("k,bps", L3_BLOCKS)
+def test_l3_max_block_matches_jax(jax_x64, k, bps):
+    assert aggregation.l3_max_block(k, bps) == int(jax_x64[f"l3_{k}_{bps}"])
+    if k * bps <= 32 - 2:      # 32-bit words: in this process too
+        assert aggregation.l3_max_block(k, bps) == \
+            jaggregation.l3_max_block(k, bps)
+
+
+@pytest.mark.parametrize("protocol", ["1d", "2d", "3d"])
+def test_aggregation_memory_bytes_matches_jax(protocol):
+    for p in (1, 8, 64, 256, 1024):
+        for kw in ({}, dict(c1=512, c2=64, c3=4096, word_bytes=4)):
+            assert aggregation.aggregation_memory_bytes(p, protocol, **kw) \
+                == jaggregation.aggregation_memory_bytes(p, protocol, **kw)
+
+
+@pytest.mark.parametrize("num_buckets", [2, 9, 257])
+def test_partition_plans_match_jax(num_buckets):
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(num_buckets)
+    b = rng.integers(0, num_buckets, (2, 700)).astype(np.int32)
+    b[1, :500] = num_buckets - 1          # one hot bucket
+    pos, totals = ops.radix_partition_plan(torch.from_numpy(b), num_buckets)
+    plan = ops.make_partition_plan_ref(torch.from_numpy(b), num_buckets)
+    for r in range(b.shape[0]):
+        jpos, jtot = jops.radix_partition_plan(jnp.asarray(b[r]),
+                                               num_buckets, 1024)
+        jplan = jops.make_partition_plan_ref(jnp.asarray(b[r]), num_buckets)
+        np.testing.assert_array_equal(pos[r].numpy(), np.asarray(jpos))
+        np.testing.assert_array_equal(totals[r].numpy(), np.asarray(jtot))
+        np.testing.assert_array_equal(plan.positions[r].numpy(),
+                                      np.asarray(jplan.positions))
+        np.testing.assert_array_equal(plan.totals[r].numpy(),
+                                      np.asarray(jplan.totals))
+        np.testing.assert_array_equal(plan.starts[r].numpy(),
+                                      np.asarray(jplan.starts))
+
+
+def test_kc_stats_matches_jax():
+    assert serial.KCStats._fields == jserial.KCStats._fields
+    assert serial.KCStats(total_kmers=7).total_kmers == 7

@@ -48,8 +48,9 @@ import torch
 import repro_torch
 from repro_torch import words
 from repro_torch.core import (aggregation, analytical_model, bsp, countstore,
-                              encoding, encoding128, fabsp, minimizer, ngram,
-                              owner, query, resilience, serial, sort, spill)
+                              dist, encoding, encoding128, fabsp, minimizer,
+                              ngram, owner, query, resilience, serial, sort,
+                              spill)
 from repro_torch.configs import dakc_kc
 from repro_torch.data import corpus_stats, genome
 from repro_torch.launch import kc_dryrun
@@ -169,6 +170,40 @@ print("LEAKED", bad, "CUDA", torch.cuda.is_initialized())
     proc = _run(code, env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED [] CUDA False" in proc.stdout, proc.stdout
+
+
+def test_one_rank_group_goes_through_all_to_all_single(tmp_path,
+                                                      monkeypatch):
+    """A gloo group of world 1 takes the same collective as any other: no
+    world == 1 shortcut back to the stacked transpose."""
+    import numpy as np
+    import torch.distributed as tdist
+    from repro_torch.core import dist
+    from repro_torch.data import genome
+    reads = genome.sample_reads(genome.ReadSetSpec(
+        genome_bases=512, n_reads=64, read_len=30, seed=1))
+    cfg = fabsp.DAKCConfig(k=13, chunk_reads=8)
+    want, want_st = fabsp.count_kmers(reads, cfg, num_pes=2, device="cpu")
+    calls = []
+    real = tdist.all_to_all_single
+
+    def counted(*a, **kw):
+        calls.append(a[1].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tdist, "all_to_all_single", counted)
+    g = dist.init_group("gloo", "file://" + str(tmp_path / "store"), 0, 1)
+    try:
+        res, st = fabsp.count_kmers(reads, cfg, num_pes=2, group=g)
+    finally:
+        g.destroy()
+    # 4 scan steps of the 'dual' format, 3 lanes each (a NORMAL word lane,
+    # a HEAVY word and count pair)
+    assert len(calls) == 4 * 3
+    assert torch.equal(res.unique, want.unique)
+    assert torch.equal(res.counts, want.counts)
+    assert np.array_equal([float(x) for x in st],
+                          [float(x) for x in want_st])
 
 
 def test_sources_name_no_jax_module():
