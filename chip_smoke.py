@@ -14,6 +14,8 @@
     python3 chip_smoke.py --phases 1,2,16    # the LM trainer's infrastructure
     python3 chip_smoke.py --phases 1,2,17    # the dry-run and its predictions
     python3 chip_smoke.py --phases 1,2,4,18  # the PEs across a process group
+    python3 chip_smoke.py --phases 1,2,19    # durability, the sharded step
+                                             # and the pipeline across ranks
     python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13 and 15's reads
 
 Phases:
@@ -58,8 +60,29 @@ Phases:
      deepseek-moe-16b layer through moe_block(ep_shards=8, group=) against
      GShard within 1e-5 of the largest output, no drops at capacity factor
      8; compress_psum(group=) at frac 1.0 equal to its input; (c) the
-     refusals: spill='auto' with a group (NotImplementedError naming slice
-     17) and a gloo group given the card's tensors (ValueError);
+     refusals: a gloo group given the card's tensors (ValueError);
+  19. across a one-rank NCCL group (its store and files under
+     build/chip_smoke_phase19/, deleted afterwards): (a) phase 8's
+     configuration over its first 2**22 reads in 4 updates, the stacked
+     path and KmerCounter(group=) each saving after update 2; the group's
+     checkpoint restored on the stacked path at 8 and 4 PEs and the
+     stacked one under the group, each finishing the updates; every PE's
+     (k-mer, count) set (the histogram at 4 PEs) and all 2**20 query
+     answers equal to the uninterrupted stacked run's; spill='always'
+     and spill='auto' (stores 2**16 slots short of the fullest PE's
+     distinct k-mers, so the tier engages at once) over the first 2**18
+     reads under the group, every PE's set equal to the stacked in-core
+     count's; save, restore, update and drain seconds and bytes; (b)
+     qwen1.5-0.5b at full width and depth, 4 steps of 4 x 4096 under
+     'flash_train' through launch.train.train on a (1, 1) mesh of the
+     group (the sharded step: its gathers, reductions and vocab-parallel
+     loss), against the unsharded trainer from the same init: loss within
+     1e-3 and grad norm within 1e-2 relative at every step, rows 12-13
+     launched on the tensor cores; its step-2 checkpoint resumed by the
+     unsharded trainer, steps 3-4 within 1e-3; step seconds, tokens/s,
+     peak memory and collective calls a step beside the unsharded run's;
+     (c) pipeline_forward(group=) of phase 16's 4 stages, all on the one
+     rank, within 1e-5 of the largest output of the stacked schedule;
   11. the 2d topology at full size: phase 4's read set counted by 8 PEs as
      a (2, 4) grid on the one-plan route with the compact hop 2, exact
      against torch.unique, every PE holding phase 4's (k-mer, count) set,
@@ -213,14 +236,14 @@ Phases:
      torch.profiler (device time by kernel, the device's busy share, the
      main path's launches per scan step, device launches a decode step).
 
-Phases run in the order 1-5, 18, 11, 12, 8, 13, 9, 14, 15, 16, 17, 10, 6,
-7: phase 18 beside phase 4's result; phases 18,
+Phases run in the order 1-5, 18, 11, 12, 8, 13, 9, 14, 15, 16, 17, 19,
+10, 6, 7: phase 18 beside phase 4's result; phases 18,
 11 and 12 before phase 8, whose counter keeps its store until phase 6;
 phase 13 after phase 8, whose counter and histogram it reads, freeing
 what it made before phase 9; and every phase whose wall time is kept
 before phase 10, which profiles. The `kernels` record gives each row's
-launches on phases 13's to 18's paths beside the full run's
-(`launches_phase13` to `launches_phase18`).
+launches on phases 13's to 19's paths beside the full run's
+(`launches_phase13` to `launches_phase19`).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -1468,16 +1491,6 @@ def group_phase(torch, fabsp, bsp, ops, genome, n_reads, phase4):
         torch.cuda.empty_cache()
 
         # (c) the refusals, by type and message
-        try:
-            fabsp.count_kmers(reads, fabsp.DAKCConfig(
-                k=K, spill="auto", spill_dir=os.path.join(PHASE18_DIR,
-                                                          "spill")),
-                num_pes=NUM_PES, group=g)
-            check(False, "spill='auto' ran across a group")
-        except NotImplementedError as e:
-            check("slice 17" in str(e), f"spill refusal says {e}")
-            log(f"  [refusal] spill='auto' with a group: "
-                f"NotImplementedError: {e}")
         pg = tdist.new_group(backend="gloo")
         gg = rdist.Group(pg=pg, backend="gloo", rank=0, world=1,
                          device=torch.device("cpu"))
@@ -3231,6 +3244,325 @@ def trainer_phase(torch, ops):
 
 # --- phase 17: the dry-run and its predictions against the card -----------
 
+# --- phase 19: the counter's durability, the sharded step and the pipeline
+# across a process group ------------------------------------------------------
+
+PHASE19_DIR = os.path.join(HERE, "build", "chip_smoke_phase19")
+P19_READS = 1 << 22            # phase 8's first reads, in P19_UPDATES
+P19_UPDATES = 4
+P19_SAVE_AFTER = 2             # updates before each checkpoint
+P19_QUERIES = 1 << 20
+P19_SPILL_READS = 1 << 18
+# The 'auto' run's stores hold P19_OVERFLOW fewer slots than the fullest
+# PE's distinct k-mers, and the ceiling is one below them: the in-core
+# round drops about that many keys (each probing the whole full table,
+# PERF.md section 7), and the tier engages at once.
+P19_OVERFLOW = 1 << 16
+P19_STEPS, P19_CKPT_EVERY = 4, 2
+P19_KERNELS = ("bucket_positions", "segment_accumulate", "hash_insert",
+               "hash_lookup", "sliding_min_pair", "flash_attention_fwd_lse",
+               "flash_attention_bwd")
+
+
+def ranks_phase(torch, fabsp, ops, genome, card):
+    """Phase 19: through a one-rank NCCL group, (a) the counter's
+    checkpoint, restore and spill tier, (b) the LM trainer's sharded step
+    and its checkpoints on a (1, 1) mesh, (c) the pipeline. Every gate
+    failure raises. Returns the launches of the phase's path and its
+    numbers."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dist as rdist
+    from repro_torch.core import resilience
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model
+    from repro_torch.train import pipeline
+
+    shutil.rmtree(PHASE19_DIR, ignore_errors=True)
+    os.makedirs(PHASE19_DIR)
+    numbers = {"card": card}
+    ops.reset_launches()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    g = rdist.init_group("nccl", "file://" + os.path.join(PHASE19_DIR,
+                                                          "store"), 0, 1)
+    try:
+        # (a) the counter: phase 8's workload, cut to P19_READS
+        cfg = fabsp.DAKCConfig(k=K, transport_impl="superkmer",
+                               minimizer_order="hashed",
+                               compact_impl="prefix")
+        spec = genome.ReadSetSpec(genome_bases=1 << 26, n_reads=1 << 23,
+                                  read_len=150, seed=0)
+        reads = genome.sample_reads_torch(spec, "cuda")[:P19_READS]
+        step = P19_READS // P19_UPDATES
+        batches = [reads[i * step:(i + 1) * step]
+                   for i in range(P19_UPDATES)]
+        queries = make_queries(torch, reads, K, P19_QUERIES, seed=7)
+        log(f"[ranks] (a) the counter: phase 8's configuration, its first "
+            f"{P19_READS} reads in {P19_UPDATES} updates, 8 PEs, "
+            f"{P19_QUERIES} queries; a checkpoint after update "
+            f"{P19_SAVE_AFTER}")
+
+        def feed(kc, first, p, ckpt=None):
+            """Updates `first`.. into `kc` (saving to `ckpt` after
+            P19_SAVE_AFTER), then its per-PE sets, answers and stats."""
+            walls = []
+            for i in range(first, P19_UPDATES):
+                if ckpt is not None and i == P19_SAVE_AFTER:
+                    path, t = timed(lambda: kc.save(ckpt, step=i))
+                    numbers.setdefault("save", []).append(
+                        {"s": t, "bytes": dir_bytes(path)})
+                walls.append(timed(lambda: kc.update(batches[i]))[1])
+            (res, st), t_fin = timed(kc.finalize)
+            sets = per_pe_sets(torch, res, p)
+            got = kc.count(queries)
+            del res
+            return sets, got, st, walls, t_fin
+
+        def same(got, want, what, p=NUM_PES):
+            """Per-PE sets (or, on another PE count, the global histogram)
+            and the answers of `got` equal `want`'s."""
+            if p == NUM_PES:
+                check(got[0][2] == want[0][2]
+                      and torch.equal(got[0][0], want[0][0])
+                      and torch.equal(got[0][1], want[0][1]),
+                      f"{what}: a PE's (k-mer, count) set differs from the "
+                      f"uninterrupted stacked run's")
+            else:
+                ok = [torch.argsort(x[0][0]) for x in (got, want)]
+                check(torch.equal(got[0][0][ok[0]], want[0][0][ok[1]])
+                      and torch.equal(got[0][1][ok[0]], want[0][1][ok[1]]),
+                      f"{what}: the histogram differs from the "
+                      f"uninterrupted stacked run's")
+            check((got[1] == want[1]).all(), f"{what}: a query answer "
+                  f"differs from the uninterrupted stacked run's")
+            log(f"  [{what}] updates {[round(w, 3) for w in got[3]]} s, "
+                f"finalize {got[4]:.3f} s; every "
+                f"{'PE set' if p == NUM_PES else 'histogram entry'} and "
+                f"all {P19_QUERIES} answers equal the stacked run's")
+
+        ck_s = os.path.join(PHASE19_DIR, "ck_stacked")
+        ck_g = os.path.join(PHASE19_DIR, "ck_group")
+        want = feed(fabsp.KmerCounter(cfg, num_pes=NUM_PES), 0, NUM_PES,
+                    ck_s)
+        log(f"  [stacked] updates {[round(w, 3) for w in want[3]]} s, "
+            f"finalize {want[4]:.3f} s, {sum(want[0][2])} distinct k-mers; "
+            f"saved {numbers['save'][0]['bytes']} bytes in "
+            f"{numbers['save'][0]['s']:.3f} s")
+        got = feed(fabsp.KmerCounter(cfg, num_pes=NUM_PES, group=g), 0,
+                   NUM_PES, ck_g)
+        log(f"  [group save] {numbers['save'][1]['bytes']} bytes in "
+            f"{numbers['save'][1]['s']:.3f} s ({card})")
+        same(got, want, "group, uninterrupted")
+        restores = (("group's checkpoint on the stacked path, 8 PEs", ck_g,
+                     NUM_PES, None),
+                    ("group's checkpoint on the stacked path, 4 PEs", ck_g,
+                     4, None),
+                    ("stacked checkpoint under the group, 8 PEs", ck_s,
+                     NUM_PES, g))
+        numbers["restore"] = []
+        for what, ck, p, grp in restores:
+            kc, t = timed(lambda: fabsp.KmerCounter.restore(
+                ck, cfg, num_pes=p, group=grp))
+            numbers["restore"].append({"what": what, "s": t})
+            log(f"  [{what}] restored in {t:.3f} s ({card})")
+            same(feed(kc, P19_SAVE_AFTER, p), want, what, p)
+            del kc
+        del got, want, batches
+        torch.cuda.empty_cache()
+
+        # the spill tier under the group, against the stacked path
+        sreads = reads[:P19_SPILL_READS]
+        res, _ = fabsp.count_kmers(sreads, cfg, num_pes=NUM_PES)
+        ref_sets = per_pe_sets(torch, res, NUM_PES)
+        cap = max(ref_sets[2]) - P19_OVERFLOW
+        del res
+        runs = (("always", dict(spill="always")),
+                ("auto", dict(spill="auto", store_capacity=cap,
+                              retry=resilience.RetryPolicy(
+                                  store_cap_ceiling=cap - 1))))
+        numbers["spill"] = {}
+        for tag, knobs in runs:
+            bins = os.path.join(PHASE19_DIR, "bins_" + tag)
+            scfg = dataclasses.replace(cfg, spill_dir=bins, **knobs)
+            kc = fabsp.KmerCounter(scfg, num_pes=NUM_PES, group=g)
+            ust, t_up = timed(lambda: kc.update(sreads))
+            (res, st), t_drain = timed(kc.finalize)
+            check(st.spilled_bins > 0 and st.bins_folded > 0,
+                  f"spill={tag!r} spilled nothing under the group")
+            got_sets = per_pe_sets(torch, res, NUM_PES)
+            check(got_sets[2] == ref_sets[2]
+                  and torch.equal(got_sets[0], ref_sets[0])
+                  and torch.equal(got_sets[1], ref_sets[1]),
+                  f"spill={tag!r} under the group: a PE's set differs from "
+                  f"the stacked in-core count's")
+            numbers["spill"][tag] = {
+                "update_s": t_up, "drain_s": t_drain,
+                "spilled_bytes": st.spilled_bytes,
+                "spilled_bins": st.spilled_bins,
+                "retry_store_rehash": ust.retry_store_rehash}
+            log(f"  [spill {tag!r}] {P19_SPILL_READS} reads: update "
+                f"{t_up:.3f} s, drain {t_drain:.3f} s, {st.spilled_bytes} "
+                f"bytes in {st.spilled_bins} bins; every PE set equals the "
+                f"stacked in-core count's ({card})")
+            del kc, res
+        log(f"  [spill 'auto'] stores of {cap} slots, ceiling {cap - 1}: "
+            f"the tier engaged at the first update")
+        del reads, sreads, queries, ref_sets
+        torch.cuda.empty_cache()
+
+        # (b) the trainer: phase 9's step through the group on (1, 1)
+        cfg9 = dataclasses.replace(get_config(LM_ARCH),
+                                   attn_impl="flash_train")
+        L = cfg9.num_layers
+        kw = dict(reduced=False, steps=P19_STEPS, batch=LM_BATCH,
+                  seq=LM_SEQ, log_every=1, attn_impl="flash_train")
+        ck_lm = os.path.join(PHASE19_DIR, "lm")
+        log(f"[ranks] (b) {LM_ARCH} at full width and depth, {P19_STEPS} "
+            f"steps of {LM_BATCH} x {LM_SEQ}, 'flash_train', on a (1, 1) "
+            f"mesh of the group; checkpoints every {P19_CKPT_EVERY} steps")
+        flash = ("flash_attention_fwd_lse", "flash_attention_bwd")
+        before = {k: ops.launch_counts()[k] for k in flash}
+        tc_before = {k: ops.tc_launch_counts()[k] for k in flash}
+        torch.cuda.reset_peak_memory_stats()
+        out_s = train_lib.train(LM_ARCH, ckpt_dir=ck_lm,
+                                ckpt_every=P19_CKPT_EVERY, group=g,
+                                model_parallel=1, **kw)
+        peak_s = torch.cuda.max_memory_allocated()
+        del out_s["params"], out_s["opt_state"]
+        fl = {k: ops.launch_counts()[k] - before[k] for k in flash}
+        tc = {k: ops.tc_launch_counts()[k] - tc_before[k] for k in flash}
+        check(fl["flash_attention_fwd_lse"] == 2 * L * P19_STEPS
+              and fl["flash_attention_bwd"] == L * P19_STEPS
+              and tc == fl, f"the sharded step's flash launches {fl} "
+              f"(tensor cores {tc})")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out_u = train_lib.train(LM_ARCH, device=DEV, **kw)
+        peak_u = torch.cuda.max_memory_allocated()
+        del out_u["params"], out_u["opt_state"]
+        for name, a, b, tol in (("loss", out_s["losses"], out_u["losses"],
+                                 1e-3),
+                                ("grad norm", out_s["grad_norms"],
+                                 out_u["grad_norms"], 1e-2)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                check(abs(x - y) <= tol * abs(y), f"step {i + 1}: the "
+                      f"sharded {name} {x} and the unsharded {y} differ by "
+                      f"more than {tol} relative")
+        clean = [i for i in range(1, P19_STEPS)
+                 if (i + 1) % P19_CKPT_EVERY]     # steps without a save
+        step_s = sum(out_s["step_seconds"][i] for i in clean) / len(clean)
+        step_u = sum(out_u["step_seconds"][1:]) / (P19_STEPS - 1)
+        tokens = LM_BATCH * LM_SEQ
+        numbers["train"] = {
+            "losses": out_s["losses"], "unsharded_losses": out_u["losses"],
+            "grad_norms": out_s["grad_norms"],
+            "unsharded_grad_norms": out_u["grad_norms"],
+            "step_seconds": out_s["step_seconds"],
+            "unsharded_step_seconds": out_u["step_seconds"],
+            "step_s": step_s, "unsharded_step_s": step_u,
+            "tokens_per_s": tokens / step_s,
+            "unsharded_tokens_per_s": tokens / step_u,
+            "peak_bytes": peak_s, "unsharded_peak_bytes": peak_u,
+            "collective_calls": out_s["collective_calls"],
+            "collective_bytes": out_s["collective_bytes"],
+            "save_seconds": out_s["save_seconds"],
+            "write_seconds": out_s["write_seconds"]}
+        log(f"  [sharded] losses {out_s['losses']}, unsharded "
+            f"{out_u['losses']}; grad norms {out_s['grad_norms']}, "
+            f"unsharded {out_u['grad_norms']}: within 1e-3 and 1e-2")
+        log(f"  [sharded] step {step_s:.3f} s ({tokens / step_s:.0f} "
+            f"tokens/s) beside the unsharded {step_u:.3f} s "
+            f"({tokens / step_u:.0f} tokens/s); peak {peak_s / 1e9:.2f} GB "
+            f"beside {peak_u / 1e9:.2f} GB; collective calls a step "
+            f"{out_s['collective_calls']}, bytes a step "
+            f"{out_s['collective_bytes']}; saves {out_s['save_seconds']} "
+            f"({card})")
+        # the sharded run's step-2 checkpoint, alone, in the unsharded
+        # trainer
+        ck_one = os.path.join(PHASE19_DIR, "lm_one")
+        os.makedirs(ck_one)
+        name = f"step_{P19_CKPT_EVERY:08d}"
+        os.rename(os.path.join(ck_lm, name), os.path.join(ck_one, name))
+        shutil.rmtree(ck_lm)
+        out_r = train_lib.train(LM_ARCH, device=DEV, ckpt_dir=ck_one, **kw)
+        del out_r["params"], out_r["opt_state"]
+        check(out_r["start_step"] == P19_CKPT_EVERY, f"the unsharded "
+              f"trainer resumed at {out_r['start_step']}")
+        for i, (x, y) in enumerate(zip(out_r["losses"],
+                                       out_s["losses"][P19_CKPT_EVERY:])):
+            check(abs(x - y) <= 1e-3 * abs(y), f"step "
+                  f"{P19_CKPT_EVERY + i + 1}: resumed loss {x}, sharded "
+                  f"{y}")
+        numbers["train"]["resumed_losses"] = out_r["losses"]
+        numbers["train"]["restore_s"] = out_r["restore_seconds"]
+        log(f"  [resume] the sharded step-{P19_CKPT_EVERY} checkpoint in "
+            f"the unsharded trainer: losses {out_r['losses']} against "
+            f"{out_s['losses'][P19_CKPT_EVERY:]}, restore "
+            f"{out_r['restore_seconds']:.3f} s")
+        shutil.rmtree(ck_one)
+        torch.cuda.empty_cache()
+
+        # (c) the pipeline: phase 16's 4 stages, all on the one rank
+        pcfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash",
+                                   compute_dtype="float32")
+        params = model.init_params(pcfg, seed=4, device=DEV)
+        per = L // PIPE_STAGES
+        stages = {"layers": [_stack_trees(torch, [
+            params["blocks"][s * per + j] for s in range(PIPE_STAGES)])
+            for j in range(per)]}
+        del params
+        positions = torch.arange(PIPE_SEQ, device=DEV)
+
+        def body(sp, x):
+            for p in sp["layers"]:
+                x, _, _ = model._layer(p, x, kind=pcfg.period[0], cfg=pcfg,
+                                       shared=None, positions=positions,
+                                       cache=None, cache_index=0)
+            return x
+
+        gen = torch.Generator(device=DEV).manual_seed(4)
+        x = torch.randn((PIPE_MICRO, PIPE_SEQ, pcfg.d_model), generator=gen,
+                        device=DEV)
+        with torch.no_grad():
+            y, t_g = timed(lambda: pipeline.pipeline_forward(
+                body, stages, x, num_microbatches=PIPE_MICRO, group=g))
+            y_ref, t_s = timed(lambda: pipeline.pipeline_forward(
+                body, stages, x, num_microbatches=PIPE_MICRO))
+        err = float((y - y_ref).abs().max())
+        scale = float(y_ref.abs().max())
+        check(err <= 1e-5 * scale, f"pipeline_forward(group=) differs from "
+              f"the stacked schedule by {err} (largest {scale})")
+        numbers["pipeline"] = {"group_s": t_g, "stacked_s": t_s,
+                               "max_abs_err": err, "scale": scale}
+        log(f"[ranks] (c) pipeline_forward(group=), {PIPE_STAGES} stages "
+            f"on the one rank, {PIPE_MICRO} microbatches of 1 x {PIPE_SEQ}: "
+            f"{t_g:.3f} s beside the stacked {t_s:.3f} s, max |diff| "
+            f"{err:.3e} (largest {scale:.3f})")
+        del stages, x, y, y_ref
+        torch.cuda.empty_cache()
+    finally:
+        g.destroy()
+        shutil.rmtree(PHASE19_DIR, ignore_errors=True)
+    launches = ops.launch_counts()
+    for name in P19_KERNELS:
+        check(launches[name] > 0, f"kernel {name} did not launch on phase "
+              f"19's path")
+    check(launches["bucket_hist"] + launches["bucket_prefix"] > 0,
+          "row 1 did not launch on phase 19's path")
+    log(f"  launches on phase 19's path {launches}")
+    log(json.dumps({"phase19": numbers}, default=str))
+    return launches, numbers
+
+
 PHASE17_DIR = os.path.join(HERE, "build", "chip_smoke_phase17")
 DRYRUN_QUERIES = 1 << 20
 # The counter's default lowering: Synthetic-30/8 reads after the quantum of
@@ -4413,7 +4745,8 @@ def profile_decode_step(torch, arch="qwen1.5-0.5b", steps=4):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,"
+                            "19",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
                     help="phases 4, 10, 11 and 12's read count, phase "
@@ -4597,6 +4930,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"[dryrun] done ({time.perf_counter() - t0:.1f} s)")
 
+    phase19_launches = None
+    if 19 in phases:
+        t0 = time.perf_counter()
+        log("[ranks] through a one-rank NCCL group: the counter's "
+            "checkpoint, restore and spill tier, the LM trainer's sharded "
+            "step and checkpoints on a (1, 1) mesh, the pipeline")
+        phase19_launches, _ = ranks_phase(torch, fabsp, ops, genome, smi[0])
+        torch.cuda.empty_cache()
+        log(f"[ranks] done ({time.perf_counter() - t0:.1f} s)")
+
     # Phase 10 comes after the phases whose wall times the records keep, as
     # it profiles its kernels for phase 6: once torch.profiler has run, the
     # process launches kernels more slowly (PERF.md §6).
@@ -4636,6 +4979,8 @@ def main(argv=None) -> int:
                                      else phase17_launches[e["name"]])
             e["launches_phase18"] = (None if phase18_launches is None
                                      else phase18_launches[e["name"]])
+            e["launches_phase19"] = (None if phase19_launches is None
+                                     else phase19_launches[e["name"]])
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()

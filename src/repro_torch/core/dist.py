@@ -16,8 +16,11 @@ as its leading dimension, and every exchange is one
   p % cols)), among the PEs of a row ('col') or of a column ('row'): one
   `all_to_all_single` over the whole group whose split sizes are zero for
   ranks outside the row or column.
-- `all_sum`, `gather_rows`, `barrier`: the reductions the retry loop, the
-  queries and the BSP rounds need.
+- `all_sum`, `gather_rows`, `barrier`: the reductions the
+  retry loop, the queries and the BSP rounds need;
+  `all_gather_object` and `broadcast_object`: the host-side agreements of
+  the counter's checkpoints and spill manifests (segment lists, a save's
+  outcome).
 
 Backends: 'gloo' takes CPU tensors, 'nccl' CUDA tensors with rank r on
 cuda:{local_rank}. A tensor on the other kind of device raises; nothing is
@@ -38,8 +41,14 @@ import torch.distributed as dist
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=60)
 
 # Where a multi-rank path is not ported yet, it raises this.
-SLICE17 = ("ROADMAP §1 slice 17 (KmerCounter save, restore and the spill "
-           "tier across ranks)")
+SLICE18 = ("ROADMAP §1 slice 18 (sharded serving and the MoE, SSM/hybrid, "
+           "VLM and audio families under a mesh)")
+
+
+class PeerFailure(RuntimeError):
+    """Raised on the ranks whose own work succeeded when another rank of
+    the group failed the same step (a checkpoint write, a spilled batch):
+    every rank then stops at the same point."""
 
 
 def nccl_device(local_rank: int, device_count: int) -> torch.device:
@@ -252,6 +261,21 @@ def all_sum(t: torch.Tensor, g) -> torch.Tensor:
     out = t.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g.pg)
     return out
+
+
+def all_gather_object(obj, g) -> list:
+    """Every rank's picklable `obj`, in rank order, on every rank."""
+    out = [None] * g.world
+    dist.all_gather_object(out, obj, group=g.pg)
+    return out
+
+
+def broadcast_object(obj, g, src: int = 0):
+    """Rank `src`'s picklable `obj` on every rank (the others pass any
+    placeholder)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=g.pg)
+    return box[0]
 
 
 def gather_rows(t: torch.Tensor, g) -> torch.Tensor:

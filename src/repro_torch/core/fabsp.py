@@ -863,13 +863,14 @@ def _ownership_keys(words: torch.Tensor, cfg: DAKCConfig) -> torch.Tensor:
 
 def _reshard_round(keys: torch.Tensor, counts: torch.Tensor, *,
                    cfg: DAKCConfig, num_pes: int, grid, route_cap: int,
-                   store_cap: int, word_bits: int):
+                   store_cap: int, word_bits: int, group=None):
     """One elastic-reshard round (the JAX package's `_reshard_executable`):
     every PE routes its (P, n_local) slice of (key, count) records to their
     owners under this counter's PE count and ownership, in one
     `route_lanes` exchange, and folds what it receives into a fresh store
     of `store_cap` slots. Returns (store, route drops, store drops), the
-    drops summed over PEs for the caller's retry controller."""
+    drops summed over PEs for the caller's retry controller; under a
+    `group`, of this rank's PEs' rows, the drops summed over the group."""
     sent = W.sentinel(word_bits)
     valid = (keys != sent) & (counts > 0)
     owners = owner_pe(_ownership_keys(keys, cfg), num_pes,
@@ -877,12 +878,17 @@ def _reshard_round(keys: torch.Tensor, counts: torch.Tensor, *,
     rr = aggregation.route_lanes(
         (keys, counts), ("word", "i32"), owners, valid, num_pes=num_pes,
         capacity=route_cap, word_bits=word_bits, grid=grid,
-        impl=cfg.partition_impl, route2d="oneplan")
+        impl=cfg.partition_impl, route2d="oneplan", group=group)
     del owners, valid
-    store = countstore.empty_store(num_pes, store_cap, word_bits,
+    store = countstore.empty_store(keys.shape[0], store_cap, word_bits,
                                    keys.device)
     countstore.store_insert(store, rr.lanes[0], rr.lanes[1])
-    return store, int(rr.overflow.sum()), int(store.dropped.sum())
+    drops = torch.stack([rr.overflow.sum(), store.dropped.sum()]).to(
+        torch.int64)
+    if group is not None:
+        drops = dist.all_sum(drops, group)
+    route_drop, store_drop = drops.tolist()
+    return store, route_drop, store_drop
 
 
 def _spill_lanes(recv, *, cfg: DAKCConfig, mode: str, n_bins: int):
@@ -947,11 +953,19 @@ def _host_stats(raw_stats, group=None) -> Tuple[DAKCStats, list]:
                      owner_fill_p99=p99), host[4:]
 
 
-def _refuse_spill(cfg: DAKCConfig) -> None:
-    if cfg.spill != "off":
-        raise NotImplementedError(
-            f"spill={cfg.spill!r} across a process group: the spill tier "
-            f"runs on one process until {dist.SLICE17}")
+def _agree_failure(err: Optional[BaseException], group) -> None:
+    """Under a `group`, make one rank's failure every rank's: one
+    `dist.all_sum` of the ranks' failures; the failed rank raises its own
+    error, the others `dist.PeerFailure`. Alone, raise `err` if set."""
+    if group is not None:
+        n = int(dist.all_sum(torch.tensor(
+            [int(err is not None)], dtype=torch.int64,
+            device=group.device), group)[0])
+        if n and err is None:
+            raise dist.PeerFailure(f"{n} rank(s) of the group failed this "
+                                   f"step; this rank stops with them")
+    if err is not None:
+        raise err
 
 
 def resolve_device(device=None, group=None) -> torch.device:
@@ -1026,17 +1040,14 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
     doubled slack, a full count store replays at doubled capacity (a
     rehash round), a compact hop-2 misfit replays on the padded tile; the
     per-cause round counts come back in `retry_*`. With `cfg.spill` on,
-    the call is one `KmerCounter` update and its drain (not under a group:
-    NotImplementedError).
+    the call is one `KmerCounter` update and its drain (under a group too).
     """
-    if group is not None:
-        group = group.pes(num_pes)
-        _refuse_spill(cfg)
     if cfg.spill != "off":
         # The out-of-core path runs one incremental counter (an update and
         # its drain), so the spill tier lives in one place for both entry
         # points.
-        kc = KmerCounter(cfg, num_pes=num_pes, grid=grid, device=device)
+        kc = KmerCounter(cfg, num_pes=num_pes, grid=grid, device=device,
+                         group=group)
         ustats = kc.update(reads)
         result, fstats = kc.finalize()
         return result, ustats._replace(
@@ -1046,6 +1057,8 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
             spilled_bins=fstats.spilled_bins,
             spilled_bytes=fstats.spilled_bytes,
             bins_folded=fstats.bins_folded)
+    if group is not None:
+        group = group.pes(num_pes)
     grid = _topology_grid(cfg, num_pes, grid)
     dev = resolve_device(device, group)
     reads, local = _place_reads(reads, num_pes, dev, group)
@@ -1119,8 +1132,12 @@ class KmerCounter:
     `grid` and `group` are as in `count_kmers`: under a group every rank
     feeds the same global batches and queries, holds its PEs' stores,
     `finalize` returns its PEs' rows and `count` the global answers on
-    every rank; `save`, `restore` and the spill tier raise
-    NotImplementedError there.
+    every rank. `save` gathers the rows to rank 0, which writes the one
+    checkpoint; `restore` loads each rank's rows or reshards a share of
+    the entries over the group; the spill tier writes each rank's receive
+    lanes into rank-tagged segments of the same bins and drains each bin
+    through the group's fold (`core.spill`). `spill_dir` must then lie on
+    a filesystem that every rank sees (one host, or a shared mount).
     """
 
     # Once the tier engages, the resident store only has to exist for
@@ -1135,8 +1152,6 @@ class KmerCounter:
         self._num_pes = num_pes
         self._grid = _topology_grid(cfg, num_pes, grid)
         self._group = None if group is None else group.pes(num_pes)
-        if group is not None:
-            _refuse_spill(cfg)
         self._dev = resolve_device(device, self._group)
         # the store's rows: every PE, or this rank's under a group
         self._rows = (num_pes if self._group is None
@@ -1237,7 +1252,7 @@ class KmerCounter:
         if self._spill is None and self._cfg.spill == "always":
             self._engage_spill()
         if self._spill is not None:
-            return self._spill_update(reads)
+            return self._spill_update(reads, local)
         try:
             return self._incore_update(reads, local)
         except resilience.CapacityExhausted as e:
@@ -1250,7 +1265,7 @@ class KmerCounter:
             for cause, n in e.counts.items():
                 self._retries[cause] += n
             self._engage_spill()
-            return self._spill_update(reads)
+            return self._spill_update(reads, local)
 
     def _incore_update(self, reads: torch.Tensor,
                        local: torch.Tensor) -> DAKCStats:
@@ -1334,7 +1349,8 @@ class KmerCounter:
                 "minimizer_order": cfg.minimizer_order}
         self._spill = spill.SpillWriter(
             cfg.spill_dir, n_bins, meta=meta,
-            flush_bytes=cfg.spill_flush_bytes, fault=self._spill_fault())
+            flush_bytes=cfg.spill_flush_bytes, fault=self._spill_fault(),
+            group=self._group)
         if self._store is not None:
             keys = self._store.keys.reshape(-1)
             counts = self._store.counts.reshape(-1)
@@ -1370,17 +1386,21 @@ class KmerCounter:
                                   W.to_numpy_words(kmers, self._wb)[live],
                                   cnts[live])
 
-    def _spill_update(self, reads: torch.Tensor) -> DAKCStats:
+    def _spill_update(self, reads: torch.Tensor,
+                      local: torch.Tensor) -> DAKCStats:
         """The partition phase's update: each chunk's exchange runs on the
         card as in core (hop 2 padded, no compaction), its receive lanes
         get their bins there (`_spill_lanes`) and stream to the host
         through the bounded copier into bin segments. Nothing enters the
         manifest until the whole batch routed cleanly (a routing overflow
         aborts the pending segments and replays at doubled slack), so a
-        replay never spills twice."""
+        replay never spills twice. Under a group a rank whose writes fail
+        keeps routing to the batch's end; then one `dist.all_sum` of the
+        failures decides, and either every rank commits or every rank
+        aborts and raises (`_agree_failure`)."""
         cfg, p = self._cfg, self._num_pes
         w = self._spill
-        chunks = _chunked(_split(reads, p), cfg.chunk_reads)
+        chunks = _chunked(local, cfg.chunk_reads)
         shape = tuple(reads.shape)
         ctrl = resilience.RetryController(
             cfg.retry, slack=self._slack,
@@ -1390,24 +1410,41 @@ class KmerCounter:
             w.begin_batch()
             mode, cap_n, cap_h = _plan_caps(cfg, p, shape, ctrl.slack)
             copier = spill.AsyncHostCopier(cfg.spill_host_budget_bytes)
+            failed = []
+
+            def absorb(hosts):
+                for host in hosts:
+                    if failed:
+                        return
+                    try:
+                        self._absorb_spill(host, mode)
+                    except (OSError, resilience.InjectedFault) as e:
+                        # a failed segment write: every rank decides together
+                        if self._group is None:
+                            raise
+                        failed.append(e)
 
             def sink(recv):
-                lanes = _spill_lanes(recv, cfg=cfg, mode=mode,
-                                     n_bins=w.n_bins)
-                for host in copier.submit(lanes):
-                    self._absorb_spill(host, mode)
+                if not failed:
+                    absorb(copier.submit(_spill_lanes(
+                        recv, cfg=cfg, mode=mode, n_bins=w.n_bins)))
 
             _, fold_stats = _stream_fold(
                 chunks, None, cfg=cfg, num_pes=p, cap_n=cap_n, cap_h=cap_h,
                 mode=mode, grid=self._grid, sink=sink,
                 fault=resilience.active_trace_fault(cfg.faults,
-                                                    ctrl.attempts))
-            for host in copier.drain():
-                self._absorb_spill(host, mode)
+                                                    ctrl.attempts),
+                group=self._group)
+            absorb(copier.drain())
+            try:
+                _agree_failure(failed[0] if failed else None, self._group)
+            except Exception:
+                w.abort_batch()
+                raise
             raw_stats = _round_stats(
-                p, torch.zeros((p,), dtype=torch.int32, device=reads.device),
-                fold_stats)
-            stats, fill = _host_stats(raw_stats)
+                p, torch.zeros((self._rows,), dtype=torch.int32,
+                               device=local.device), fold_stats)
+            stats, fill = _host_stats(raw_stats, self._group)
             if not ctrl.observe(route_dropped=stats.overflow,
                                 hop2_dropped=stats.hop2_dropped):
                 w.commit()             # seal this batch into the manifest
@@ -1433,7 +1470,9 @@ class KmerCounter:
         card, or None for an empty bin: the segment files are read (and
         checked) on the host, then decoded on the card, super-k-mer slots
         back to their k-mers. `segments` pins the manifest view (a
-        snapshot's `spill_state['segments']`); None reads the live one."""
+        snapshot's `spill_state['segments']`); None reads the live one.
+        Under a group every rank reads the whole bin (`_fold_pairs` then
+        routes its PEs' rows)."""
         cfg, dev = self._cfg, self._dev
         keys_l, cnts_l = [], []
         for kind, arrays in self._spill.read_bin(b, segments=segments):
@@ -1463,8 +1502,10 @@ class KmerCounter:
         runs of all bins, sorted in the words' unsigned order, make the
         usual AccumResult. Bins partition k-mer space, so this is the
         exact histogram. It runs at this counter's PE count: a spilled run
-        restored onto another P drains there."""
-        p = self._num_pes
+        restored onto another P drains there. Under a group each rank
+        reads every bin, the fold routes its PEs' rows over the group, and
+        the result holds this rank's PEs' rows."""
+        p = self._rows
         sent = W.sentinel(self._wb)
         total_bits = encoding.kmer_bits(self._cfg.k,
                                         self._cfg.bits_per_symbol)
@@ -1579,20 +1620,29 @@ class KmerCounter:
         `FaultPlan(site='ckpt_write')`) leaves the latest complete
         checkpoint as it was. Pass `ckpt_dir` for a blocking save (returns
         the checkpoint's directory) or `saver=AsyncSaver(...)` to write on
-        its thread (returns None; its `wait()` raises a failed write)."""
-        if self._group is not None:
-            raise NotImplementedError(
-                f"KmerCounter.save across a process group: each rank holds "
-                f"its PEs' stores, and their checkpoint waits for "
-                f"{dist.SLICE17}")
+        its thread (returns None; its `wait()` raises a failed write).
+
+        Under a group every rank calls it: the ranks' rows are gathered
+        (`dist.gather_rows`) into the one checkpoint of the stacked layout,
+        which rank 0 writes, and every rank returns once rank 0's rename
+        has happened or failed. With a saver, rank 0 waits for its write;
+        a failure is then held by every rank's saver for its next `wait()`
+        (rank 0's own error, `dist.PeerFailure` elsewhere). Blocking, every
+        rank raises (the others `dist.PeerFailure`)."""
         if self._store is None:
             raise RuntimeError("KmerCounter.save before any update")
         if (ckpt_dir is None) == (saver is None):
             raise ValueError("pass exactly one of ckpt_dir / saver")
         from repro_torch.train import checkpoint as ckpt_lib
+        keys, counts = self._store.keys, self._store.counts
+        g = self._group
+        if g is not None:
+            keys, counts = dist.gather_rows(keys, g), dist.gather_rows(
+                counts, g)
         trees = {"store": {
-            "keys": W.to_numpy_words(self._store.keys.reshape(-1), self._wb),
-            "counts": self._store.counts.reshape(-1).cpu().numpy()}}
+            "keys": W.to_numpy_words(keys.reshape(-1), self._wb),
+            "counts": counts.reshape(-1).cpu().numpy()}}
+        del keys, counts
         extra = {
             "format": 1,
             "fingerprint": _cfg_fingerprint(self._cfg),
@@ -1613,14 +1663,40 @@ class KmerCounter:
             "rounds": resilience.rounds_to_json(self._rounds),
             "spill": None if self._spill is None else self._spill.state(),
         }
-        if saver is not None:
-            saver.save(step, trees, extra=extra)
-            return None
         plan = self._cfg.faults
         fault = plan if (plan is not None
                          and plan.site == "ckpt_write") else None
-        return ckpt_lib.save(ckpt_dir, step, trees, extra=extra, keep=keep,
-                             fault=fault)
+        if g is None:
+            if saver is not None:
+                saver.save(step, trees, extra=extra)
+                return None
+            return ckpt_lib.save(ckpt_dir, step, trees, extra=extra,
+                                 keep=keep, fault=fault)
+        path, err = None, None
+        if g.rank == 0:
+            try:
+                if saver is not None:
+                    saver.save(step, trees, extra=extra)
+                    saver.wait()
+                else:
+                    path = ckpt_lib.save(ckpt_dir, step, trees, extra=extra,
+                                         keep=keep, fault=fault)
+            except (OSError, resilience.InjectedFault) as e:
+                err = e
+        del trees
+        outcome = dist.broadcast_object(
+            (path, None if err is None else f"{type(err).__name__}: {err}"),
+            g)
+        if outcome[1] is not None and err is None:
+            err = dist.PeerFailure(f"rank 0's checkpoint write failed: "
+                                   f"{outcome[1]}")
+        if saver is not None:
+            if err is not None:
+                saver.hold(err)
+            return None
+        if err is not None:
+            raise err
+        return outcome[0]
 
     @classmethod
     def restore(cls, ckpt_dir: str, cfg: DAKCConfig, *, num_pes: int,
@@ -1638,12 +1714,13 @@ class KmerCounter:
         must match the saved fingerprint (k, bits_per_symbol, canonical),
         else `ValueError`. A checkpoint with the spill tier engaged needs
         a spill cfg and the bins' `spill_dir`; its manifest is attached,
-        and segment files it does not list are deleted. Not under a
-        `group` (NotImplementedError)."""
-        if group is not None:
-            raise NotImplementedError(
-                f"KmerCounter.restore across a process group waits for "
-                f"{dist.SLICE17}")
+        and segment files it does not list are deleted.
+
+        Under a `group` every rank reads the checkpoint (from a filesystem
+        all of them see): in place, each rank loads its PEs' rows; else
+        each rank routes its PEs' rows of the stacked fold's layout over
+        the group. Any checkpoint restores so, whoever wrote it: the
+        stacked path, ranks of any world, or the JAX package."""
         from repro_torch.train import checkpoint as ckpt_lib
         if step is None:
             step = ckpt_lib.latest_step(ckpt_dir)
@@ -1661,7 +1738,8 @@ class KmerCounter:
             raise ValueError(
                 f"checkpoint fingerprint {saved_fp} is incompatible with "
                 f"cfg {want_fp}: the stored words would be reinterpreted")
-        self = cls(cfg, num_pes=num_pes, grid=grid, device=device)
+        self = cls(cfg, num_pes=num_pes, grid=grid, device=device,
+                   group=group)
         self._raw = int(extra["raw"])
         self._sent = int(extra["sent"])
         self._wire_bytes = int(extra["wire_bytes"])
@@ -1691,14 +1769,19 @@ class KmerCounter:
                     f"k-mer space mid-run")
             self._spill = spill.SpillWriter.attach(
                 cfg.spill_dir, sp, flush_bytes=cfg.spill_flush_bytes,
-                fault=self._spill_fault())
+                fault=self._spill_fault(), group=self._group)
         keys_np = np.asarray(trees["store"]["keys"], dtype=dt)
         counts_np = np.asarray(trees["store"]["counts"], dtype=np.int32)
         if (num_pes == int(extra["num_pes"])
                 and extra["ownership"] == _ownership_tag(cfg)):
             self._store_cap = int(extra["store_cap"])
+            g = self._group
+            if g is not None:   # this rank's PEs' rows
+                lo = g.first_pe * self._store_cap
+                hi = lo + g.local_pes * self._store_cap
+                keys_np, counts_np = keys_np[lo:hi], counts_np[lo:hi]
             self._store = countstore.store_from_numpy(
-                keys_np, counts_np, num_pes, device=self._dev)
+                keys_np, counts_np, self._rows, device=self._dev)
         else:
             keys = W.to_torch_words(keys_np, self._dev)[0]
             del keys_np
@@ -1719,8 +1802,12 @@ class KmerCounter:
         store capacity are powers of two, as in the JAX package (a
         restored `store_cap` rides the next checkpoint). `sticky=True`
         keeps the controller's final slack (the restore); its rounds and
-        replays are recorded either way. Returns (store, store_cap)."""
-        p = self._num_pes
+        replays are recorded either way. Returns (store, store_cap).
+
+        Under a group every rank passes the same records and sends its PEs'
+        rows of the stacked layout over the group, so the rounds are the
+        stacked path's; the store holds this rank's PEs."""
+        p, g = self._num_pes, self._group
         sent = W.sentinel(self._wb)
         live = int(((keys != sent) & (counts > 0)).sum())
         if store_cap is None:
@@ -1734,6 +1821,9 @@ class KmerCounter:
         gk[:keys.shape[0]] = keys
         gc[:counts.shape[0]] = counts
         gk, gc = gk.view(p, n_local), gc.view(p, n_local)
+        if g is not None:
+            gk = gk[g.first_pe:g.first_pe + g.local_pes]
+            gc = gc[g.first_pe:g.first_pe + g.local_pes]
         ctrl = resilience.RetryController(
             self._cfg.retry, slack=self._slack, store_cap=store_cap,
             hop2_padded=True, history=self._rounds)
@@ -1742,7 +1832,7 @@ class KmerCounter:
             store, route_drop, store_drop = _reshard_round(
                 gk, gc, cfg=self._cfg, num_pes=p, grid=self._grid,
                 route_cap=plan_capacity(n_local, p, ctrl.slack),
-                store_cap=store_cap, word_bits=self._wb)
+                store_cap=store_cap, word_bits=self._wb, group=g)
             if not ctrl.observe(route_dropped=route_drop,
                                 store_dropped=store_drop):
                 break
@@ -1756,7 +1846,8 @@ class KmerCounter:
 
     def _reshard_from(self, keys: torch.Tensor, counts: torch.Tensor) -> None:
         """Re-route saved (key, count) entries onto this counter's
-        ownership (`_fold_pairs`) and commit the folded store."""
+        ownership (`_fold_pairs`) and commit the folded store. Under a
+        group every rank holds every saved entry and routes its share."""
         if self._store_cap is None:
             live = int(((keys != W.sentinel(self._wb)) & (counts > 0)).sum())
             self._store_cap = _pow2ceil(plan_capacity(

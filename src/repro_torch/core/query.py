@@ -248,12 +248,15 @@ def query_spilled_counts(kc, snap: countstore.StoreSnapshot, kmers
     recomputed minimizer is the minimizer its super-k-mer was binned by),
     folds each touched bin of the snapshot's manifest view (`BinShardCache`,
     else `kc._fold_pairs` of `kc._bin_pairs`), probes the queries that
-    bin owns, and adds the residuals."""
-    cfg, p, grid = kc._cfg, kc._num_pes, kc._grid
+    bin owns, and adds the residuals. Under the counter's group every
+    rank passes the same batch and reads each touched bin whole; the fold
+    routes over the group, and every rank returns the answers."""
+    cfg, p, grid, group = kc._cfg, kc._num_pes, kc._grid, kc._group
     dev = snap.keys.device
     words = pack_queries(kmers, cfg, dev)
     nq = int(words.shape[0])
-    counts, stats = query_counts(words, cfg, snap, num_pes=p, grid=grid)
+    counts, stats = query_counts(words, cfg, snap, num_pes=p, grid=grid,
+                                 group=group)
     counts = counts.copy()       # residuals accumulate in place
     sp = snap.spill_state
     n_bins = int(sp["n_bins"])
@@ -290,7 +293,7 @@ def query_spilled_counts(kc, snap: countstore.StoreSnapshot, kmers
                 countstore.StoreSnapshot(
                     gen=snap.gen, keys=shard[0], counts=shard[1],
                     store_cap=shard[0].shape[1], word_bits=snap.word_bits),
-                num_pes=p, grid=grid)
+                num_pes=p, grid=grid, group=group)
             counts[idx] += sub
             wire += sstats.wire_bytes
             probe_sum += sstats.probe_sum

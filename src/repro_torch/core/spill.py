@@ -21,6 +21,17 @@ killed attempt leaves files the manifest never names, and `attach()` (on
 restore) prunes them. Records are spilled exactly once however often a
 batch replays.
 
+Across ranks (`group=`, a `core.dist` group): every rank writes the
+receive lanes of its own PEs into the same global bins, as segment files
+tagged with its rank (`r003_bin0012_seq000041_sk.npz`). A commit is one
+object all-gather of every rank's pending segments: all ranks then hold
+the same manifest, in rank order, and rank 0 alone writes it. Every rank
+reads a drained bin whole, whoever wrote it, and routes its PEs' rows of
+the stacked layout (`fabsp.KmerCounter._fold_pairs`), so the drain's
+rounds are the stacked path's. This assumes that `root` lies on a
+filesystem every rank sees: true on one host, a shared mount across
+hosts.
+
 A spill directory reads the same under either package: the bins are
 bit-equal to the JAX package's, and the segments hold the same numpy
 dtypes (uint32/uint64 words, int32 counts and lengths), so the manifest's
@@ -41,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import words as W
-from repro_torch.core import owner, resilience
+from repro_torch.core import dist, owner, resilience
 
 # Salts of the third avalanche family (bin assignment), the JAX package's:
 # independent of the owner family (unsalted) and the slot family.
@@ -150,12 +161,16 @@ class SpillWriter:
     Writes buffer in host memory per (bin, kind) and flush one segment a
     group once `flush_bytes` gather (or at commit). A fresh writer owns its
     directory and wipes leftover segments of dead runs. Arrays are numpy:
-    the caller converts words to uint32/uint64 first."""
+    the caller converts words to uint32/uint64 first.
+
+    `group`: a `core.dist` group whose every rank holds a writer over the
+    same `root` (module docstring); `commit`, a fresh writer and `attach`
+    are then collective."""
 
     def __init__(self, root: str, n_bins: int, *, meta: Optional[dict] = None,
                  flush_bytes: int = 1 << 22,
                  fault: Optional[resilience.FaultPlan] = None,
-                 fresh: bool = True):
+                 fresh: bool = True, group=None):
         if n_bins < 1:
             raise ValueError(f"n_bins must be >= 1, got {n_bins}")
         self.root = root
@@ -171,9 +186,18 @@ class SpillWriter:
         self._seq = 0
         self._writes = 0                  # lifetime segment writes (faults)
         self._corrupted = False           # 'bin_corrupt' fires once
+        self._group = group
+        self._tag = "" if group is None else f"r{group.rank:03d}_"
         os.makedirs(root, exist_ok=True)
-        if fresh:
+        if fresh and self._lead:
             self._wipe()
+        if fresh and group is not None:
+            dist.barrier(group)           # no rank writes before the wipe
+
+    @property
+    def _lead(self) -> bool:
+        """Whether this writer writes the manifest (rank 0, or alone)."""
+        return self._group is None or self._group.rank == 0
 
     # -- ingest ------------------------------------------------------------
 
@@ -210,7 +234,7 @@ class SpillWriter:
         self._buf_bytes = 0
 
     def _write_segment(self, b: int, kind: str, arrays: dict) -> None:
-        name = f"bin{b:04d}_seq{self._seq:06d}_{kind}.npz"
+        name = f"{self._tag}bin{b:04d}_seq{self._seq:06d}_{kind}.npz"
         self._seq += 1
         bio = io.BytesIO()
         np.savez(bio, **arrays)
@@ -254,17 +278,43 @@ class SpillWriter:
         self._buf_bytes = 0
 
     def commit(self) -> None:
-        """Seal the pending segments into the manifest (atomically)."""
-        self._flush()
-        if self._pending:
+        """Seal the pending segments into the manifest (atomically). Under
+        a group every rank calls it: each rank's pending segments join
+        every rank's manifest in rank order, the sequence numbers move
+        past every rank's, and rank 0 writes the file; if any rank's
+        writes failed, every rank aborts the batch and raises (its own
+        error, else `dist.PeerFailure`)."""
+        if self._group is None:
+            self._flush()
             self._segments.extend(self._pending)
-            self._pending = []
-        self._write_manifest()
+        else:
+            err = None
+            try:
+                self._flush()
+            except (OSError, resilience.InjectedFault) as e:
+                # a failed segment write: every rank decides together
+                err = e
+            parts = dist.all_gather_object(
+                (self._pending, self._seq, err is not None), self._group)
+            if any(failed for _, _, failed in parts):
+                self.abort_batch()
+                raise err if err is not None else dist.PeerFailure(
+                    "another rank failed to write its spill segments; "
+                    "the batch is aborted on every rank")
+            for pending, _, _ in parts:
+                self._segments.extend(pending)
+            self._seq = max(seq for _, seq, _ in parts)
+        self._pending = []
+        if self._lead:
+            self._write_manifest()
         if self.fault is not None and self.fault.site == "bin_corrupt" \
                 and not self._corrupted:
             if any(s["bin"] == self.fault.bin for s in self._segments):
-                self.corrupt_bin(self.fault.bin)
+                if self._lead:            # one flip, however many ranks
+                    self.corrupt_bin(self.fault.bin)
                 self._corrupted = True
+        if self._group is not None:
+            dist.barrier(self._group)
 
     def corrupt_bin(self, b: int) -> None:
         """Flip 8 bytes mid-file in the last sealed segment of bin `b` (the
@@ -324,16 +374,28 @@ class SpillWriter:
 
     @classmethod
     def attach(cls, root: str, state: dict, *, flush_bytes: int = 1 << 22,
-               fault: Optional[resilience.FaultPlan] = None) -> "SpillWriter":
+               fault: Optional[resilience.FaultPlan] = None,
+               group=None) -> "SpillWriter":
         """A writer rebuilt from a checkpointed manifest; files on disk
         that the manifest does not list (torn or uncommitted leftovers of
         the run that died, or segments committed after the checkpoint)
-        are deleted."""
+        are deleted (by rank 0 under a `group`, which the others wait
+        for)."""
         w = cls(root, int(state["n_bins"]), meta=state.get("meta"),
-                flush_bytes=flush_bytes, fault=fault, fresh=False)
+                flush_bytes=flush_bytes, fault=fault, fresh=False,
+                group=group)
         w._segments = [dict(s) for s in state["segments"]]
         w._seq = int(state["seq"])
-        listed = {s["file"] for s in w._segments}
+        if w._lead:
+            w._prune()
+            w._write_manifest()
+        if group is not None:
+            dist.barrier(group)
+        return w
+
+    def _prune(self) -> None:
+        root = self.root
+        listed = {s["file"] for s in self._segments}
         for name in os.listdir(root):
             if name == MANIFEST:
                 continue
@@ -343,8 +405,6 @@ class SpillWriter:
                     os.remove(os.path.join(root, name))
                 except OSError:
                     pass
-        w._write_manifest()
-        return w
 
     def _write_manifest(self) -> None:
         path = os.path.join(self.root, MANIFEST)

@@ -19,7 +19,8 @@ the ops do. For each cell this shows, without a card:
   nothing and are not counted);
 - the collectives, derived from `models/sharding.py`'s specs (below).
 
-The per-device program. `local_config` divides the cell's config by the
+The per-device program. `local_config` (`models/sharding.py`, shared
+with the sharded train step) divides the cell's config by the
 `model` axis wherever the fitted spec shards a dimension on it: heads
 (with the KV heads where they divide, else the KV heads the local query
 heads read), MLP hidden, vocabulary, experts (with the top-k and capacity
@@ -85,13 +86,14 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, get_config
-from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import meta as meta_kernels
 from repro_torch.launch import specs as specs_lib
 from repro_torch.launch.mesh import Mesh, data_axes_of, make_production_mesh
 from repro_torch.models import model as model_lib
 from repro_torch.models import sharding as shd
 from repro_torch.models.sharding import PartitionSpec as P
+from repro_torch.models.sharding import local_config, model_div
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as ts_lib
 
@@ -246,49 +248,6 @@ class CostMode(TorchDispatchMode):
 
 
 # --- the per-device program --------------------------------------------------
-
-def _model_div(mesh: Mesh, n: int) -> int:
-    """n over the `model` axis where it divides (the fitted spec's rule),
-    else n whole."""
-    m = mesh.shape.get("model", 1)
-    return n // m if n % m == 0 else n
-
-
-@dataclasses.dataclass(frozen=True)
-class ShardedSSM(SSMConfig):
-    """One device's share of a Mamba2 layer: the inner width, and with it
-    the heads, over `shards`."""
-    shards: int = 1
-
-    def d_inner(self, d_model: int) -> int:
-        return self.expand * d_model // self.shards
-
-
-def local_config(cfg: ModelConfig, mesh: Mesh) -> ModelConfig:
-    """The config of one device's share of the model (module docstring)."""
-    m = mesh.shape.get("model", 1)
-    h = _model_div(mesh, cfg.num_heads)
-    hkv = (cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0
-           else max(1, h * cfg.num_kv_heads // cfg.num_heads))
-    over = dict(num_heads=h, num_kv_heads=hkv,
-                head_dim=cfg.resolved_head_dim,
-                d_ff=_model_div(mesh, cfg.d_ff) if cfg.d_ff else 0,
-                vocab_size=_model_div(mesh, cfg.vocab_size))
-    if cfg.moe is not None:
-        mo = cfg.moe
-        e = _model_div(mesh, mo.num_experts)
-        k = min(mo.top_k, e)
-        # each local expert keeps the global capacity: cap = N K / E * cf
-        over["moe"] = dataclasses.replace(
-            mo, num_experts=e, top_k=k,
-            capacity_factor=mo.capacity_factor * mo.top_k * e
-            / (mo.num_experts * k))
-    if cfg.ssm is not None:
-        s = cfg.ssm
-        if s.d_inner(cfg.d_model) // s.headdim % m == 0:
-            over["ssm"] = ShardedSSM(**dataclasses.asdict(s), shards=m)
-    return dataclasses.replace(cfg, **over)
-
 
 def _spec_divisor(spec: Optional[P], mesh: Mesh, dim: int) -> int:
     if spec is None or dim >= len(spec) or spec[dim] is None:
@@ -448,7 +407,7 @@ def _collectives(cfg: ModelConfig, cell, mesh: Mesh, params, *,
         add("all-reduce", act, tp_times * blocks, m_ax)
         if kv_seq_axes and kind != "mamba":
             group = math.prod(mesh.shape[x] for x in kv_seq_axes)
-            h_loc = _model_div(mesh, cfg.num_heads)
+            h_loc = model_div(mesh, cfg.num_heads)
             add("all-reduce", b_mb * h_loc * seq
                 * (cfg.resolved_head_dim + 2) * 4, nm, group)
     vocab_sharded = cfg.vocab_size % m_ax == 0
@@ -549,7 +508,7 @@ def lower_cell(arch: str, shape_name, mesh: Mesh, *,
         outputs = state + 4 * 4
     elif cell.kind == "prefill":
         # the f32 logits, vocab-parallel where the vocabulary divides
-        outputs = local_batch * cell.seq_len * 4 * _model_div(
+        outputs = local_batch * cell.seq_len * 4 * model_div(
             mesh, cfg.vocab_size)
     else:
         outputs = local_batch * 4 + _tree_bytes(kwargs["caches"], mesh)

@@ -7,16 +7,19 @@ the compressed gradient all-reduce of `train/compression.py`), `data` and
 
 `Mesh` is what the sharding rules and `elastic.remesh` read of
 `jax.sharding.Mesh`: a numpy object array of devices, its `axis_names`,
-the ordered `shape` and the `size`. The port's train step runs on one
-device, so nothing here places a tensor (ROADMAP.md section 1, item 13).
-The functions touch no device state when the module is imported.
+the ordered `shape` and the `size`. Its elements may be devices or the
+ranks of a `torch.distributed` group: `mesh_group` gives a rank of such a
+mesh its coordinate and one sub-group for each axis (the ranks of its
+line along that axis), which the sharded train step's collectives run
+over. The functions touch no device state when the module is imported.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,3 +96,52 @@ def make_test_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
 def data_axes_of(mesh: Mesh) -> Tuple[str, ...]:
     """Batch-bearing axes: ('pod', 'data') on multi-pod, ('data',) else."""
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+@dataclasses.dataclass
+class MeshGroup:
+    """One rank's view of a mesh whose elements are the ranks 0..world-1
+    of `group` (a `core.dist.Group`): its coordinate and, for each axis,
+    the `core.dist.Group` of the ranks that share its other coordinates."""
+    mesh: Mesh
+    group: Any
+    coord: Dict[str, int]
+    axis: Dict[str, Any]
+    _pgs: list = dataclasses.field(default_factory=list, repr=False)
+
+    def destroy(self) -> None:
+        """Tear the axis sub-groups down (not `group`)."""
+        import torch.distributed as tdist
+        for pg in self._pgs:
+            tdist.destroy_process_group(pg)
+        self._pgs = []
+
+
+def mesh_group(mesh: Mesh, group) -> MeshGroup:
+    """The `MeshGroup` of this rank. Every rank of `group` must call it
+    with the same mesh: it makes one sub-group for every line of every
+    axis, in the same order on every rank (`torch.distributed.new_group`
+    is collective over the whole group, so a rank that skipped one would
+    hang the others until the group's timeout)."""
+    import torch.distributed as tdist
+    from repro_torch.core import dist
+    ranks = np.vectorize(int, otypes=[object])(mesh.devices)
+    if sorted(ranks.reshape(-1).tolist()) != list(range(group.world)):
+        raise ValueError(f"a mesh of {mesh.size} ranks over a group of "
+                         f"{group.world}")
+    pos = tuple(int(i) for i in np.argwhere(ranks == group.rank)[0])
+    coord = dict(zip(mesh.axis_names, pos))
+    axis, pgs = {}, []
+    for ax_i, name in enumerate(mesh.axis_names):
+        lines = np.moveaxis(ranks, ax_i, -1).reshape(-1, ranks.shape[ax_i])
+        for line in lines:
+            line = [int(r) for r in line]
+            pg = tdist.new_group(ranks=line, backend=group.backend)
+            pgs.append(pg)
+            if group.rank in line:
+                axis[name] = dist.Group(
+                    pg=pg, backend=group.backend,
+                    rank=line.index(group.rank), world=len(line),
+                    device=group.device)
+    return MeshGroup(mesh=mesh, group=group, coord=coord, axis=axis,
+                     _pgs=pgs)

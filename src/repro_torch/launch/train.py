@@ -1,4 +1,4 @@
-"""End-to-end LM training on one device: the entry point of the LM path.
+"""End-to-end LM training: the entry point of the LM path.
 
 Config registry -> seeded init -> synthetic Zipf token pipeline (prefetched,
 resumable) -> train step (microbatched, remat'd, AdamW) -> async
@@ -9,21 +9,34 @@ through the flash forward and backward kernels.
 
 Checkpoints are in the JAX package's layout (blocks stacked per slot, the
 AdamW step a 0-d int32), so a checkpoint written by either trainer resumes
-under the other. The mesh is built over the one device the step runs on:
-a mesh of more than one device raises, as the port has no multi-device
-step yet (ROADMAP.md section 1, item 13).
+under the other.
+
+Across ranks (`group=`, a `core.dist.Group`, one process a rank): the
+ranks form a (data, model) mesh with `model_parallel` ranks a row
+(`build_mesh`, `launch.mesh.mesh_group`), each holds its block of every
+parameter and AdamW moment (`sharding.shard_params`) and its rows of each
+global batch along `data`, and the dense decoders run the sharded step
+(`train/sharded.py`). Checkpoints stay whole and in the JAX layout:
+gathered on save (rank 0 writes), sliced on restore, so a checkpoint of
+any mesh resumes on any other or on one process. Other families run on a
+one-rank mesh as on one process and raise on a larger one.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --steps 10 --batch 4 --seq 4096 --attn-impl flash_train
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --reduced --steps 5 --batch 2 --seq 64 --device cpu \\
         --ckpt-dir /tmp/ckpt --ckpt-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+        --reduced --steps 3 --batch 8 --seq 32 --world 4 \\
+        --model-parallel 2 --backend gloo      # 4 ranks on a (2, 2) mesh
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 from typing import Optional, Sequence
 
@@ -32,33 +45,31 @@ import torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.fabsp import resolve_device
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
-from repro_torch.launch.mesh import Mesh
+from repro_torch.core import dist
+from repro_torch.launch.mesh import Mesh, mesh_group
 from repro_torch.models import convert
 from repro_torch.models import model as model_lib
+from repro_torch.models import sharding as shd
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import elastic
 from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import sharded
 from repro_torch.train import train_step as ts_lib
 
 
 def build_mesh(model_parallel: int, devices: Sequence) -> Mesh:
-    """`elastic.remesh` over `devices`; raises NotImplementedError for a
-    mesh of more than one device."""
+    """`elastic.remesh` over `devices` (devices, or the ranks of a
+    group): (data, model) with `model_parallel` a row."""
     devs = list(devices)
-    mesh = elastic.remesh(devs, model_parallel=min(model_parallel, len(devs)))
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"a mesh of {mesh.size} devices: the port trains on one device "
-            "until PEs and shards run across processes (ROADMAP.md "
-            "section 1, item 13)")
-    return mesh
+    return elastic.remesh(devs, model_parallel=min(model_parallel,
+                                                   len(devs)))
 
 
 def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
           model_parallel: int = 1, microbatches: int = 1,
           peak_lr: float = 3e-4, log_every: int = 10, resume: bool = True,
-          device=None, **cfg_overrides) -> dict:
+          device=None, group=None, **cfg_overrides) -> dict:
     """Train `arch` (reduced or at full size, with ModelConfig overrides
     such as attn_impl='flash_train') up to step `steps` on batches of
     `batch` sequences of `seq` tokens.
@@ -73,19 +84,59 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
     restore took (None without one), each save's (step, seconds the loop
     was blocked), each background write's (step, seconds), and the
     seconds the closing wait for the last write blocked; and the final
-    `params` and `opt_state`."""
-    dev = resolve_device(device)
+    `params` and `opt_state` (this rank's blocks under a group).
+
+    `group`: every rank calls `train` with the same arguments (module
+    docstring); `device` must then be of the group's kind. The batch must
+    divide over the `data` axis. The result's `collective_calls` and
+    `collective_bytes` hold the sharded step's collectives a step."""
+    dev = (resolve_device(device) if group is None
+           else dist.resolve_device(group, device))
     cfg = (reduced_config(arch, **cfg_overrides) if reduced
            else dataclasses.replace(get_config(arch), **cfg_overrides))
-    build_mesh(model_parallel, [dev])
+    mg = None
+    if group is not None:
+        mesh = build_mesh(model_parallel, range(group.world))
+        sharded.check_shardable(cfg, mesh.size)
+        if sharded.is_dense_decoder(cfg):
+            mg = mesh_group(mesh, group)
+    else:
+        build_mesh(model_parallel, [dev])
     params = model_lib.init_params(cfg, seed=0, device=dev)
+    # the full leaves' shapes, as meta tensors (`param_shardings` reads them)
+    shapes = model_lib.map_leaves(
+        lambda t: torch.empty(t.shape, device="meta"), params)
+    n_params = sum(p.numel() for _, p in model_lib.named_leaves(params))
+    if mg is not None:
+        params = shd.shard_params(params, mg.mesh, mg.coord)
     opt_state = opt_lib.init(params)
     tcfg = ts_lib.TrainConfig(
         num_microbatches=microbatches,
         optimizer=opt_lib.OptimizerConfig(peak_lr=peak_lr,
                                           warmup_steps=max(2, steps // 20),
                                           total_steps=steps))
-    step_fn = ts_lib.make_train_step(cfg, tcfg)
+    if mg is None:
+        step_fn = ts_lib.make_train_step(cfg, tcfg)
+    else:
+        step_fn = sharded.ShardedStep(cfg, tcfg, mg, shapes)
+        rows = batch // mg.mesh.shape["data"]
+        if rows * mg.mesh.shape["data"] != batch:
+            raise ValueError(f"batch {batch} does not split over "
+                             f"{mg.mesh.shape['data']} data rows")
+        lo = mg.coord["data"] * rows
+
+    def whole(tree):
+        """A parameter-shaped tree of this rank's blocks -> whole leaves
+        (every rank takes part; on one process or a one-rank mesh the
+        blocks are whole already)."""
+        if mg is None or mg.mesh.size == 1:
+            return tree
+        return shd.gather_params(tree, shapes, mg.mesh,
+                                 group)
+
+    def mine(tree):
+        return tree if mg is None else shd.shard_params(tree, mg.mesh,
+                                                        mg.coord)
 
     start_step, restore_s = 0, None
     last = None if ckpt_dir is None else ckpt_lib.latest_step(ckpt_dir)
@@ -96,9 +147,11 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
             ckpt_dir, last, {"params": tmpl, "opt": opt_lib.OptState(
                 step=0, mu=tmpl, nu=tmpl)})
         del params, opt_state
-        params = convert.params_from_jax(restored["params"], cfg, dev)
-        opt_state = convert.opt_state_from_jax(restored["opt"], cfg, dev)
-        del restored
+        params = mine(convert.params_from_jax(restored["params"], cfg, dev))
+        ost = convert.opt_state_from_jax(restored["opt"], cfg, dev)
+        opt_state = opt_lib.OptState(step=ost.step, mu=mine(ost.mu),
+                                     nu=mine(ost.nu))
+        del restored, ost
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         restore_s = time.perf_counter() - t0
@@ -108,15 +161,23 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
     pipe = TokenPipeline(TokenPipelineConfig(vocab_size=cfg.vocab_size,
                                              batch_size=batch, seq_len=seq,
                                              seed=0), start_step=start_step)
-    saver = None if ckpt_dir is None else ckpt_lib.AsyncSaver(ckpt_dir)
+    lead = group is None or group.rank == 0
+    saver = (None if ckpt_dir is None or not lead
+             else ckpt_lib.AsyncSaver(ckpt_dir))
     watchdog = elastic.StragglerWatchdog()
     out = {"losses": [], "grad_norms": [], "step_seconds": [],
-           "save_seconds": []}
+           "save_seconds": [], "collective_calls": [],
+           "collective_bytes": []}
 
     def save(step: int, cursor: int) -> None:
         t0 = time.perf_counter()
-        saver.save(step, convert.checkpoint_trees(params, opt_state, cfg),
-                   extra={"cursor": cursor})
+        state = opt_lib.OptState(step=opt_state.step,
+                                 mu=whole(opt_state.mu),
+                                 nu=whole(opt_state.nu))
+        trees = convert.checkpoint_trees(whole(params), state, cfg)
+        if saver is not None:
+            saver.save(step, trees, extra={"cursor": cursor})
+        del trees, state
         out["save_seconds"].append((step, time.perf_counter() - t0))
 
     t_start = time.perf_counter()
@@ -125,9 +186,17 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
             t0 = time.perf_counter()
             watchdog.step_start()
             step_idx, tokens = pipe.next_batch()
+            if mg is not None:
+                tokens = tokens[lo:lo + rows]
             tok = torch.from_numpy(tokens).to(dev)
+            coll = (None if mg is None
+                    else dict(step_fn.collectives))
             params, opt_state, metrics = step_fn(params, opt_state,
                                                  {"tokens": tok})
+            if coll is not None:
+                for key in ("calls", "bytes"):
+                    out["collective_" + key].append(
+                        step_fn.collectives[key] - coll.get(key, 0))
             loss = float(metrics["loss"])
             gnorm = float(metrics["grad_norm"])
             if dev.type == "cuda":
@@ -135,14 +204,17 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
             tripped = watchdog.step_end(i)
             out["losses"].append(loss)
             out["grad_norms"].append(gnorm)
+            if mg is not None and ckpt_dir is not None:
+                # a save is collective: every rank trips with rank 0's clock
+                tripped = bool(dist.broadcast_object(tripped, group))
             if tripped:
                 print(f"[watchdog] sustained stragglers at step {i}"
-                      + ("; checkpointing early" if saver else ""),
+                      + ("; checkpointing early" if ckpt_dir else ""),
                       flush=True)
-                if saver is not None:
+                if ckpt_dir is not None:
                     save(i, step_idx + 1)
-            if saver is not None and ((i + 1) % ckpt_every == 0
-                                      or i == steps - 1):
+            if ckpt_dir is not None and ((i + 1) % ckpt_every == 0
+                                         or i == steps - 1):
                 save(i + 1, step_idx + 1)
             out["step_seconds"].append(time.perf_counter() - t0)
             if (i + 1) % log_every == 0:
@@ -155,15 +227,36 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
         out["final_wait_seconds"] = time.perf_counter() - t0
     finally:
         pipe.close()
+        if mg is not None:
+            mg.destroy()
     out["wall_seconds"] = time.perf_counter() - t_start
     out["final_loss"] = out["losses"][-1] if out["losses"] else None
-    out["n_params"] = sum(p.numel() for _, p in model_lib.named_leaves(params))
+    out["n_params"] = n_params
     out["start_step"] = start_step
     out["straggler_events"] = len(watchdog.events)
     out["restore_seconds"] = restore_s
     out["write_seconds"] = [] if saver is None else saver.write_seconds
     out["params"], out["opt_state"] = params, opt_state
     return out
+
+
+def _rank_main(rank: int, world: int, backend: str, init_method: str,
+               kw: dict) -> None:
+    """One rank of `--world`: join the group, train, leave."""
+    g = dist.init_group(backend, init_method, rank, world)
+    try:
+        out = train(group=g, **kw)
+        if rank == 0:
+            _report(out)
+    finally:
+        g.destroy()
+
+
+def _report(out: dict) -> None:
+    final = ("none (no step left to take)" if out["final_loss"] is None
+             else f"{out['final_loss']:.4f}")
+    print(f"done: final_loss={final} wall={out['wall_seconds']:.1f}s "
+          f"straggler_events={out['straggler_events']}")
 
 
 def main() -> None:
@@ -184,17 +277,38 @@ def main() -> None:
                     choices=("flash_train", "ref"))
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the host; the card by default")
+    ap.add_argument("--world", type=int, default=None,
+                    help="train on this many ranks, one process each, on "
+                         "a (world / model-parallel, model-parallel) mesh")
+    ap.add_argument("--rank", type=int, default=None,
+                    help="with --init-method: be this one rank of --world "
+                         "(started by the caller); else all are spawned")
+    ap.add_argument("--init-method", default=None,
+                    help="the group's rendezvous URL (a file:// path or "
+                         "tcp://localhost:PORT); a temporary file:// store "
+                         "when spawning")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="'gloo' on the CPU, 'nccl' one card a rank")
     args = ap.parse_args()
-    out = train(args.arch, reduced=args.reduced, steps=args.steps,
-                batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
-                ckpt_every=args.ckpt_every,
-                model_parallel=args.model_parallel,
-                microbatches=args.microbatches, peak_lr=args.lr,
-                log_every=1, device=args.device, attn_impl=args.attn_impl)
-    final = ("none (no step left to take)" if out["final_loss"] is None
-             else f"{out['final_loss']:.4f}")
-    print(f"done: final_loss={final} wall={out['wall_seconds']:.1f}s "
-          f"straggler_events={out['straggler_events']}")
+    kw = dict(arch=args.arch, reduced=args.reduced, steps=args.steps,
+              batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
+              ckpt_every=args.ckpt_every, model_parallel=args.model_parallel,
+              microbatches=args.microbatches, peak_lr=args.lr, log_every=1,
+              attn_impl=args.attn_impl)
+    if args.world is None:
+        _report(train(device=args.device, **kw))
+        return
+    if args.rank is not None:
+        if args.init_method is None:
+            ap.error("--rank needs --init-method")
+        _rank_main(args.rank, args.world, args.backend, args.init_method,
+                   kw)
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        url = args.init_method or "file://" + os.path.join(tmp, "store")
+        torch.multiprocessing.spawn(
+            _rank_main, args=(args.world, args.backend, url, kw),
+            nprocs=args.world, join=True)
 
 
 if __name__ == "__main__":

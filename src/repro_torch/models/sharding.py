@@ -12,18 +12,30 @@ vocab 50280).
 The port keeps one dict per layer (`models/convert.py`), so a
 `blocks/<layer>/...` leaf has no stacked `num_periods` axis and takes its
 rule's spec as it stands, where the JAX package prefixes a None. Caches are
-the port's per-layer list. Placing leaves by these specs needs more than
-one device, which the port does not drive yet (ROADMAP.md section 1, item
-13); the specs are plain data.
+the port's per-layer list.
+
+Placement. A mesh's elements are ranks of a `torch.distributed` group
+(`launch.mesh.MeshGroup`), and a rank holds, of each leaf, the block its
+mesh coordinate picks (`param_shardings`: the JAX `NamedSharding`'s
+`devices_indices_map`, per coordinate). `shard_params` cuts a full tree
+to one rank's tensors, `gather_params` puts the ranks' tensors back
+together (saves, tests); with `models/convert.py` they carry the JAX
+package's weights onto a rank. `local_config` is the config of one rank's
+share of the model, which the sharded train step (`train/sharded.py`)
+runs and the dry-run traces.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
-from repro_torch.configs.base import ModelConfig
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SSMState
@@ -169,3 +181,162 @@ def logits_spec(batch_axes: Tuple[str, ...],
     if seq_axis is not None:
         return P(None, seq_axis, "model")
     return P(b_ax, None, "model")
+
+
+# --- one rank's share --------------------------------------------------------
+
+def model_div(mesh: Mesh, n: int) -> int:
+    """n over the `model` axis where it divides (the fitted spec's rule),
+    else n whole."""
+    m = mesh.shape.get("model", 1)
+    return n // m if n % m == 0 else n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSSM(SSMConfig):
+    """One device's share of a Mamba2 layer: the inner width, and with it
+    the heads, over `shards`."""
+    shards: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model // self.shards
+
+
+def local_config(cfg: ModelConfig, mesh: Mesh) -> ModelConfig:
+    """The config of one device's share of the model: heads, MLP hidden
+    and vocabulary over the `model` axis where they divide (the fitted
+    specs' rule); the KV heads too where they divide, else the KV heads
+    the local query heads read; experts (with top-k and a capacity factor
+    that keep each local expert's global capacity) and the Mamba2 inner
+    width and heads likewise."""
+    m = mesh.shape.get("model", 1)
+    h = model_div(mesh, cfg.num_heads)
+    hkv = (cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0
+           else max(1, h * cfg.num_kv_heads // cfg.num_heads))
+    over = dict(num_heads=h, num_kv_heads=hkv,
+                head_dim=cfg.resolved_head_dim,
+                d_ff=model_div(mesh, cfg.d_ff) if cfg.d_ff else 0,
+                vocab_size=model_div(mesh, cfg.vocab_size))
+    if cfg.moe is not None:
+        mo = cfg.moe
+        e = model_div(mesh, mo.num_experts)
+        k = min(mo.top_k, e)
+        # each local expert keeps the global capacity: cap = N K / E * cf
+        over["moe"] = dataclasses.replace(
+            mo, num_experts=e, top_k=k,
+            capacity_factor=mo.capacity_factor * mo.top_k * e
+            / (mo.num_experts * k))
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        if s.d_inner(cfg.d_model) // s.headdim % m == 0:
+            over["ssm"] = ShardedSSM(**dataclasses.asdict(s), shards=m)
+    return dataclasses.replace(cfg, **over)
+
+
+def kv_head_range(cfg: ModelConfig, mesh: Mesh, model_index: int
+                  ) -> Tuple[int, int]:
+    """[lo, hi) of the KV heads that model rank `model_index` projects:
+    its own block where the KV heads divide the `model` axis, else the
+    heads its query heads read (`local_config`), which must then be a
+    whole block of query heads per KV head or of KV heads per rank."""
+    m = mesh.shape.get("model", 1)
+    if cfg.num_kv_heads % m == 0:
+        n = cfg.num_kv_heads // m
+        return model_index * n, (model_index + 1) * n
+    h_loc = model_div(mesh, cfg.num_heads)
+    group = cfg.num_heads // cfg.num_kv_heads
+    if h_loc % group and group % h_loc:
+        raise ValueError(
+            f"{h_loc} query heads a rank do not map onto whole KV heads "
+            f"({group} query heads a KV head)")
+    lo = model_index * h_loc // group
+    return lo, lo + max(1, h_loc // group)
+
+
+class LeafSharding:
+    """Where a leaf of `shape` lies under `spec` on `mesh`: the
+    counterpart of a JAX `NamedSharding` bound to a shape."""
+
+    def __init__(self, mesh: Mesh, spec: P, shape):
+        self.mesh, self.spec, self.shape = mesh, spec, tuple(shape)
+
+    def indices(self, coord: Dict[str, int]) -> Tuple[slice, ...]:
+        """The block the device at mesh coordinate `coord` ({axis: index})
+        holds: one slice a dim, slice(None) where the dim is whole (the
+        JAX `devices_indices_map` entry)."""
+        out = []
+        for dim, size in enumerate(self.shape):
+            e = self.spec[dim] if dim < len(self.spec) else None
+            if e is None:
+                out.append(slice(None))
+                continue
+            idx, n = 0, 1
+            for a in (e if isinstance(e, (tuple, list)) else (e,)):
+                idx = idx * self.mesh.shape[a] + coord[a]
+                n *= self.mesh.shape[a]
+            out.append(slice(idx * (size // n), (idx + 1) * (size // n)))
+        return tuple(out)
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes that shard this leaf."""
+        names = []
+        for e in self.spec:
+            if e is not None:
+                names += list(e) if isinstance(e, (tuple, list)) else [e]
+        return tuple(names)
+
+
+
+def param_shardings(params, mesh: Mesh):
+    """The tree of `LeafSharding`s of `params` (the JAX package's
+    `param_shardings`: each leaf's fitted spec on `mesh`)."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, path + (i,))
+                              for i, v in enumerate(tree))
+        return LeafSharding(mesh, param_spec(path, tree, mesh), tree.shape)
+    return walk(params, ())
+
+
+def _map2(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map2(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
+
+
+def shard_params(params, mesh: Mesh, coord: Dict[str, int]):
+    """A full parameter-shaped tree -> the block of every leaf the rank at
+    `coord` holds (contiguous copies)."""
+    return _map2(lambda t, sh: t[sh.indices(coord)].contiguous(), params,
+                 param_shardings(params, mesh))
+
+
+def gather_params(local, full_shapes, mesh: Mesh, group):
+    """Every rank's `local` tree (`shard_params`' blocks) -> the full
+    leaves on every rank, in one all-gather over `group` (a `core.dist`
+    group whose rank r is mesh element r). `full_shapes` is a
+    parameter-shaped tree of the full leaves (tensors or shapes)."""
+    from repro_torch.core import dist as rdist
+    shardings = param_shardings(full_shapes, mesh)
+    leaves = []
+    _map2(lambda t, sh: leaves.append((t, sh)), local, shardings)
+    flat = torch.cat([t.reshape(-1).float() for t, _ in leaves])
+    every = rdist.gather_rows(flat[None], group)       # (world, n)
+    coords = {}
+    for pos in np.ndindex(*mesh.devices.shape):
+        coords[int(mesh.devices[pos])] = dict(zip(mesh.axis_names, pos))
+    out, off = [], 0
+    for t, sh in leaves:
+        full = torch.empty(sh.shape, dtype=t.dtype, device=t.device)
+        n = t.numel()
+        for r in range(every.shape[0]):
+            full[sh.indices(coords[r])] = every[r, off:off + n].view(
+                t.shape).to(t.dtype)
+        out.append(full)
+        off += n
+    it = iter(out)
+    return _map2(lambda t, sh: next(it), local, shardings)

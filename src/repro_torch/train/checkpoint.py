@@ -176,6 +176,11 @@ class AsyncSaver:
         self._thread = threading.Thread(target=_run, daemon=True)
         self._thread.start()
 
+    def hold(self, err: BaseException) -> None:
+        """Hold a failure for the next `wait()` or `save()`, as a failed
+        background write is held (a group's save: another rank's write)."""
+        self._error = err
+
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()

@@ -27,9 +27,11 @@ from repro_torch.launch.mesh import Mesh, device_array
 
 def remesh(devices: Sequence, model_parallel: int,
            pods: Optional[int] = None) -> Mesh:
-    """The largest (pod?, data, model) mesh over `devices`: `model` fixed,
-    `data` as large as whole rows of `model_parallel` devices allow, the
-    devices past the last whole row dropped."""
+    """The largest (pod?, data, model) mesh over `devices` (devices, or
+    the ranks of a group, which `launch.mesh.mesh_group` then gives their
+    axis sub-groups): `model` fixed, `data` as large as whole rows of
+    `model_parallel` devices allow, the devices past the last whole row
+    dropped."""
     devs = list(devices)
     rows = len(devs) // model_parallel
     if rows == 0:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,21 +62,32 @@ def decays(path: Tuple, p: torch.Tensor) -> bool:
     return path[0] == "blocks" or p.dim() >= 2
 
 
-def global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads, counts=None, reduce=None) -> torch.Tensor:
+    """sqrt of the sum of squares of `grads`. Over shards (the sharded
+    step), `counts[i]` says whether this rank counts leaf i (each element
+    once across the ranks) and `reduce` sums the square sum over them."""
+    sq = [g.float().square().sum() for i, g in enumerate(grads)
+          if counts is None or counts[i]]
+    total = (torch.stack(sq).sum() if sq
+             else torch.zeros((), device=grads[0].device))
+    if reduce is not None:
+        total = reduce(total.reshape(1))[0]
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply(cfg: OptimizerConfig, params: Dict, grads: Dict,
-          state: OptState) -> Tuple[Dict, OptState, Dict]:
+          state: OptState, *, grad_norm: Optional[torch.Tensor] = None
+          ) -> Tuple[Dict, OptState, Dict]:
     """One AdamW update IN PLACE. `grads` is parameter-shaped. Returns
     (params, state, metrics) with metrics grad_norm (before clipping, a
-    0-d tensor) and lr."""
+    0-d tensor) and lr. `grad_norm` is given where the gradients are
+    shards (the sharded step's global norm)."""
     flat = list(named_leaves(params))
     g_leaves = [g for _, g in named_leaves(grads)]
     m_leaves = [m for _, m in named_leaves(state.mu)]
     v_leaves = [v for _, v in named_leaves(state.nu)]
-    gnorm = global_norm(g_leaves)
+    gnorm = global_norm(g_leaves) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, state.step)
     step = state.step + 1

@@ -19,8 +19,7 @@ package's `tests/multidevice_checks.py`:
   (`check_moe_dakc_multidev`'s bound); `compress_psum(group=)` at frac
   1.0 is the mean within 1e-5 (`check_compression_psum`) and at frac 0.01
   equals `sharded=True` within 1e-6 (the ranks add in another order);
-- what waits for slice 17 raises NotImplementedError naming it, and a P
-  the world does not divide raises ValueError.
+- a P the world does not divide raises ValueError.
 """
 
 import dataclasses
@@ -175,8 +174,6 @@ def rank_main(rank: int, world: int, tmp: str) -> None:
             out[name + "_contains"] = kc.contains(inp["queries"])
             out[name + "_qstats"] = np.array(
                 [float(x) for x in kc.last_query_stats], np.float64)
-        _refusal(out, "refuse_save",
-                 lambda: kc.save(os.path.join(tmp, f"ck{rank}")))
 
         from repro_torch.models import convert, moe
         cfg, params, x = moe_setup()
@@ -201,15 +198,6 @@ def rank_main(rank: int, world: int, tmp: str) -> None:
             out["comp" + tag] = got["w"].numpy()
             out["comp" + tag + "_err"] = err["w"].numpy()
 
-        spill_cfg = fabsp.DAKCConfig(k=13, chunk_reads=CHUNK, spill="auto",
-                                     spill_dir=os.path.join(tmp, "spill"))
-        _refusal(out, "refuse_spill_count", lambda: fabsp.count_kmers(
-            inp["reads"], spill_cfg, num_pes=P, device="cpu", group=g))
-        _refusal(out, "refuse_spill_counter", lambda: fabsp.KmerCounter(
-            spill_cfg, num_pes=P, group=g))
-        _refusal(out, "refuse_restore", lambda: fabsp.KmerCounter.restore(
-            os.path.join(tmp, "none"), dakc_cfg({"k": 13}), num_pes=P,
-            group=g))
         _refusal(out, "refuse_num_pes", lambda: fabsp.count_kmers(
             inp["reads"], dakc_cfg({"k": 13}), num_pes=2 * world + 1,
             device="cpu", group=g))
@@ -481,10 +469,6 @@ def test_compress_psum_across_ranks(runs, world, frac):
 
 
 REFUSALS = {
-    "refuse_spill_count": ("NotImplementedError", "slice 17"),
-    "refuse_spill_counter": ("NotImplementedError", "slice 17"),
-    "refuse_save": ("NotImplementedError", "slice 17"),
-    "refuse_restore": ("NotImplementedError", "slice 17"),
     "refuse_num_pes": ("ValueError", "do not split over"),
 }
 

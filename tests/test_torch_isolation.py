@@ -65,7 +65,7 @@ from repro_torch.train import checkpoint
 from repro_torch.models import (attention, convert, frontends, layers, model,
                                 moe, sharding, ssm)
 from repro_torch.train import (compression, elastic, optimizer, pipeline,
-                               serve_step, train_step)
+                               serve_step, sharded, train_step)
 import tempfile
 with tempfile.TemporaryDirectory() as ck:
     out = train.train("qwen1.5-0.5b", reduced=True, steps=2, batch=2, seq=16,
@@ -79,6 +79,9 @@ assert mesh.data_axes_of(mesh.make_test_mesh((2, 2, 2), ("pod", "data",
                                                          "model"),
                                              list(range(8)))) == ("pod",
                                                                   "data")
+assert sharded.is_dense_decoder(get_config("gemma2-9b"))
+lcfg = sharding.local_config(get_config("gemma2-9b"), m)
+assert (lcfg.num_heads, lcfg.num_kv_heads) == (1, 1)
 specs = sharding.param_specs(out["params"], m)
 assert specs["embed"]["tok"] == sharding.P("model", None)
 w = {"w": torch.ones(2, 4)}

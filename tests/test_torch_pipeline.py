@@ -5,10 +5,18 @@ dimension on one device; it is held to its own `sequential_oracle`, to the
 JAX package's `sequential_oracle` on the same numpy parameters, and, in
 one subprocess with 4 forced host devices, to the JAX package's
 `shard_map` schedule (S, M, MB and D as in tests/test_pipeline.py).
+Across ranks (`group=`), one launcher (this file run as a script) per
+world, 2 and 4, spawns that many gloo ranks over a `file://` store, each
+holding S / world of S = 4 stages; every rank's output is held to the
+stacked schedule and to the JAX package's `sequential_oracle`.
 Tolerance: 1e-5 absolute on tanh outputs (f32; the pipeline multiplies
 microbatches where the oracle multiplies the whole batch, so sums may
 round differently).
 """
+
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -108,3 +116,72 @@ def test_indivisible_batch_raises_in_both():
                                         inp.items() if k != "x"},
                                jnp.zeros((3, 4)), mesh=mesh,
                                num_microbatches=2)
+
+
+# --- across ranks -----------------------------------------------------------
+
+GROUP_CASE = (4, 8, 2, 16)      # S, M, MB, D
+WORLDS = (2, 4)
+
+
+def rank_main(rank: int, world: int, tmp: str) -> None:
+    """One rank: its S / world stages of the pipeline over the group."""
+    from repro_torch.core import dist
+    torch.set_num_threads(1)
+    s, m, mb, d = GROUP_CASE
+    inp = _inputs(s, m, mb, d, seed=3)
+    g = dist.init_group("gloo", "file://" + os.path.join(tmp, "store"),
+                        rank, world, "cpu")
+    try:
+        local = s // world
+        lo = rank * local
+        params = {k: torch.from_numpy(inp[k][lo:lo + local])
+                  for k in ("w", "b")}
+        y = pipeline.pipeline_forward(_body, params,
+                                      torch.from_numpy(inp["x"]),
+                                      num_microbatches=m, group=g)
+        np.save(os.path.join(tmp, f"rank{rank}.npy"), y.numpy())
+    finally:
+        g.destroy()
+
+
+@pytest.fixture(scope="module")
+def group_runs(tmp_path_factory):
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    procs, dirs = {}, {}
+    for world in WORLDS:
+        d = str(tmp_path_factory.mktemp(f"pipe{world}"))
+        dirs[world] = d
+        procs[world] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(world), d],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    logs = {w: p.communicate(timeout=300)[0] for w, p in procs.items()}
+    for world, p in procs.items():
+        assert p.returncode == 0, logs[world][-4000:]
+    return {w: [np.load(os.path.join(dirs[w], f"rank{r}.npy"))
+                for r in range(w)] for w in WORLDS}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_pipeline_across_ranks_matches_stacked_and_jax(group_runs, world):
+    s, m, mb, d = GROUP_CASE
+    inp = _inputs(s, m, mb, d, seed=3)
+    stacked, _ = _port(inp, m)
+    want = jpipe.sequential_oracle(
+        _jbody, {"w": jnp.asarray(inp["w"]), "b": jnp.asarray(inp["b"])},
+        jnp.asarray(inp["x"]))
+    for y in group_runs[world]:
+        assert y.shape == (m * mb, d)
+        np.testing.assert_allclose(y, stacked.numpy(), rtol=0, atol=TOL)
+        np.testing.assert_allclose(y, np.asarray(want), rtol=0, atol=TOL)
+
+
+if __name__ == "__main__":
+    torch.multiprocessing.spawn(rank_main, args=(int(sys.argv[1]),
+                                                 sys.argv[2]),
+                                nprocs=int(sys.argv[1]), join=True)

@@ -95,13 +95,6 @@ def test_production_mesh_needs_its_devices():
     assert dict(m.shape) == {"pod": 2, "data": 16, "model": 16}
 
 
-def test_build_mesh_refuses_more_than_one_device():
-    cpu = torch.device("cpu")
-    assert train_lib.build_mesh(4, [cpu]).size == 1
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_lib.build_mesh(1, [cpu, cpu])
-
-
 # --- the straggler watchdog --------------------------------------------------
 
 # Step times: a slow first step, steady steps with jitter, one isolated
