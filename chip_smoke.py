@@ -16,6 +16,8 @@
     python3 chip_smoke.py --phases 1,2,4,18  # the PEs across a process group
     python3 chip_smoke.py --phases 1,2,19    # durability, the sharded step
                                              # and the pipeline across ranks
+    python3 chip_smoke.py --phases 1,2,20    # sharded serving and the
+                                             # families on a mesh of ranks
     python3 chip_smoke.py --reads 4194304  # cut phases 4, 10-13 and 15's reads
 
 Phases:
@@ -83,6 +85,30 @@ Phases:
      peak memory and collective calls a step beside the unsharded run's;
      (c) pipeline_forward(group=) of phase 16's 4 stages, all on the one
      rank, within 1e-5 of the largest output of the stacked schedule;
+  20. sharded serving and the families on a mesh of ranks, through a
+     one-rank NCCL group on a (1, 1) mesh (its store under
+     build/chip_smoke_phase20/, deleted afterwards): (a)
+     serve_step.generate(group=) against the unsharded generate:
+     qwen1.5-0.5b at full width and depth at phase 14's timed shape
+     (batch 8, prompt 512, 128 tokens), f32 with equal greedy tokens, and
+     bf16 with its first decode step's logits within 2e-2 of the largest,
+     decode ms a step beside the unsharded run's; mamba2-370m,
+     zamba2-1.2b, deepseek-moe-16b (4 layers) and llava-next-mistral-7b
+     at phase 14's gate widths, cuts, batches and prompts, f32, 8 tokens
+     equal to the unsharded run's; (b) the sharded step (launch.train.train
+     on the group) of deepseek-moe-16b (4 layers), mamba2-370m,
+     zamba2-1.2b, llava-next-mistral-7b (CUT to 4 layers) and
+     hubert-xlarge, 3 steps of 2 x 1024 in bf16 under 'flash_train',
+     against the unsharded step from the same init: loss within 1e-3 and
+     grad norm within 1e-2 relative at every step; collective calls and
+     bytes a step, step seconds and peak memory beside the unsharded
+     run's; rows 12-13 launched on the tensor cores for the attention
+     families; the phase's launches are its sharded runs' alone; before
+     (a), in one process, the sequence-sharded cache's flash-decode
+     combine of qwen1.5-0.5b's timed decode cache in 5 blocks (the last
+     empty) within 1e-5 (f32) and 2e-2 (bf16) of the largest output of
+     mha_ref over the whole cache, and the vocab-parallel greedy pick over
+     4 vocabulary blocks with planted ties equal to torch.argmax;
   11. the 2d topology at full size: phase 4's read set counted by 8 PEs as
      a (2, 4) grid on the one-plan route with the compact hop 2, exact
      against torch.unique, every PE holding phase 4's (k-mer, count) set,
@@ -237,13 +263,13 @@ Phases:
      main path's launches per scan step, device launches a decode step).
 
 Phases run in the order 1-5, 18, 11, 12, 8, 13, 9, 14, 15, 16, 17, 19,
-10, 6, 7: phase 18 beside phase 4's result; phases 18,
+20, 10, 6, 7: phase 18 beside phase 4's result; phases 18,
 11 and 12 before phase 8, whose counter keeps its store until phase 6;
 phase 13 after phase 8, whose counter and histogram it reads, freeing
 what it made before phase 9; and every phase whose wall time is kept
 before phase 10, which profiles. The `kernels` record gives each row's
 launches on phases 13's to 19's paths beside the full run's
-(`launches_phase13` to `launches_phase19`).
+(`launches_phase13` to `launches_phase20`).
 
 The second-to-last line is the `kernels` JSON record, the last the result
 record. Any failure raises and exits non-zero. Imports nothing of JAX.
@@ -3563,6 +3589,323 @@ def ranks_phase(torch, fabsp, ops, genome, card):
     return launches, numbers
 
 
+# --- phase 20: sharded serving and the families on a mesh of ranks ----------
+
+PHASE20_DIR = os.path.join(HERE, "build", "chip_smoke_phase20")
+# (a) serve_step.generate(group=) on a (1, 1) mesh of a one-rank NCCL group
+# against the unsharded generate: qwen1.5-0.5b at phase 14's timed shape,
+# f32 and bf16; every other decoder family at phase 14's gate widths, cuts,
+# batches and prompts (SERVE_GATES), f32, P20_GEN new tokens.
+P20_GEN = 8
+P20_BF16_TOL = 2e-2     # of the largest logit: the bf16 first decode step
+# (b) the sharded step on (1, 1) against the unsharded step from the same
+# init: P20_STEPS steps of FAMILY_BATCH x FAMILY_SEQ, bf16 'flash_train'.
+# deepseek-moe-16b keeps phase 14's 4 layers; llava-next-mistral-7b is cut
+# to 4 of its 32 layers (its AdamW state at full depth is about 87 GB).
+P20_TRAIN = (("deepseek-moe-16b", MOE_LAYERS), ("mamba2-370m", None),
+             ("zamba2-1.2b", None), ("llava-next-mistral-7b", 4),
+             ("hubert-xlarge", None))
+P20_STEPS = 3
+P20_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd")
+
+
+# the distributed decode's arithmetic on the card, in one process: phase
+# 14's timed decode cache (qwen1.5-0.5b, batch 8, 512 + 128 positions) in
+# P20_BLOCKS blocks, the query at P20_INDEX, so the last block is empty
+P20_BLOCKS, P20_INDEX = 5, 500
+P20_COMBINE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # of the largest
+P20_VOCAB_BLOCKS = 4
+
+
+def _decode_arithmetic(torch):
+    """The sequence-sharded cache's combine (`parallel.flash_decode_combine`
+    of `ref.mha_partial` blocks) against `ref.mha_ref` over the whole cache,
+    f32 and bf16, and the vocab-parallel greedy's (max, lowest index) pick
+    (`parallel.pick_lowest`) against torch.argmax, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import parallel
+
+    cfg = get_config(LM_ARCH)
+    hd = cfg.resolved_head_dim
+    s_len = TIMED_PROMPT + TIMED_GEN
+    n = -(-s_len // P20_BLOCKS)
+    check(P20_INDEX < s_len - n, "the last block must be empty")
+    gen = torch.Generator(device=DEV).manual_seed(72)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q = torch.randn(TIMED_BATCH, cfg.num_heads, 1, hd, generator=gen,
+                        device=DEV).to(dt)
+        k, v = (torch.randn(TIMED_BATCH, cfg.num_kv_heads, s_len, hd,
+                            generator=gen, device=DEV).to(dt)
+                for _ in range(2))
+        parts = [ref.mha_partial(q, k[:, :, lo:lo + n], v[:, :, lo:lo + n],
+                                 q_offset=P20_INDEX, k_offset=lo)
+                 for lo in range(0, s_len, n)]
+        m, l, o = (torch.stack(t) for t in zip(*parts))
+        check(bool(torch.isinf(m[-1]).all()), "the last block saw a key")
+        got = parallel.flash_decode_combine(m, l, o).to(dt)
+        want = ref.mha_ref(q, k, v, q_offset=P20_INDEX)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        check(bool(torch.isfinite(got).all())
+              and err <= P20_COMBINE_TOL[dtype] * scale,
+              f"the flash-decode combine {dtype}: {err:.3e} from mha_ref "
+              f"(largest {scale:.3e})")
+        out[f"combine_{dtype}_err"] = err
+        out[f"combine_{dtype}_scale"] = scale
+    # the greedy pick over P20_VOCAB_BLOCKS blocks of the vocabulary, with
+    # ties planted across blocks, within one block and at the last column
+    v = cfg.vocab_size
+    logits = torch.randn(TIMED_BATCH, v, generator=gen, device=DEV)
+    top = float(logits.max()) + 1.0
+    w = v // P20_VOCAB_BLOCKS
+    logits[0, [5, v - 7]] = top
+    logits[1, [w + 2, w + 3]] = top
+    logits[2, v - 1] = top
+    idx = logits.view(TIMED_BATCH, P20_VOCAB_BLOCKS, w).argmax(-1)
+    val = logits.view(TIMED_BATCH, P20_VOCAB_BLOCKS, w).gather(
+        -1, idx[..., None])[..., 0]
+    glob = idx + w * torch.arange(P20_VOCAB_BLOCKS, device=DEV)
+    pairs = torch.stack([val.double(), glob.double()], -1).transpose(0, 1)
+    got = parallel.pick_lowest(pairs)
+    want = torch.argmax(logits, -1)
+    check(torch.equal(got, want) and want[0] == 5 and want[1] == w + 2,
+          f"the vocab-parallel greedy pick {got.tolist()} is not argmax's "
+          f"{want.tolist()}")
+    out["greedy_equal"] = True
+    log(f"  [decode arithmetic] {LM_ARCH}'s cache (batch {TIMED_BATCH}, "
+        f"{s_len} positions) in {P20_BLOCKS} blocks, the query at "
+        f"{P20_INDEX} (the last block empty): the combine within "
+        f"{out['combine_float32_err']:.3e} (f32) and "
+        f"{out['combine_bfloat16_err']:.3e} (bf16) of mha_ref; the greedy "
+        f"pick over {P20_VOCAB_BLOCKS} vocabulary blocks equals argmax")
+    return out
+
+
+def sharded_phase(torch, ops, card):
+    """Phase 20: through a one-rank NCCL group on a (1, 1) mesh, (a) sharded
+    generate against the unsharded one, (b) the sharded step of the MoE,
+    Mamba2, hybrid, VLM and audio families against the unsharded step.
+    Every gate failure raises. Returns the launches of the phase's path and
+    its numbers."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dist as rdist
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import mesh_group
+    from repro_torch.models import model
+    from repro_torch.models import sharding as shd
+    from repro_torch.train import serve_step as ss
+
+    shutil.rmtree(PHASE20_DIR, ignore_errors=True)
+    os.makedirs(PHASE20_DIR)
+    numbers = {"card": card, "serve": {}, "train": {}}
+    numbers["decode_arithmetic"] = _decode_arithmetic(torch)
+    # the phase's launches: its sharded runs', each counted from 0 just
+    # before the run and read just after (not the unsharded references')
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+
+    def sharded(fn, *args, **kw):
+        ops.reset_launches()
+        out = fn(*args, **kw)
+        for k, n in ops.launch_counts().items():
+            launches[k] += n
+        return out
+
+    g = rdist.init_group("nccl", "file://" + os.path.join(PHASE20_DIR,
+                                                          "store"), 0, 1)
+    mg = mesh_group(train_lib.build_mesh(1, range(1)), g)
+    try:
+        def serve_pair(cfg, params, prompt, extra, gen, dtype):
+            """(sharded, unsharded) generate: tokens, each step's logits,
+            timings."""
+            scfg = ss.ServeConfig(max_seq=prompt.shape[1] + gen + (
+                cfg.frontend.num_patches if cfg.frontend.kind == "vision"
+                else 0), cache_dtype=dtype)
+            mine = shd.shard_params(params, mg.mesh, mg.coord)
+            res = []
+            for group, p in ((mg, mine), (None, params)):
+                lg, tm = [], {}
+                run = sharded if group is not None else (
+                    lambda fn, *a, **kw: fn(*a, **kw))
+                toks = run(ss.generate, p, prompt, cfg, scfg, gen,
+                           group=group, extra_batch=extra, timings=tm,
+                           logits=lg)
+                res.append((toks, lg, tm))
+                torch.cuda.empty_cache()
+            return res
+
+        # (a) qwen1.5-0.5b at phase 14's timed shape, f32 then bf16
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(LM_ARCH),
+                                      compute_dtype=dtype)
+            params = model.init_params(cfg, seed=70, device=DEV)
+            gen = torch.Generator(device=DEV).manual_seed(71)
+            prompt = torch.randint(0, cfg.vocab_size,
+                                   (TIMED_BATCH, TIMED_PROMPT),
+                                   generator=gen, device=DEV)
+            (ts, ls, ms), (tu, lu, mu) = serve_pair(cfg, params, prompt,
+                                                    None, TIMED_GEN, dtype)
+            step_s = 1e3 * sum(ms["decode"][1:]) / (TIMED_GEN - 2)
+            step_u = 1e3 * sum(mu["decode"][1:]) / (TIMED_GEN - 2)
+            row = {"decode_ms": step_s, "unsharded_decode_ms": step_u,
+                   "prefill_s": ms["prefill"][0],
+                   "unsharded_prefill_s": mu["prefill"][0],
+                   "decode_collective_calls":
+                       ms["decode_collective_calls"][0],
+                   "decode_collective_bytes":
+                       ms["decode_collective_bytes"][0]}
+            if dtype == "float32":
+                check(torch.equal(ts, tu), f"{LM_ARCH} f32: the sharded "
+                      f"greedy tokens differ from the unsharded generate's")
+                what = "tokens equal"
+            else:
+                err = float((ls[1] - lu[1]).abs().max())
+                scale = float(lu[1].abs().max())
+                check(err <= P20_BF16_TOL * scale, f"{LM_ARCH} bf16: the "
+                      f"first decode step's logits differ by {err:.3e} "
+                      f"(largest {scale:.3f})")
+                row.update(first_decode_err=err, scale=scale,
+                           tokens_equal=bool(torch.equal(ts, tu)))
+                what = (f"first decode step's logits within {err:.3e} of "
+                        f"the largest {scale:.3f}; tokens "
+                        f"{'equal' if row['tokens_equal'] else 'differ'}")
+            numbers["serve"][f"{LM_ARCH} {dtype}"] = row
+            log(f"  [serve] {LM_ARCH} {dtype} compute and cache, batch "
+                f"{TIMED_BATCH}, prompt {TIMED_PROMPT}, {TIMED_GEN} tokens "
+                f"on a (1, 1) mesh: {what}; decode steps 2-"
+                f"{TIMED_GEN - 1} {step_s:.3f} ms a step beside the "
+                f"unsharded {step_u:.3f} ms, "
+                f"{row['decode_collective_calls']:.0f} collective calls "
+                f"and {row['decode_collective_bytes']:.0f} B a step; "
+                f"prefill {row['prefill_s']:.4f} s beside "
+                f"{row['unsharded_prefill_s']:.4f} s "
+                f"({time.perf_counter() - t0:.1f} s, {card})")
+            del params, ts, tu, ls, lu
+            torch.cuda.empty_cache()
+
+        # (a) the other decoder families, f32, phase 14's gate shapes
+        for i, (arch, batch, prompt_len, layers_) in enumerate(SERVE_GATES):
+            if arch == LM_ARCH:
+                continue
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch),
+                                      compute_dtype="float32")
+            if layers_ is not None:
+                cfg = dataclasses.replace(cfg, num_layers=layers_)
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe,
+                    capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+            params = model.init_params(cfg, seed=80 + i, device=DEV)
+            gen = torch.Generator(device=DEV).manual_seed(90 + i)
+            inp = _family_batch(torch, cfg, batch, prompt_len + (
+                cfg.frontend.num_patches if cfg.frontend.kind == "vision"
+                else 0), gen)
+            extra = ({"patches": inp["patches"]} if "patches" in inp
+                     else None)
+            (ts, ls, ms), (tu, lu, mu) = serve_pair(
+                cfg, params, inp["tokens"], extra, P20_GEN, "float32")
+            check(torch.equal(ts, tu), f"{arch} f32: the sharded greedy "
+                  f"tokens differ from the unsharded generate's")
+            err = max(float((a - b).abs().max()) for a, b in zip(ls, lu))
+            numbers["serve"][arch] = {
+                "max_logit_err": err,
+                "decode_ms": 1e3 * sum(ms["decode"]) / (P20_GEN - 1),
+                "unsharded_decode_ms": 1e3 * sum(mu["decode"])
+                / (P20_GEN - 1),
+                "decode_collective_calls": ms["decode_collective_calls"][0]}
+            depth = (f"{cfg.num_layers} layers" if layers_ is None else
+                     f"CUT: {layers_} of {get_config(arch).num_layers} "
+                     f"layers")
+            log(f"  [serve] {arch} ({depth}), f32, batch {batch}, prompt "
+                f"{prompt_len}, {P20_GEN} tokens: tokens equal, logits "
+                f"within {err:.3e}; decode "
+                f"{numbers['serve'][arch]['decode_ms']:.3f} ms a step beside "
+                f"{numbers['serve'][arch]['unsharded_decode_ms']:.3f} ms, "
+                f"{numbers['serve'][arch]['decode_collective_calls']:.0f} "
+                f"collective calls a step ({time.perf_counter() - t0:.1f} s)")
+            del params, inp, ts, tu, ls, lu
+            torch.cuda.empty_cache()
+
+        # (b) the sharded step of each family against the unsharded step
+        for arch, layers_ in P20_TRAIN:
+            t0 = time.perf_counter()
+            base = get_config(arch)
+            over = dict(attn_impl="flash_train")
+            if layers_ is not None:
+                over["num_layers"] = layers_
+            kw = dict(reduced=False, steps=P20_STEPS, batch=FAMILY_BATCH,
+                      seq=FAMILY_SEQ, log_every=100, **over)
+            attn = any(k != "mamba" for k in base.period)
+            torch.cuda.reset_peak_memory_stats()
+            out_s = sharded(train_lib.train, arch, group=g,
+                            model_parallel=1, **kw)
+            peak_s = torch.cuda.max_memory_allocated()
+            del out_s["params"], out_s["opt_state"]
+            fl = {k: ops.launch_counts()[k] for k in P20_KERNELS}
+            tc = {k: ops.tc_launch_counts()[k] for k in P20_KERNELS}
+            if attn:
+                check(all(fl[k] > 0 for k in P20_KERNELS) and tc == fl,
+                      f"{arch}: the sharded step's flash launches {fl} "
+                      f"(tensor cores {tc})")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out_u = train_lib.train(arch, device=DEV, **kw)
+            peak_u = torch.cuda.max_memory_allocated()
+            del out_u["params"], out_u["opt_state"]
+            torch.cuda.empty_cache()
+            for name, a, b, tol in (
+                    ("loss", out_s["losses"], out_u["losses"], 1e-3),
+                    ("grad norm", out_s["grad_norms"], out_u["grad_norms"],
+                     1e-2)):
+                for i, (x, y) in enumerate(zip(a, b)):
+                    check(math.isfinite(x) and abs(x - y) <= tol * abs(y),
+                          f"{arch} step {i + 1}: the sharded {name} {x} and "
+                          f"the unsharded {y} differ by more than {tol} "
+                          f"relative")
+            step_s = sum(out_s["step_seconds"][1:]) / (P20_STEPS - 1)
+            step_u = sum(out_u["step_seconds"][1:]) / (P20_STEPS - 1)
+            numbers["train"][arch] = {
+                "losses": out_s["losses"],
+                "unsharded_losses": out_u["losses"],
+                "grad_norms": out_s["grad_norms"],
+                "unsharded_grad_norms": out_u["grad_norms"],
+                "aux_losses": out_s["aux_losses"],
+                "step_s": step_s, "unsharded_step_s": step_u,
+                "peak_bytes": peak_s, "unsharded_peak_bytes": peak_u,
+                "collective_calls": out_s["collective_calls"],
+                "collective_bytes": out_s["collective_bytes"],
+                "flash_launches": fl}
+            depth = (f"{base.num_layers} layers" if layers_ is None else
+                     f"CUT: {layers_} of {base.num_layers} layers")
+            log(f"  [train] {arch} ({depth}), {P20_STEPS} steps of "
+                f"{FAMILY_BATCH} x {FAMILY_SEQ}, bf16 'flash_train', (1, 1) "
+                f"mesh: losses {out_s['losses']} beside {out_u['losses']}, "
+                f"grad norms {out_s['grad_norms']} beside "
+                f"{out_u['grad_norms']}; step {step_s:.3f} s beside "
+                f"{step_u:.3f} s (steps 2-{P20_STEPS}); peak "
+                f"{peak_s / 1e9:.2f} GB beside {peak_u / 1e9:.2f} GB; "
+                f"collective calls a step {out_s['collective_calls']}, "
+                f"bytes a step {out_s['collective_bytes']}; flash launches "
+                f"{fl} ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        mg.destroy()
+        g.destroy()
+        shutil.rmtree(PHASE20_DIR, ignore_errors=True)
+    for name in P20_KERNELS:
+        check(launches[name] > 0, f"kernel {name} did not launch on phase "
+              f"20's sharded runs")
+    log(f"  launches on phase 20's sharded runs {launches}")
+    log(json.dumps({"phase20": numbers}, default=str))
+    return launches, numbers
+
+
 PHASE17_DIR = os.path.join(HERE, "build", "chip_smoke_phase17")
 DRYRUN_QUERIES = 1 << 20
 # The counter's default lowering: Synthetic-30/8 reads after the quantum of
@@ -4746,7 +5089,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19",
+                            "19,20",
                     help="comma-separated; 7 (a profile) runs on request")
     ap.add_argument("--reads", type=int, default=1 << 23,
                     help="phases 4, 10, 11 and 12's read count, phase "
@@ -4940,6 +5283,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"[ranks] done ({time.perf_counter() - t0:.1f} s)")
 
+    phase20_launches = None
+    if 20 in phases:
+        t0 = time.perf_counter()
+        log("[sharded] through a one-rank NCCL group on a (1, 1) mesh: "
+            "sharded generate of every decoder family, the sharded step of "
+            "the MoE, Mamba2, hybrid, VLM and audio families")
+        phase20_launches, _ = sharded_phase(torch, ops, smi[0])
+        torch.cuda.empty_cache()
+        log(f"[sharded] done ({time.perf_counter() - t0:.1f} s)")
+
     # Phase 10 comes after the phases whose wall times the records keep, as
     # it profiles its kernels for phase 6: once torch.profiler has run, the
     # process launches kernels more slowly (PERF.md §6).
@@ -4981,6 +5334,8 @@ def main(argv=None) -> int:
                                      else phase18_launches[e["name"]])
             e["launches_phase19"] = (None if phase19_launches is None
                                      else phase19_launches[e["name"]])
+            e["launches_phase20"] = (None if phase20_launches is None
+                                     else phase20_launches[e["name"]])
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()

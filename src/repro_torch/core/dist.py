@@ -40,10 +40,6 @@ import torch.distributed as dist
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=60)
 
-# Where a multi-rank path is not ported yet, it raises this.
-SLICE18 = ("ROADMAP §1 slice 18 (sharded serving and the MoE, SSM/hybrid, "
-           "VLM and audio families under a mesh)")
-
 
 class PeerFailure(RuntimeError):
     """Raised on the ranks whose own work succeeded when another rank of

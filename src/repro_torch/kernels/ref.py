@@ -15,7 +15,7 @@ attention kernels (`repro.kernels.flash_attention` and
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -470,6 +470,32 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(torch.isnan(probs), 0.0, probs)
     return torch.matmul(probs.to(vq.dtype).float(), vq.float()).to(q.dtype)
+
+
+def mha_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                q_offset: int, k_offset: int, causal: bool = True,
+                window: Optional[int] = None,
+                softcap: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One block's share of attention: q (B, Hq, Sq, D) at positions from
+    q_offset against the keys k, v (B, Hkv, Skv, D) at positions from
+    k_offset -> (row max m (B, Hq, Sq), row sum l of exp(s - m), o = the
+    exp(s - m)-weighted sum of v (B, Hq, Sq, D)), f32. A row that sees no
+    key of the block has m = -inf and l = o = 0. Blocks combine as
+    sum_b exp(m_b - M) o_b / sum_b exp(m_b - M) l_b with M = max_b m_b
+    (the distributed flash-decode); p is rounded to v's dtype before the
+    product, as in `flash_fwd`."""
+    hq, d = q.shape[1], q.shape[3]
+    s = _scores(q, _expand_kv(k, hq), d ** -0.5, softcap)
+    mask = _band(q_offset + torch.arange(q.shape[2], device=q.device),
+                 k_offset + torch.arange(k.shape[2], device=q.device),
+                 causal, window)
+    s = torch.where(mask, s, float("-inf"))
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    vq = _expand_kv(v, hq)
+    o = torch.matmul(p.to(vq.dtype).float(), vq.float())
+    return m, p.sum(-1), o
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

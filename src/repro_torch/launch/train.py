@@ -16,10 +16,14 @@ ranks form a (data, model) mesh with `model_parallel` ranks a row
 (`build_mesh`, `launch.mesh.mesh_group`), each holds its block of every
 parameter and AdamW moment (`sharding.shard_params`) and its rows of each
 global batch along `data`, and the dense decoders run the sharded step
-(`train/sharded.py`). Checkpoints stay whole and in the JAX layout:
-gathered on save (rank 0 writes), sliced on restore, so a checkpoint of
-any mesh resumes on any other or on one process. Other families run on a
-one-rank mesh as on one process and raise on a larger one.
+(`train/sharded.py`), every family of the registry. Checkpoints stay
+whole and in the JAX layout: gathered on save (rank 0 writes), sliced on
+restore, so a checkpoint of any mesh resumes on any other or on one
+process.
+
+A VLM's batch holds patches before its tokens, an encoder's frames and
+frame labels (the step's tokens): features drawn from a generator seeded
+by the step (`step_batch`), so a resumed run sees the same batches.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --steps 10 --batch 4 --seq 4096 --attn-impl flash_train
@@ -38,8 +42,9 @@ import dataclasses
 import os
 import tempfile
 import time
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced_config
@@ -65,6 +70,26 @@ def build_mesh(model_parallel: int, devices: Sequence) -> Mesh:
                                                    len(devs)))
 
 
+def step_batch(cfg, tokens: np.ndarray, step: int) -> Dict[str, np.ndarray]:
+    """Step `step`'s batch of `cfg`'s inputs from its (B, S) tokens: the
+    tokens; a VLM's (B, num_patches, frontend_dim) patches with them; an
+    encoder's (B, S, frontend_dim) frames with the tokens as frame labels.
+    The features are standard normals from a generator seeded by the
+    step."""
+    kind = cfg.frontend.kind
+    if kind == "none":
+        return {"tokens": tokens}
+    rng = np.random.default_rng((1, step))
+    b, s = tokens.shape
+    f = cfg.frontend
+    if kind == "vision":
+        return {"tokens": tokens, "patches": rng.standard_normal(
+            (b, f.num_patches, f.frontend_dim), np.float32)}
+    return {"frames": rng.standard_normal((b, s, f.frontend_dim),
+                                          np.float32),
+            "labels": tokens}
+
+
 def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
           model_parallel: int = 1, microbatches: int = 1,
@@ -77,7 +102,8 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
     With `ckpt_dir`, it resumes from the newest checkpoint there (unless
     `resume` is False) at its cursor, saves every `ckpt_every` steps and at
     the last step, and saves early when the straggler watchdog trips.
-    Returns the per-step losses, grad norms and seconds (host clock,
+    Returns the per-step losses, grad norms, MoE aux losses and seconds
+    (host clock,
     synchronised at the end of every step, a save included), the whole
     run's wall seconds, the final loss, the parameter count, the step it
     started at, the watchdog's straggler events, the seconds the resume's
@@ -88,7 +114,8 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
 
     `group`: every rank calls `train` with the same arguments (module
     docstring); `device` must then be of the group's kind. The batch must
-    divide over the `data` axis. The result's `collective_calls` and
+    divide into `microbatches` over the `data` axis: a rank holds its
+    block of each microbatch, as the JAX step splits them. The result's `collective_calls` and
     `collective_bytes` hold the sharded step's collectives a step."""
     dev = (resolve_device(device) if group is None
            else dist.resolve_device(group, device))
@@ -96,10 +123,8 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
            else dataclasses.replace(get_config(arch), **cfg_overrides))
     mg = None
     if group is not None:
-        mesh = build_mesh(model_parallel, range(group.world))
-        sharded.check_shardable(cfg, mesh.size)
-        if sharded.is_dense_decoder(cfg):
-            mg = mesh_group(mesh, group)
+        mg = mesh_group(build_mesh(model_parallel, range(group.world)),
+                        group)
     else:
         build_mesh(model_parallel, [dev])
     params = model_lib.init_params(cfg, seed=0, device=dev)
@@ -119,11 +144,17 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
         step_fn = ts_lib.make_train_step(cfg, tcfg)
     else:
         step_fn = sharded.ShardedStep(cfg, tcfg, mg, shapes)
-        rows = batch // mg.mesh.shape["data"]
-        if rows * mg.mesh.shape["data"] != batch:
-            raise ValueError(f"batch {batch} does not split over "
-                             f"{mg.mesh.shape['data']} data rows")
-        lo = mg.coord["data"] * rows
+        n_data = mg.mesh.shape["data"]
+        if batch % (n_data * microbatches):
+            raise ValueError(f"batch {batch} does not split into "
+                             f"{microbatches} microbatches over "
+                             f"{n_data} data rows")
+
+        def my_rows(v: np.ndarray) -> np.ndarray:
+            """This rank's block of `data` in each microbatch, as the
+            JAX step splits each global microbatch over `data`."""
+            split = v.reshape(microbatches, n_data, -1, *v.shape[1:])
+            return split[:, mg.coord["data"]].reshape(-1, *v.shape[1:])
 
     def whole(tree):
         """A parameter-shaped tree of this rank's blocks -> whole leaves
@@ -165,7 +196,8 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
     saver = (None if ckpt_dir is None or not lead
              else ckpt_lib.AsyncSaver(ckpt_dir))
     watchdog = elastic.StragglerWatchdog()
-    out = {"losses": [], "grad_norms": [], "step_seconds": [],
+    out = {"losses": [], "grad_norms": [], "aux_losses": [],
+           "step_seconds": [],
            "save_seconds": [], "collective_calls": [],
            "collective_bytes": []}
 
@@ -186,13 +218,13 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
             t0 = time.perf_counter()
             watchdog.step_start()
             step_idx, tokens = pipe.next_batch()
+            arrays = step_batch(cfg, tokens, step_idx)
             if mg is not None:
-                tokens = tokens[lo:lo + rows]
-            tok = torch.from_numpy(tokens).to(dev)
+                arrays = {k: my_rows(v) for k, v in arrays.items()}
+            feed = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
             coll = (None if mg is None
                     else dict(step_fn.collectives))
-            params, opt_state, metrics = step_fn(params, opt_state,
-                                                 {"tokens": tok})
+            params, opt_state, metrics = step_fn(params, opt_state, feed)
             if coll is not None:
                 for key in ("calls", "bytes"):
                     out["collective_" + key].append(
@@ -204,6 +236,7 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
             tripped = watchdog.step_end(i)
             out["losses"].append(loss)
             out["grad_norms"].append(gnorm)
+            out["aux_losses"].append(float(metrics["aux_loss"]))
             if mg is not None and ckpt_dir is not None:
                 # a save is collective: every rank trips with rank 0's clock
                 tripped = bool(dist.broadcast_object(tripped, group))

@@ -29,19 +29,22 @@ def init_rmsnorm(d: int, device) -> dict:
     return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
-def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6,
+            mean=None) -> torch.Tensor:
     """Zero-centred scale, gemma-style: (1 + scale) * x / rms(x), in f32,
-    cast back to x's dtype."""
+    cast back to x's dtype. `mean` maps the f32 squares (..., d) to their
+    mean (..., 1) where x is one rank's share of the normed width."""
     x32 = x.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
+    sq = x32 * x32
+    var = sq.mean(-1, keepdim=True) if mean is None else mean(sq)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + params["scale"])).to(x.dtype)
 
 
 def gated_rmsnorm(params: dict, x: torch.Tensor, gate: torch.Tensor,
-                  eps: float = 1e-6) -> torch.Tensor:
+                  eps: float = 1e-6, mean=None) -> torch.Tensor:
     """Mamba2's output gate: rmsnorm(x * silu(gate)), the silu in f32 and
     cast to x's dtype before the product."""
-    return rmsnorm(params, x * F.silu(gate.float()).to(x.dtype), eps)
+    return rmsnorm(params, x * F.silu(gate.float()).to(x.dtype), eps, mean)
 
 
 # --- RoPE --------------------------------------------------------------------

@@ -133,60 +133,92 @@ def abstract_params(cfg: ModelConfig) -> Dict:
 
 # --- One layer ---------------------------------------------------------------
 
+class Blocks:
+    """The blocks a layer is made of, on one process: attention, the gated
+    MLP, the MoE block and the Mamba2 block. `models/parallel.py`'s
+    `RankModel` gives the same methods for one rank's share of a mesh, so
+    `_layer` wires the layer kinds once for both."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def layer_params(self, p, i):
+        """Layer i's parameters as its blocks read them."""
+        return p
+
+    def attention(self, p, x, *, window, positions, cache, cache_index):
+        return attention.attention(p, x, cfg=self.cfg, window=window,
+                                   positions=positions, cache=cache,
+                                   cache_index=cache_index)
+
+    def mlp(self, p, x):
+        return layers.mlp(p, x, getattr(torch, self.cfg.compute_dtype))
+
+    def moe(self, p, x):
+        return moe.moe_block(p, x, cfg=self.cfg)
+
+    def mamba(self, p, x, state):
+        return ssm.mamba_block(p, x, cfg=self.cfg, state=state)
+
+
 def _layer(p: Dict, x: torch.Tensor, *, kind: str, cfg: ModelConfig,
            shared: Optional[Dict], positions: torch.Tensor,
-           cache: Optional[Dict], cache_index: int):
-    """One layer -> (x, new cache or None, aux loss term)."""
-    cdt = getattr(torch, cfg.compute_dtype)
+           cache: Optional[Dict], cache_index: int,
+           blocks: Optional[Blocks] = None):
+    """One layer -> (x, new cache or None, aux loss term), its blocks from
+    `blocks` (`Blocks(cfg)` by default)."""
+    ops = Blocks(cfg) if blocks is None else blocks
     eps = cfg.rms_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new = None if cache is None else {}
     kv = None if cache is None else cache.get("kv")
     if kind in ("attn", "attn_local", "moe"):
         window = cfg.sliding_window if kind == "attn_local" else None
-        h, kv = attention.attention(
-            p["attn"], layers.rmsnorm(p["ln1"], x, eps), cfg=cfg,
-            window=window, positions=positions, cache=kv,
-            cache_index=cache_index)
+        h, kv = ops.attention(p["attn"], layers.rmsnorm(p["ln1"], x, eps),
+                              window=window, positions=positions, cache=kv,
+                              cache_index=cache_index)
         x = x + h
         if kind == "moe":
-            h, moe_aux = moe.moe_block(p["moe"],
-                                       layers.rmsnorm(p["ln2"], x, eps),
-                                       cfg=cfg)
+            h, moe_aux = ops.moe(p["moe"], layers.rmsnorm(p["ln2"], x, eps))
             aux = aux + cfg.moe.router_aux_weight * moe_aux.load_balance_loss
             x = x + h
         else:
-            x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, eps),
-                               cdt)
+            x = x + ops.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, eps))
         if new is not None:
             new["kv"] = kv
         return x, new, aux
-    h, state = ssm.mamba_block(p["mamba"], layers.rmsnorm(p["ln"], x, eps),
-                               cfg=cfg,
-                               state=None if cache is None else cache["ssm"])
+    h, state = ops.mamba(p["mamba"], layers.rmsnorm(p["ln"], x, eps),
+                         None if cache is None else cache["ssm"])
     x = x + h
     if new is not None:
         new["ssm"] = state
     if kind == "mamba_shared_attn":
         # The shared block (zamba2): shared weights, this layer's norms and
         # KV cache, windowed.
-        h, kv = attention.attention(
-            shared["attn"], layers.rmsnorm(p["ln_sa"], x, eps), cfg=cfg,
-            window=cfg.sliding_window, positions=positions, cache=kv,
-            cache_index=cache_index)
+        h, kv = ops.attention(shared["attn"],
+                              layers.rmsnorm(p["ln_sa"], x, eps),
+                              window=cfg.sliding_window, positions=positions,
+                              cache=kv, cache_index=cache_index)
         x = x + h
-        x = x + layers.mlp(shared["mlp"], layers.rmsnorm(p["ln_sm"], x, eps),
-                           cdt)
+        x = x + ops.mlp(shared["mlp"], layers.rmsnorm(p["ln_sm"], x, eps))
         if new is not None:
             new["kv"] = kv
     return x, new, aux
 
 
+def _block_layer(blocks: Blocks, p: Dict, i: int, x: torch.Tensor, **kw):
+    return _layer(blocks.layer_params(p, i), x, blocks=blocks, **kw)
+
+
 def _run_stack(params: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                positions: torch.Tensor, caches: Optional[List[Dict]],
-               cache_index: int):
-    """x (B, T, D) -> (x, new caches or None, summed aux loss)."""
-    shared = params.get("shared_attn")
+               cache_index: int, blocks: Optional[Blocks] = None,
+               shared: Optional[Dict] = None):
+    """x (B, T, D) -> (x, new caches or None, summed aux loss). `blocks`
+    and `shared` (the zamba2 block, `params['shared_attn']` by default)
+    are `_layer`'s."""
+    blocks = Blocks(cfg) if blocks is None else blocks
+    shared = params.get("shared_attn") if shared is None else shared
     remat = (cfg.remat == "full" and caches is None
              and torch.is_grad_enabled())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -197,9 +229,10 @@ def _run_stack(params: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                   cache=None if caches is None else caches[i],
                   cache_index=cache_index)
         if remat:
-            x, c, a = checkpoint(_layer, p, x, use_reentrant=False, **kw)
+            x, c, a = checkpoint(_block_layer, blocks, p, i, x,
+                                 use_reentrant=False, **kw)
         else:
-            x, c, a = _layer(p, x, **kw)
+            x, c, a = _block_layer(blocks, p, i, x, **kw)
         aux = aux + a
         if new_caches is not None:
             new_caches.append(c)

@@ -23,8 +23,15 @@ paths compute the same function:
   of `world` ranks): each rank holds S / world shards' token rows and
   their experts' weights (`convert.moe_expert_slice`); the exchange and
   its inverse are `dist.exchange` calls, and the aux loss and dropped
-  share are summed over the ranks before the mean. The JAX mesh's 'data'
-  axis is not modelled.
+  share are summed over the ranks before the mean.
+- Under a (data, model) mesh of ranks (`models/parallel.py`, the JAX
+  package's `mesh=` path): each rank's n / (data * model) token rows
+  through the engine over the `model` axis, its experts' weights FSDP
+  over `data`; the all_to_all and its inverse are autograd functions,
+  and the aux loss is the mean over the shards, as JAX's pmean. Where
+  JAX's rule takes GShard under a mesh, each rank runs it over every
+  token with its experts (`_gshard_dispatch(experts=)`), summed over
+  `model`.
 
 Shared experts are one always-on MLP of width num_shared * expert_d_ff.
 """
@@ -97,13 +104,17 @@ def _combine(gathered: torch.Tensor, weights: torch.Tensor, n: int, k: int,
 
 
 def _gshard_dispatch(params: dict, x2d: torch.Tensor, ids: torch.Tensor,
-                     weights: torch.Tensor, cfg: ModelConfig, capacity: int):
+                     weights: torch.Tensor, cfg: ModelConfig, capacity: int,
+                     experts: Optional[Tuple[int, int]] = None):
     """Rank within expert in pair order; pairs at rank >= capacity drop.
-    Returns (y (N, D), dropped share)."""
+    Returns (y (N, D), dropped share). With `experts` = [lo, hi), `params`
+    holds those experts alone and y sums only their pairs' outputs (one
+    rank's share of an expert-parallel layer)."""
     m = cfg.moe
     cdt = getattr(torch, cfg.compute_dtype)
     n, d = x2d.shape
     e = m.num_experts
+    lo, hi = (0, e) if experts is None else experts
     flat_ids = ids.reshape(-1)
     onehot = F.one_hot(flat_ids, e)
     rank = (torch.cumsum(onehot, 0) - onehot).gather(
@@ -114,24 +125,29 @@ def _gshard_dispatch(params: dict, x2d: torch.Tensor, ids: torch.Tensor,
     cols = torch.where(keep, rank, 0)
     tiles = torch.zeros((e + 1, capacity, d), dtype=cdt, device=x2d.device)
     tiles[rows, cols] = x2d.to(cdt).repeat_interleave(m.top_k, 0)
-    out = _expert_ffn(params["wi"], params["wg"], params["wo"], tiles[:e],
-                      cdt)
+    out = _expert_ffn(params["wi"], params["wg"], params["wo"],
+                      tiles[lo:hi], cdt)
+    if experts is not None:
+        keep = keep & (flat_ids >= lo) & (flat_ids < hi)
     gathered = torch.where(keep[:, None],
-                           out[torch.where(keep, flat_ids, 0), cols], 0)
+                           out[torch.where(keep, flat_ids - lo, 0), cols], 0)
     return _combine(gathered, weights, n, m.top_k, cdt), dropped
 
 
 def _dakc_dispatch(params: dict, x2d: torch.Tensor, cfg: ModelConfig,
-                   shards: int, capacity: int, group=None):
-    """The packed-tile engine over `shards` stacked EP shards, or over this
-    rank's shards of a `dist.PEGroup` (x2d and the experts then this
-    rank's). Returns (y (N, D), aux, dropped share), aux and dropped
-    averaged over all the shards."""
+                   shards: int, capacity: int, s_here: Optional[int] = None,
+                   swap=None):
+    """The packed-tile engine over `shards` EP shards, of which x2d holds
+    `s_here` (all of them by default) and `params` their experts. `swap`
+    is the all_to_all of (s_here, shards, ...) [this shard, other shard]
+    tiles to [this shard, other shard] tiles received (the transpose of
+    the stacked shards by default). Returns (y (N, D), aux (s_here,),
+    dropped share (s_here,)), the last two a shard."""
     m = cfg.moe
     cdt = getattr(torch, cfg.compute_dtype)
     n, d = x2d.shape
     e, k = m.num_experts, m.top_k
-    s_here = shards if group is None else group.local_pes
+    s_here = shards if s_here is None else s_here
     e_loc, n_loc = e // shards, n // s_here
     xs = x2d.reshape(s_here, n_loc, d)
     ids, weights, aux = _router(params, xs, cfg)         # (S, n_loc, K)
@@ -146,11 +162,6 @@ def _dakc_dispatch(params: dict, x2d: torch.Tensor, cfg: ModelConfig,
               - offsets.gather(1, s_ids))
     ok = within < capacity
     dropped = 1.0 - ok.float().mean(1)
-    if group is None:
-        aux, dropped = aux.mean(), dropped.mean()
-    else:
-        aux, dropped = dist.all_sum(torch.stack([aux.sum(), dropped.sum()]),
-                                    group) / shards
     rows = torch.where(ok, s_ids, e)
     cols = torch.where(ok, within, 0)
     src = torch.arange(s_here, device=x2d.device)[:, None].expand_as(rows)
@@ -159,10 +170,9 @@ def _dakc_dispatch(params: dict, x2d: torch.Tensor, cfg: ModelConfig,
                         device=x2d.device)
     tiles[src, rows, cols] = xk.gather(1, order[..., None].expand(-1, -1, d))
 
-    def swap(t):
-        """[this shard, other shard] tiles -> [other, this]: the
-        all_to_all, a transpose of the stacked shards or one exchange."""
-        return t.transpose(0, 1) if group is None else dist.exchange(t, group)
+    if swap is None:
+        def swap(t):
+            return t.transpose(0, 1)
 
     # The exchange: tile [src, dst] goes to shard dst, which groups its
     # experts' tokens from every source shard.
@@ -215,8 +225,16 @@ def moe_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     if use_dakc:
         capacity = _capacity(n // n_shards * m.top_k, m.num_experts,
                              m.capacity_factor)
-        y2d, aux, dropped = _dakc_dispatch(params, x2d, cfg, ep_shards,
-                                           capacity, group)
+        if group is None:
+            y2d, aux, dropped = _dakc_dispatch(params, x2d, cfg, ep_shards,
+                                               capacity)
+            aux, dropped = aux.mean(), dropped.mean()
+        else:
+            y2d, aux, dropped = _dakc_dispatch(
+                params, x2d, cfg, ep_shards, capacity, group.local_pes,
+                lambda t: dist.exchange(t, group))
+            aux, dropped = dist.all_sum(
+                torch.stack([aux.sum(), dropped.sum()]), group) / ep_shards
     else:
         ids, weights, aux = _router(params, x2d, cfg)
         capacity = _capacity(n * m.top_k, m.num_experts, m.capacity_factor)

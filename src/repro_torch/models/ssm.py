@@ -140,12 +140,14 @@ def ssd_chunked(x: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
 
 
 def mamba_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
-                state: Optional[SSMState] = None
+                state: Optional[SSMState] = None, norm_mean=None
                 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """The whole Mamba2 block. x (B, L, D) -> (y (B, L, D), state). L > 1
     is the chunked view (training, prefill; `state`, if given, seeds the
     recurrence); L == 1 is one recurrent decode step (from a zero state
-    when none is given)."""
+    when none is given). `norm_mean` is the gated norm's mean of squares
+    where `cfg` is one rank's share of the inner width
+    (`layers.rmsnorm`'s `mean`)."""
     s, d_in, n_heads, conv_dim = _dims(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     f32 = torch.float32
@@ -181,7 +183,7 @@ def mamba_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
             y, xs = y[:, :length], xs[:, :length]
         y = y + xs * params["d_skip"].to(cdt)[None, None, :, None]
         y = layers.gated_rmsnorm(params["norm"], y.reshape(bsz, length, d_in),
-                                 z, cfg.rms_eps)
+                                 z, cfg.rms_eps, norm_mean)
         out = y @ params["out_proj"].to(cdt)
         return out, SSMState(conv=conv_state.to(cdt), ssm=final.to(cdt))
 
@@ -207,7 +209,7 @@ def mamba_block(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     y = torch.einsum("bhpn,bhn->bhp", new_ssm, ch.to(f32)).to(cdt)
     y = y + xs * params["d_skip"].to(cdt)[None, :, None]
     y = layers.gated_rmsnorm(params["norm"], y.reshape(bsz, 1, d_in), z,
-                             cfg.rms_eps)
+                             cfg.rms_eps, norm_mean)
     out = y @ params["out_proj"].to(cdt)
     return out, SSMState(conv=conv_in[:, :, 1:],
                          ssm=new_ssm.to(state.ssm.dtype))

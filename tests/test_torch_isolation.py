@@ -63,7 +63,7 @@ from repro_torch.data import tokens
 from repro_torch.launch import kc_serve, mesh, serve, train
 from repro_torch.train import checkpoint
 from repro_torch.models import (attention, convert, frontends, layers, model,
-                                moe, sharding, ssm)
+                                moe, parallel, sharding, ssm)
 from repro_torch.train import (compression, elastic, optimizer, pipeline,
                                serve_step, sharded, train_step)
 import tempfile
@@ -79,7 +79,7 @@ assert mesh.data_axes_of(mesh.make_test_mesh((2, 2, 2), ("pod", "data",
                                                          "model"),
                                              list(range(8)))) == ("pod",
                                                                   "data")
-assert sharded.is_dense_decoder(get_config("gemma2-9b"))
+assert not hasattr(sharded, "check_shardable")
 lcfg = sharding.local_config(get_config("gemma2-9b"), m)
 assert (lcfg.num_heads, lcfg.num_kv_heads) == (1, 1)
 specs = sharding.param_specs(out["params"], m)
