@@ -30,8 +30,8 @@ Phases:
      slots given and hashed in the kernel, bit-equal in counts, probe
      lengths and the batch's stats, both word widths; the flash attention
      kernels within stated tolerances,
-     f32 and bf16 (the bf16 kernels on the tensor cores), head dims 15 to
-     256, up to the training path's shape;
+     f32 and bf16, head dims 15 to 256, and the training path's shape in
+     both dtypes and phase 14's zamba2-1.2b prompt (4160 rows) in f32;
      the k-mer extraction, digit histogram and run-boundary kernels at
      small shapes and edge cases; the histogram's plain counts and its
      plan prefix at B = 2 to 1024, ids of -1 and B, rows on either side
@@ -256,7 +256,9 @@ Phases:
      sites of rows 1-3 and 5, make_partition_plan,
      sort.accumulate(impl='fused') and countstore.store_lookup, as whole
      calls (ms, device ms and device launches a call, in the JSON's
-     `calls`);
+     `calls`); rows 11-13 in f32 and bf16 at head dims 64, 128 and 256,
+     each call's kernels named by the profiler's records, which must be
+     its dtype's tensor-core kernels;
   7. on request only: the main path, one step of phase 9's training and
      four decode steps of phase 14's qwen1.5-0.5b serving under
      torch.profiler (device time by kernel, the device's busy share, the
@@ -291,6 +293,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores (data sheet)
+# f32 on this card: the f32 flash kernels take each product as six bf16
+# products (989e12 / 6 = 165e12 FLOP/s of f32 work, as 3xTF32's 3 / 495e12),
+# against the CUDA cores' 67e12 f32 FMA rate (data sheet).
+F32_SPLIT_FLOP_PER_S = BF16_FLOP_PER_S / 6
+F32_CUDA_CORE_FLOP_PER_S = 67e12
 K = 31
 NUM_PES = 8
 # The kernels of count_kmers' path (phase 4); the counter's path (phase 8)
@@ -311,7 +318,9 @@ SWEEP_TIMED_SHIFT = 28         # the digit phase 6 times
 # scores fit.
 LM_ARCH, LM_STEPS, LM_BATCH, LM_SEQ = "qwen1.5-0.5b", 10, 4, 4096
 LM_CHECK_SEQ = 1024
-FLASH_PATH = (4, 16, 4096, 64)   # (batch, heads, seq, head_dim), bf16
+# (batch, heads, seq, head_dim), bf16 on the path; phases 3 and 6 also
+# in f32
+FLASH_PATH = (4, 16, 4096, 64)
 # Flash tolerances. f32: 1e-5 on o and lse, 5e-5 on dq, dk, dv (the JAX
 # package's gradient bound). bf16: kernel and plain version round nearly
 # equal f32 values, so they may differ by one bf16 step at the value
@@ -324,6 +333,9 @@ FLASH_PATH = (4, 16, 4096, 64)   # (batch, heads, seq, head_dim), bf16
 # term and keeps 1e-5 in bf16 too.
 FLASH_F32_TOL = {"o": 1e-5, "lse": 1e-5, "grad": 5e-5}
 BF16_STEP, BF16_SLACK = 2.0 ** -7, 1e-4
+# The f32 share of each phase's flash launches (ops.f32_launch_counts),
+# by phase, read where the phase reads its launch counts.
+F32_LAUNCHES = {}
 SPIN_PAD = 8    # phase 6: spin kernels on each side of a profiled window
 
 
@@ -923,16 +935,25 @@ def _held(torch, got, want, tol_f32, what, terms=None):
     return err
 
 
+def _flash_launches(ops):
+    """(flash launches, f32 flash launches) so far, over rows 11-13."""
+    f32 = ops.f32_launch_counts()
+    return (sum(n for k, n in ops.launch_counts().items() if k in f32),
+            sum(f32.values()))
+
+
 def check_flash(torch, ops, ref, errs):
     """Rows 11-13 against ref.flash_fwd / ref.flash_bwd on the same inputs:
     GQA by index, window, softcaps, causal=False, q_offset > 0, lengths
-    that are not multiples of a tile, fully masked rows; for the bf16
-    tensor-core kernels also many tiles through both stages of their ring
-    (seq 1000 causal, seq 2048 under a window of 300), GQA 8/1 and a
-    q_offset that is not a multiple of a tile; head dims 15 (no 16-byte
-    copies), 16, 64, 120, 128 and 256, f32 and bf16; then the training
-    path's shape in bf16. Every bf16 launch must be a tensor-core launch.
-    errs gets each kernel's largest f32 error."""
+    that are not multiples of a tile, fully masked rows; many tiles
+    through the kernels' rings (seq 1000 causal, seq 2048 under a window
+    of 300), GQA 8/1 and a q_offset that is not a multiple of a tile; head
+    dims 15 (no 16-byte copies), 16, 64, 120, 128 and 256, f32 and bf16;
+    then the training path's shape (64 batch-heads of 4096 rows) in both
+    dtypes, and phase 14's zamba2-1.2b prompt (32 heads of 4160 rows under
+    a window of 4096) in f32. A case launches each row once, an f32 case
+    the f32 kernels (phase 6 reads their names from the profiler). errs
+    gets each kernel's largest f32 error."""
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(7)
     log("[kernels] flash attention forward (rows 11, 12) and backward "
@@ -959,8 +980,12 @@ def check_flash(torch, ops, ref, errs):
             for d in (15, 16, 64, 120, 128, 256)
             for dt in (torch.float32, torch.bfloat16)]
     b, h, s, d = FLASH_PATH
-    runs.append(("training path shape", (b, h, h, s, s, True, None, None, 0),
-                 d, torch.bfloat16))
+    runs += [("training path shape", (b, h, h, s, s, True, None, None, 0),
+              d, dt) for dt in (torch.bfloat16, torch.float32)]
+    # Phase 14's zamba2-1.2b prompt: 4160 rows past its 4096 window, f32.
+    runs.append(("zamba2 prompt, window 4096",
+                 (1, 32, 32, 4160, 4160, True, 4096, None, 0), 64,
+                 torch.float32))
     for name, (b, hq, hkv, sq, skv, causal, window, softcap, q_offset), d, \
             dt in runs:
         q, do = (torch.randn((b, hq, sq, d), generator=gen, device=dev)
@@ -969,15 +994,16 @@ def check_flash(torch, ops, ref, errs):
                 .to(dt) for _ in range(2))
         band = dict(causal=causal, window=window, softcap=softcap,
                     q_offset=q_offset, scale=d ** -0.5)
-        tc_before = sum(ops.tc_launch_counts().values())
+        before = _flash_launches(ops)
         o = ops.flash_attention(q, k, v, **band)
         o2, lse = ops.flash_attention_fwd_lse(q, k, v, **band)
         torch.cuda.synchronize()
         wo, wlse = ref.flash_fwd(q, k, v, with_lse=True, **band)
         kq = k.repeat_interleave(hq // hkv, 1)
         vq = v.repeat_interleave(hq // hkv, 1)
-        t_o, t_dq, t_dk, t_dv = ref.flash_rounded_terms(q, kq, vq, wo, wlse,
-                                                        do, **band)
+        t_o, t_dq, t_dk, t_dv = (
+            ref.flash_rounded_terms(q, kq, vq, wo, wlse, do, **band)
+            if dt == torch.bfloat16 else (None,) * 4)
         tag = f"{name}, d={d}, {str(dt)[6:]}"
         e11 = _held(torch, o, wo, FLASH_F32_TOL["o"], f"row 11 o ({tag})",
                     t_o)
@@ -992,9 +1018,9 @@ def check_flash(torch, ops, ref, errs):
                         f"row 13 {n} ({tag})", t)
                   for g, w, n, t in zip(got, want, ("dq", "dk", "dv"),
                                         (t_dq, t_dk, t_dv)))
-        tc = sum(ops.tc_launch_counts().values()) - tc_before
-        check(tc == (3 if dt == torch.bfloat16 else 0),
-              f"{tag}: {tc} tensor-core flash launches")
+        n, f32 = (x - y for x, y in zip(_flash_launches(ops), before))
+        check(n == 3 and f32 == (3 if dt == torch.float32 else 0),
+              f"{tag}: {n} flash launches, {f32} of them f32")
         if dt == torch.float32:
             for key, e in zip(worst, (e11, e12, e13)):
                 worst[key] = max(worst[key], e)
@@ -2283,7 +2309,7 @@ def lm_phase(torch, ops):
                           device=DEV, attn_impl="flash_train")
     del out["params"], out["opt_state"]
     launches = ops.launch_counts()
-    tc_launches = ops.tc_launch_counts()
+    f32_launches = F32_LAUNCHES[9] = ops.f32_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses, gnorms = out["losses"], out["grad_norms"]
     check(all(math.isfinite(x) for x in losses + gnorms),
@@ -2295,8 +2321,8 @@ def lm_phase(torch, ops):
     for name, n in want.items():
         check(launches[name] == n, f"{name} launched {launches[name]} times "
               f"in {LM_STEPS} steps, expected {n}")
-        check(tc_launches[name] == n, f"{name}: {tc_launches[name]} of its "
-              f"{n} launches ran the tensor-core kernel")
+        check(f32_launches[name] == 0, f"{name}: {f32_launches[name]} of "
+              f"its {n} launches ran an f32 kernel in a bf16 run")
     tokens = LM_BATCH * LM_SEQ
     steady = out["step_seconds"][1:]
     step_s = sum(steady) / len(steady)
@@ -2318,8 +2344,8 @@ def lm_phase(torch, ops):
         f"{100 * numbers['mfu']:.2f} % of {BF16_FLOP_PER_S:.3g} FLOP/s "
         f"({flops:.4g} FLOP per step)")
     log(f"  max_memory_allocated {peak / 1e9:.2f} GB; flash launches "
-        f"{ {k: launches[k] for k in want} }, on the tensor cores "
-        f"{ {k: tc_launches[k] for k in want} }")
+        f"{ {k: launches[k] for k in want} }, f32 "
+        f"{ {k: f32_launches[k] for k in want} }")
     out_launches = {k: launches[k] for k in want}
 
     # The same weights and batch through 'flash_train' and 'ref' at a length
@@ -2360,11 +2386,9 @@ def lm_phase(torch, ops):
             cfg, attn_impl="flash"))[0]
         out_launches["flash_attention"] = ops.launch_counts()[
             "flash_attention"]
-        tc11 = ops.tc_launch_counts()["flash_attention"]
         lg_train = model.forward(params, {"tokens": tok}, cfg)[0]
-    check(out_launches["flash_attention"] == L == tc11,
-          "the 'flash' forward did not launch kernel 11's tensor-core "
-          "kernel in every layer")
+    check(out_launches["flash_attention"] == L,
+          "the 'flash' forward did not launch kernel 11 in every layer")
     err = float((lg_flash - lg_train).abs().max())
     scale = float(lg_train.abs().max())
     log(f"  seq {LM_SEQ} no-grad forward: 'flash' against 'flash_train' "
@@ -2614,6 +2638,7 @@ def serve_phase(torch, ops):
             f"tokens/s with the prefill; peak {r['peak_bytes'] / 1e9:.2f} GB")
         torch.cuda.empty_cache()
     launches = ops.launch_counts()
+    F32_LAUNCHES[14] = ops.f32_launch_counts()
     for name in FLASH_ROWS:
         check(launches[name] > 0, f"kernel {name} did not launch on phase "
               f"14's path")
@@ -3256,6 +3281,7 @@ def trainer_phase(torch, ops):
     torch.cuda.empty_cache()
 
     launches = ops.launch_counts()
+    F32_LAUNCHES[16] = ops.f32_launch_counts()
     for name in ("flash_attention", "flash_attention_fwd_lse",
                  "flash_attention_bwd"):
         check(launches[name] > 0, f"kernel {name} did not launch on phase "
@@ -3457,7 +3483,6 @@ def ranks_phase(torch, fabsp, ops, genome, card):
             f"mesh of the group; checkpoints every {P19_CKPT_EVERY} steps")
         flash = ("flash_attention_fwd_lse", "flash_attention_bwd")
         before = {k: ops.launch_counts()[k] for k in flash}
-        tc_before = {k: ops.tc_launch_counts()[k] for k in flash}
         torch.cuda.reset_peak_memory_stats()
         out_s = train_lib.train(LM_ARCH, ckpt_dir=ck_lm,
                                 ckpt_every=P19_CKPT_EVERY, group=g,
@@ -3465,11 +3490,9 @@ def ranks_phase(torch, fabsp, ops, genome, card):
         peak_s = torch.cuda.max_memory_allocated()
         del out_s["params"], out_s["opt_state"]
         fl = {k: ops.launch_counts()[k] - before[k] for k in flash}
-        tc = {k: ops.tc_launch_counts()[k] - tc_before[k] for k in flash}
         check(fl["flash_attention_fwd_lse"] == 2 * L * P19_STEPS
-              and fl["flash_attention_bwd"] == L * P19_STEPS
-              and tc == fl, f"the sharded step's flash launches {fl} "
-              f"(tensor cores {tc})")
+              and fl["flash_attention_bwd"] == L * P19_STEPS,
+              f"the sharded step's flash launches {fl}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         out_u = train_lib.train(LM_ARCH, device=DEV, **kw)
@@ -3579,6 +3602,7 @@ def ranks_phase(torch, fabsp, ops, genome, card):
         g.destroy()
         shutil.rmtree(PHASE19_DIR, ignore_errors=True)
     launches = ops.launch_counts()
+    F32_LAUNCHES[19] = ops.f32_launch_counts()
     for name in P19_KERNELS:
         check(launches[name] > 0, f"kernel {name} did not launch on phase "
               f"19's path")
@@ -3708,12 +3732,15 @@ def sharded_phase(torch, ops, card):
     # the phase's launches: its sharded runs', each counted from 0 just
     # before the run and read just after (not the unsharded references')
     launches = dict.fromkeys(ops.launch_counts(), 0)
+    f32 = F32_LAUNCHES[20] = dict.fromkeys(ops.f32_launch_counts(), 0)
 
     def sharded(fn, *args, **kw):
         ops.reset_launches()
         out = fn(*args, **kw)
         for k, n in ops.launch_counts().items():
             launches[k] += n
+        for k, n in ops.f32_launch_counts().items():
+            f32[k] += n
         return out
 
     g = rdist.init_group("nccl", "file://" + os.path.join(PHASE20_DIR,
@@ -3849,11 +3876,9 @@ def sharded_phase(torch, ops, card):
             peak_s = torch.cuda.max_memory_allocated()
             del out_s["params"], out_s["opt_state"]
             fl = {k: ops.launch_counts()[k] for k in P20_KERNELS}
-            tc = {k: ops.tc_launch_counts()[k] for k in P20_KERNELS}
             if attn:
-                check(all(fl[k] > 0 for k in P20_KERNELS) and tc == fl,
-                      f"{arch}: the sharded step's flash launches {fl} "
-                      f"(tensor cores {tc})")
+                check(all(fl[k] > 0 for k in P20_KERNELS),
+                      f"{arch}: the sharded step's flash launches {fl}")
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             out_u = train_lib.train(arch, device=DEV, **kw)
@@ -4206,6 +4231,7 @@ def dryrun_phase(torch, fabsp, ops, genome):
     check(card_bound <= wall, "the counter's roofline bound exceeds the "
           "measured wall")
     launches = ops.launch_counts()
+    F32_LAUNCHES[17] = ops.f32_launch_counts()
     log(f"  launches of phase 17's runs on the card: "
         f"{ {k: v for k, v in launches.items() if v} }")
     passes = 3 * DRYRUN_MICRO       # 3 steps of DRYRUN_MICRO microbatches
@@ -4318,11 +4344,23 @@ def device_ms(torch, fn, reps=20, port=True, tries=DEVICE_MS_TRIES):
     (`_device_records`), summed and divided by `reps`. `port`: the records
     of the port's kernels (any other device time of the calls is logged);
     else every device record (a library call)."""
-    recs = _device_records(torch, fn, reps, tries)
+    return port_ms(_device_records(torch, fn, reps, tries), reps, port)
+
+
+def _port_kernel(key):
+    """The port's kernel that a profiler record names, else None."""
+    name = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", key)
+    return (name.group(1) if name and name.group(1) in port_kernel_names()
+            else None)
+
+
+def port_ms(recs, reps, port=True):
+    """Device ms a call of `_device_records`' records over `reps` calls:
+    of the port's kernels (any other device time is logged), or with
+    `port` False of every record."""
     mine = rest = 0.0
     for key, (_, us) in recs.items():
-        name = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", key)
-        if not port or (name and name.group(1) in port_kernel_names()):
+        if not port or _port_kernel(key):
             mine += us
         else:
             rest += us
@@ -4331,6 +4369,17 @@ def device_ms(torch, fn, reps=20, port=True, tries=DEVICE_MS_TRIES):
         log(f"  (besides the port's kernels, {rest / reps / 1e3:.4f} ms of "
             f"PyTorch device work per call)")
     return mine / reps / 1e3
+
+
+def record_ms(recs, reps):
+    """{kernel: device ms a call} of `_device_records`' records over
+    `reps` calls: the port's kernels by name, any other record by the
+    first 90 characters of its name."""
+    out = {}
+    for key, (_, us) in recs.items():
+        name = _port_kernel(key) or key[:90]
+        out[name] = out.get(name, 0.0) + us / reps / 1e3
+    return out
 
 
 def whole_call(torch, fn, reps=20):
@@ -4906,58 +4955,149 @@ def flash_times(torch, ops, ref, entry, shape_of):
     """Rows 11-13 at the training path's shape, (4, 16, 4096, 64) bf16
     causal. The bound is the causal products' FLOPs at the bf16 tensor-core
     peak (each kept (row, col) pair costs 2 hd per product: 2 products
-    forward, 5 backward), against the bytes read and written once."""
+    forward, 5 backward), against the bytes read and written once. Each
+    row also gets, as `f32`, the same shape in float32 (bound at the split
+    products' 165e12 FLOP/s, and `bound_cuda_core_ms` at 67e12), and as
+    `by_head_dim` both dtypes at head dims 128 and 256 (no plain times).
+    Fails unless the profiler's records of each call name that dtype's
+    tensor-core kernels (FLASH_TC_KERNELS) and no other of the port's."""
     import torch.nn.functional as F
 
     b, h, s, d = FLASH_PATH
-    dev = torch.device(DEV)
-    gen = torch.Generator(device=dev).manual_seed(9)
-    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(4))
-    band = dict(causal=True, window=None, softcap=None, scale=d ** -0.5)
-    pairs = b * h * s * (s + 1) // 2
-    elem = b * h * s * d * 2                 # one (b, h, s, d) bf16 tensor
-    lse_bytes = b * h * s * 4
-    o, lse = ops.flash_attention_fwd_lse(q, k, v, **band)
+    rows = flash_shape_times(torch, ops, ref, (b, h, s, d), torch.bfloat16,
+                             5)
     for name in ("flash_attention", "flash_attention_fwd_lse",
                  "flash_attention_bwd"):
         shape_of[name] = f"q/k/v ({b}, {h}, {s}, {d}) bf16, causal"
-    reps = 5
+    new = {name: entry(name, source, replaces, (r["ms"], r["device_ms"]),
+                       r["plain_ms"], r["nbytes"],
+                       (r["library_ms"], r["library_device_ms"]),
+                       flops=r["flops"])
+           for (name, source, replaces), r in zip(FLASH_SOURCES,
+                                                  rows.values())}
+    f32 = flash_shape_times(torch, ops, ref, (b, h, s, d), torch.float32, 5)
+    by_d = {str(dd): {"bf16": flash_shape_times(
+        torch, ops, ref, (b, h, s, dd), torch.bfloat16, 3, plain=False),
+        "f32": flash_shape_times(torch, ops, ref, (b, h, s, dd),
+                                 torch.float32, 3, plain=False)}
+        for dd in (128, 256)}
+    for name, e in new.items():
+        e["f32"] = f32[name]
+        e["by_head_dim"] = {dd: {dt: r[name] for dt, r in x.items()}
+                            for dd, x in by_d.items()}
+    # The profiler's records name the kernels that ran: each dtype's
+    # tensor-core kernels, and no other kernel of the port.
+    for dt, dd, r in [("bf16", "64", rows), ("f32", "64", f32)] + [
+            (dt, dd, x[dt]) for dd, x in by_d.items() for dt in x]:
+        for name, row in r.items():
+            ran = {k for k in row["records_ms"] if k in port_kernel_names()}
+            check(ran == FLASH_TC_KERNELS[name, dt],
+                  f"{name} at head dim {dd}, {dt}: the port's kernels "
+                  f"{sorted(ran)} ran, not {FLASH_TC_KERNELS[name, dt]}")
+    log("  rows 11-13 at head dims 64, 128, 256: the profiler recorded "
+        "only the tensor-core kernels of each dtype")
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .to(torch.bfloat16).requires_grad_(True)
+                   for _ in range(4))
+    sdpa_both = time_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        (q, k, v), do), 5)
+    log(f"  flash library_ms: scaled_dot_product_attention(is_causal=True) "
+        f"bf16 forward + backward {sdpa_both:.4f} ms")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+
+# The kernels that rows 11-13 launch, by dtype.
+FLASH_TC_KERNELS = {
+    ("flash_attention", "bf16"): {"flash_fwd_tc"},
+    ("flash_attention_fwd_lse", "bf16"): {"flash_fwd_tc"},
+    ("flash_attention_bwd", "bf16"): {"flash_dq_tc", "flash_dkv_tc"},
+    ("flash_attention", "f32"): {"flash_fwd_f32"},
+    ("flash_attention_fwd_lse", "f32"): {"flash_fwd_f32"},
+    ("flash_attention_bwd", "f32"): {"flash_dq_f32", "flash_dkv_f32"}}
+
+# (name, source, replaces) of rows 11-13.
+FLASH_SOURCES = (
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:84"),
+    ("flash_attention_fwd_lse", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:167"),
+    ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+     "src/repro/kernels/flash_attention_bwd.py:138"))
+
+
+def flash_shape_times(torch, ops, ref, shape, dtype, reps, plain=True):
+    """Rows 11-13 on causal (b, h, s, d) inputs of `dtype`: per row its
+    ms and device_ms, each device record's ms a call (`records_ms`: the
+    port's kernels by name), the plain version's ms (None without
+    `plain`),
+    SDPA's (the forward call, or
+    its backward alone: autograd.grad on a kept graph) as library_ms and
+    library_device_ms, the FLOPs and bytes, and bound_ms: bf16 at the
+    tensor cores' 989e12 FLOP/s, f32 at the split products' 165e12 (and
+    bound_cuda_core_ms at 67e12), each against the bytes."""
+    import torch.nn.functional as F
+
+    b, h, s, d = shape
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    band = dict(causal=True, window=None, softcap=None, scale=d ** -0.5)
+    pairs = b * h * s * (s + 1) // 2
+    elem = b * h * s * d * q.element_size()   # one (b, h, s, d) tensor
+    lse_bytes = b * h * s * 4
+    o, lse = ops.flash_attention_fwd_lse(q, k, v, **band)
     sdpa_fwd = library_times(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps)
-    entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-          "src/repro/kernels/flash_attention.py:84",
-          call_times(torch, lambda: ops.flash_attention(q, k, v, **band),
-                     reps),
-          time_ms(torch, lambda: ref.flash_fwd(q, k, v, **band), reps),
-          4 * elem, sdpa_fwd, flops=4 * d * pairs)
-    entry("flash_attention_fwd_lse", "src/repro_torch/csrc/flash_attention.cu",
-          "src/repro/kernels/flash_attention.py:167",
-          call_times(torch, lambda: ops.flash_attention_fwd_lse(
-              q, k, v, **band), reps),
-          time_ms(torch, lambda: ref.flash_fwd(q, k, v, with_lse=True,
-                                               **band), reps),
-          4 * elem + lse_bytes, sdpa_fwd, flops=4 * d * pairs)
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     sdpa_bwd = library_times(torch, lambda: torch.autograd.grad(
         og, (qg, kg, vg), do, retain_graph=True), reps)
-    entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
-          "src/repro/kernels/flash_attention_bwd.py:138",
-          call_times(torch, lambda: ops.flash_attention_bwd(
-              q, k, v, o, lse, do, **band), reps),
-          time_ms(torch, lambda: ref.flash_bwd(q, k, v, o, lse, do, **band),
-                  reps),
-          8 * elem + lse_bytes, sdpa_bwd, flops=10 * d * pairs)
-    sdpa_both = time_ms(torch, lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
-        (qg, kg, vg), do), reps)
-    log(f"  flash library_ms: scaled_dot_product_attention(is_causal=True) "
-        f"forward {sdpa_fwd[0]:.4f} ms, its backward alone (autograd.grad on "
-        f"a kept graph) {sdpa_bwd[0]:.4f} ms, forward + backward "
-        f"{sdpa_both:.4f} ms")
+    calls = {
+        "flash_attention": (
+            lambda: ops.flash_attention(q, k, v, **band),
+            lambda: ref.flash_fwd(q, k, v, **band), 4 * elem, sdpa_fwd,
+            4 * d * pairs),
+        "flash_attention_fwd_lse": (
+            lambda: ops.flash_attention_fwd_lse(q, k, v, **band),
+            lambda: ref.flash_fwd(q, k, v, with_lse=True, **band),
+            4 * elem + lse_bytes, sdpa_fwd, 4 * d * pairs),
+        "flash_attention_bwd": (
+            lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **band),
+            lambda: ref.flash_bwd(q, k, v, o, lse, do, **band),
+            8 * elem + lse_bytes, sdpa_bwd, 10 * d * pairs),
+    }
+    rate = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+            else F32_SPLIT_FLOP_PER_S)
+    tag = f"({b}, {h}, {s}, {d}) {str(dtype)[6:]} causal"
+    out = {}
+    for name, (fn, ref_fn, nbytes, lib, flops) in calls.items():
+        ms = time_ms(torch, fn, reps)
+        recs = _device_records(torch, fn, reps, DEVICE_MS_TRIES)
+        dev_ms = port_ms(recs, reps)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"shape": tag, "ms": ms, "device_ms": dev_ms,
+               "records_ms": record_ms(recs, reps),
+               "plain_ms": time_ms(torch, ref_fn, reps) if plain else None,
+               "library_ms": lib[0], "library_device_ms": lib[1],
+               "flops": flops, "nbytes": nbytes,
+               "bound_ms": max(by_bytes, flops / rate * 1e3)}
+        if dtype == torch.float32:
+            row["bound_cuda_core_ms"] = max(
+                by_bytes, flops / F32_CUDA_CORE_FLOP_PER_S * 1e3)
+        out[name] = row
+        log(f"  {name} at {tag}: {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
+            f"device, plain {row['plain_ms']}, SDPA {lib[0]:.4f} / "
+            f"device {lib[1]:.4f}, bound {row['bound_ms']:.5f}"
+            + (f" (CUDA cores {row['bound_cuda_core_ms']:.5f})"
+               if "bound_cuda_core_ms" in row else ""))
     del q, k, v, do, o, lse, qg, kg, vg, og
     torch.cuda.empty_cache()
+    return out
 
 
 # --- phase 7 (on request): where the time of the main path goes -------------
@@ -5336,6 +5476,9 @@ def main(argv=None) -> int:
                                      else phase19_launches[e["name"]])
             e["launches_phase20"] = (None if phase20_launches is None
                                      else phase20_launches[e["name"]])
+            if e["name"] in ops.f32_launch_counts():
+                e["f32_launches_by_phase"] = {
+                    n: f32[e["name"]] for n, f32 in F32_LAUNCHES.items()}
         calls = call_sites(torch, ops, counter[0]._committed)
         counter = None
         torch.cuda.empty_cache()

@@ -13,7 +13,9 @@
 // p = 0, which is what the TPU wrapper's padding (lse 1, D 0) amounts to.
 //
 // Bound: operations. The five products of a causal (4, 16, 4096, 64) call
-// are 3.4e11 FLOP on about 70 MB: 0.35 ms at the 989 TFLOP/s bf16 peak.
+// are 3.4e11 FLOP on about 70 MB (bf16; 140 MB in f32): 0.35 ms at the
+// 989 TFLOP/s bf16 peak; in f32, at six bf16 products a product, 2.08 ms
+// at 165 TFLOP/s effective.
 //
 // Both dtypes keep the TPU kernel's split into a dq kernel and a dk/dv
 // kernel: no atomics, no f32 scratch for dq, deterministic results, at
@@ -46,11 +48,28 @@
 // with and without the mask and the softcap (by_case), and the mask runs
 // only on tiles that cross the band's edge.
 //
-// f32 (flash_dq_kernel, flash_dkv_kernel): the first-version kernels,
-// kept for f32 inputs (the tensor cores would round them; the f32 checks
-// hold the kernels to 5e-5). All arithmetic is f32 on the CUDA cores: a
-// block per 64 rows (32 at head dim 256), S and dO.V^T from one pass over
-// the head dimension, dS and P^T through shared memory.
+// f32 (flash_dq_f32, flash_dkv_f32): the same products on the tensor
+// cores at f32 accuracy, each f32 operand split into three bf16 parts and
+// each product taken as six bf16 products (flash_wgmma.cuh; the forward's
+// note says why not TF32). A block is one warpgroup of 64 rows. Its own
+// rows (Q and dO for dq, K and V for dk/dv) are staged split once; the
+// walked tiles stream through 64-column chunks, each copied by cp.async
+// into an f32 staging area a step ahead and split into one of two slots
+// while the previous chunk's products run. Per walked tile:
+// - dq: K's column blocks (S), V's (dP), then K's again (each a block of
+//   dQ += dS K, dS split in registers);
+// - dk, dv: Q's blocks (S^T), dO's (dP^T; at the block's own column
+//   blocks also dV += P^T dO, P^T split in registers), then Q's own blocks
+//   (dK += dS^T Q). A block computes two 64-column blocks of dk and dv
+//   (one at head dim 64); at head dim 256 the two blocks of a key tile
+//   (grid z) each recompute S^T and dP^T, so that a block's accumulators
+//   stay within its registers.
+// Each chunk's product goes into a fresh accumulator and is added to its
+// sum in f32 on the CUDA cores; p = exp(s - lse) with expf, as the plain
+// version computes it. The walked tiles are 32 rows (m64n32k16 for the
+// scores) in dq at head dim 256, where two split 64-row tiles of 256
+// columns fill 192 KB of shared memory, and in dk/dv from head dim 128,
+// where they halve the registers of the scores and of P^T's fragments.
 //
 // The dtype picks the kernels (flash_bwd_launch); neither falls back.
 
@@ -79,328 +98,6 @@ struct BwdArgs {
   int has_softcap;
   Band band;
 };
-
-// The scaled score and, with a softcap, the capped one.
-__device__ __forceinline__ float cap_score(const BwdArgs& a, float dot) {
-  const float x = dot * a.scale;
-  return a.has_softcap ? a.softcap * tanhf(x / a.softcap) : x;
-}
-
-// scale * ds for one kept (row, column): p (dp - D), through the softcap.
-__device__ __forceinline__ float scaled_ds(const BwdArgs& a, float p,
-                                           float dp, float dsum, float x) {
-  float ds = p * (dp - dsum);
-  if (a.has_softcap) {
-    const float t = x / a.softcap;
-    ds *= 1.f - t * t;
-  }
-  return ds * a.scale;
-}
-
-template <int DP>
-constexpr size_t dq_smem_floats() {
-  constexpr int BR = kTy * rows_per_thread<DP>();
-  return 2 * (size_t)BR * (DP + 1) + 2 * (size_t)kBC * (DP + 1) +
-         (size_t)BR * (kBC + 1);
-}
-
-template <int DP>
-constexpr size_t dkv_smem_floats() {
-  constexpr int BR = kTy * rows_per_thread<DP>();
-  return 2 * (size_t)BR * (DP + 1) + 2 * (size_t)kBC * (DP + 1) +
-         2 * (size_t)BR * (kBC + 1) + 2 * (size_t)kBC;
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
-  constexpr int RM = rows_per_thread<DP>();
-  constexpr int BR = kTy * RM;
-  constexpr int S = DP + 1;
-  constexpr int PS = kBC + 1;
-  constexpr int DJ = DP / kTx;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + BR * S;
-  float* ks = dos + BR * S;
-  float* vs = ks + kBC * S;
-  float* dss = vs + kBC * S;
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int64_t bh = blockIdx.x;
-  const int64_t sq = a.sq, skv = a.band.skv;
-  const int d = a.d;
-  const int64_t r0 = (int64_t)blockIdx.y * BR;
-  const float* q = static_cast<const float*>(a.q) + bh * sq * d;
-  const float* dout = static_cast<const float*>(a.dout) + bh * sq * d;
-  const float* k = static_cast<const float*>(a.k) + bh * skv * d;
-  const float* v = static_cast<const float*>(a.v) + bh * skv * d;
-
-  load_tile<DP>(qs, S, q, r0, BR, sq, d);
-  load_tile<DP>(dos, S, dout, r0, BR, sq, d);
-  float lse[RM], dsum[RM], acc[RM][DJ];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int64_t r = r0 + ty * RM + i;
-    lse[i] = r < sq ? a.lse[bh * sq + r] : 0.f;
-    dsum[i] = r < sq ? a.dsum[bh * sq + r] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int64_t last = r0 + BR < sq ? r0 + BR : sq;
-  const int64_t row_lo = a.q_offset + r0, row_hi = a.q_offset + last - 1;
-  int64_t c_begin = 0, c_end = skv;
-  if (a.band.has_window && row_lo - a.band.window + 1 > 0)
-    c_begin = row_lo - a.band.window + 1;
-  if (a.band.causal && row_hi + 1 < c_end) c_end = row_hi + 1;
-  c_begin -= c_begin % kBC;
-
-  for (int64_t c0 = c_begin; c0 < c_end; c0 += kBC) {
-    __syncthreads();  // the last tile's dS.K is done with ks and dss
-    load_tile<DP>(ks, S, k, c0, kBC, skv, d);
-    load_tile<DP>(vs, S, v, c0, kBC, skv, d);
-    __syncthreads();
-
-    float s[RM][kCols], dp[RM][kCols];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < DP; ++dd) {
-      float qa[RM], oa[RM], kb[kCols], vb[kCols];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        qa[i] = qs[(ty * RM + i) * S + dd];
-        oa[i] = dos[(ty * RM + i) * S + dd];
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        kb[j] = ks[(tx + kTx * j) * S + dd];
-        vb[j] = vs[(tx + kTx * j) * S + dd];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int64_t r = r0 + ty * RM + i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int64_t col = c0 + tx + kTx * j;
-        const float x = cap_score(a, s[i][j]);
-        const bool keep = r < sq && a.band.keep(a.q_offset + r, col);
-        const float p = keep ? expf(x - lse[i]) : 0.f;
-        dss[(ty * RM + i) * PS + tx + kTx * j] =
-            keep ? scaled_ds(a, p, dp[i][j], dsum[i], x) : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBC; ++c) {
-      float ds[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) ds[i] = dss[(ty * RM + i) * PS + c];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const float kk = ks[c * S + tx + kTx * jj];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) acc[i][jj] = fmaf(ds[i], kk, acc[i][jj]);
-      }
-    }
-  }
-
-  float* dq = static_cast<float*>(a.dq) + bh * sq * d;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int64_t r = r0 + ty * RM + i;
-    if (r >= sq) continue;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int c = tx + kTx * jj;
-      if (c < d) dq[r * d + c] = acc[i][jj];
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a) {
-  constexpr int RM = rows_per_thread<DP>();
-  constexpr int BK = kTy * RM;  // key rows of this block
-  constexpr int S = DP + 1;
-  constexpr int PS = kBC + 1;
-  constexpr int DJ = DP / kTx;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + BK * S;
-  float* qs = vs + BK * S;
-  float* dos = qs + kBC * S;
-  float* pts = dos + kBC * S;    // P^T tile (BK, 64)
-  float* dsts = pts + BK * PS;   // scale * dS^T tile (BK, 64)
-  float* lses = dsts + BK * PS;  // (64,)
-  float* dsums = lses + kBC;     // (64,)
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTx + tx;
-  const int64_t bh = blockIdx.x;
-  const int64_t sq = a.sq, skv = a.band.skv;
-  const int d = a.d;
-  const int64_t c0 = (int64_t)blockIdx.y * BK;
-  const float* q = static_cast<const float*>(a.q) + bh * sq * d;
-  const float* dout = static_cast<const float*>(a.dout) + bh * sq * d;
-  const float* k = static_cast<const float*>(a.k) + bh * skv * d;
-  const float* v = static_cast<const float*>(a.v) + bh * skv * d;
-
-  load_tile<DP>(ks, S, k, c0, BK, skv, d);
-  load_tile<DP>(vs, S, v, c0, BK, skv, d);
-  float dk[RM][DJ], dv[RM][DJ];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
-
-  // The q tiles whose rows can see a column of this block.
-  const int64_t col_hi = (c0 + BK < skv ? c0 + BK : skv) - 1;
-  int64_t r_begin = 0, r_end = sq;
-  if (a.band.causal && c0 - a.q_offset > 0) r_begin = c0 - a.q_offset;
-  if (a.band.has_window && col_hi + a.band.window - a.q_offset < r_end)
-    r_end = col_hi + a.band.window - a.q_offset;
-  r_begin -= r_begin % kBC;
-
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += kBC) {
-    __syncthreads();  // the last tile's products are done with the tiles
-    load_tile<DP>(qs, S, q, r0, kBC, sq, d);
-    load_tile<DP>(dos, S, dout, r0, kBC, sq, d);
-    for (int idx = tid; idx < kBC; idx += kThreads) {
-      const int64_t r = r0 + idx;
-      lses[idx] = r < sq ? a.lse[bh * sq + r] : 0.f;
-      dsums[idx] = r < sq ? a.dsum[bh * sq + r] : 0.f;
-    }
-    __syncthreads();
-
-    // s[i][j]: key row ty * RM + i against query row tx + 16 j of the tile.
-    float s[RM][kCols], dp[RM][kCols];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < DP; ++dd) {
-      float ka[RM], va[RM], qb[kCols], ob[kCols];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        ka[i] = ks[(ty * RM + i) * S + dd];
-        va[i] = vs[(ty * RM + i) * S + dd];
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        qb[j] = qs[(tx + kTx * j) * S + dd];
-        ob[j] = dos[(tx + kTx * j) * S + dd];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = fmaf(ka[i], qb[j], s[i][j]);
-          dp[i][j] = fmaf(va[i], ob[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int64_t col = c0 + ty * RM + i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int qr = tx + kTx * j;
-        const int64_t r = r0 + qr;
-        const float x = cap_score(a, s[i][j]);
-        const bool keep = r < sq && a.band.keep(a.q_offset + r, col);
-        const float p = keep ? expf(x - lses[qr]) : 0.f;
-        pts[(ty * RM + i) * PS + qr] = p;
-        dsts[(ty * RM + i) * PS + qr] =
-            keep ? scaled_ds(a, p, dp[i][j], dsums[qr], x) : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < kBC; ++r) {
-      float pt[RM], dst[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        pt[i] = pts[(ty * RM + i) * PS + r];
-        dst[i] = dsts[(ty * RM + i) * PS + r];
-      }
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const float oo = dos[r * S + tx + kTx * jj];
-        const float qq = qs[r * S + tx + kTx * jj];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          dv[i][jj] = fmaf(pt[i], oo, dv[i][jj]);
-          dk[i][jj] = fmaf(dst[i], qq, dk[i][jj]);
-        }
-      }
-    }
-  }
-
-  float* dkg = static_cast<float*>(a.dk) + bh * skv * d;
-  float* dvg = static_cast<float*>(a.dv) + bh * skv * d;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int64_t c = c0 + ty * RM + i;
-    if (c >= skv) continue;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int col = tx + kTx * jj;
-      if (col < d) {
-        dkg[c * d + col] = dk[i][jj];
-        dvg[c * d + col] = dv[i][jj];
-      }
-    }
-  }
-}
-
-template <int DP>
-cudaError_t launch(const BwdArgs& a, int64_t bh, cudaStream_t stream) {
-  constexpr int BR = kTy * rows_per_thread<DP>();
-  const dim3 block(kTx, kTy);
-  const size_t dq_smem = dq_smem_floats<DP>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dq_smem);
-  if (err != cudaSuccess) return err;
-  flash_dq_kernel<DP>
-      <<<dim3((unsigned)bh, (unsigned)((a.sq + BR - 1) / BR)), block,
-         dq_smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t dkv_smem = dkv_smem_floats<DP>() * sizeof(float);
-  err = cudaFuncSetAttribute(flash_dkv_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dkv_smem);
-  if (err != cudaSuccess) return err;
-  flash_dkv_kernel<DP>
-      <<<dim3((unsigned)bh, (unsigned)((a.band.skv + BR - 1) / BR)), block,
-         dkv_smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch(const BwdArgs& a, int64_t bh, cudaStream_t stream) {
-  if (a.d <= 16) return launch<16>(a, bh, stream);
-  if (a.d <= 32) return launch<32>(a, bh, stream);
-  if (a.d <= 64) return launch<64>(a, bh, stream);
-  if (a.d <= 128) return launch<128>(a, bh, stream);
-  if (a.d <= 256) return launch<256>(a, bh, stream);
-  return cudaErrorInvalidValue;
-}
 
 // --- bf16: the tensor-core kernels -----------------------------------------
 
@@ -833,13 +530,492 @@ cudaError_t dispatch_tc(const BwdArgs& a, int64_t bh, int vec,
   return cudaErrorInvalidValue;
 }
 
+// --- f32: the split tensor-core kernels -------------------------------------
+
+// The score x of a raw f32 score, and p = exp(x - lse) f (0 outside the
+// band) with dS's softcap factor f, as the plain version computes them.
+template <bool kCap>
+__device__ __forceinline__ float f32_prob(const BwdArgs& a, float raw,
+                                          float lse, bool keep, float& p) {
+  float f;
+  const float x = tc_score<kCap>(a, raw, f);
+  p = keep ? expf(x - lse) : 0.f;
+  return p * f;
+}
+
+template <int DP>
+struct DqF32 {
+  static constexpr int NB = DP / 64;
+  static constexpr int BR = tc::kRows;          // q rows: one warpgroup
+  static constexpr int BC = DP == 256 ? 32 : 64;  // rows of a k/v tile
+  static constexpr int NT = tc::kWarpgroup;
+  static constexpr uint32_t kQPart = BR * DP * 2;      // a part of Q or dO
+  static constexpr uint32_t kChunkPart = BC * 64 * 2;  // a part of a chunk
+  static constexpr uint32_t kSlot = 3 * kChunkPart;
+  static constexpr size_t kSmem =
+      1024 + 6 * (size_t)kQPart + 2 * (size_t)kSlot + BC * 64 * 4;
+};
+
+template <int DP>
+struct DkvF32 {
+  static constexpr int NB = DP / 64;
+  static constexpr int NC = NB < 2 ? NB : 2;      // column blocks a block
+  static constexpr int BK = tc::kRows;            // key rows: one warpgroup
+  static constexpr int BQ = DP >= 128 ? 32 : 64;  // rows of a q tile
+  static constexpr int NT = tc::kWarpgroup;
+  static constexpr uint32_t kKPart = BK * DP * 2;      // a part of K or V
+  static constexpr uint32_t kChunkPart = BQ * 64 * 2;  // a part of a chunk
+  static constexpr uint32_t kSlot = 3 * kChunkPart;
+  static constexpr size_t kSmem =
+      1024 + 6 * (size_t)kKPart + 2 * (size_t)kSlot + BQ * 64 * 4;
+};
+
+// Rows [r0, r0 + 64) of a (rows, d) f32 matrix, split, into the 64-row
+// tile at `dst` (parts `part` bytes apart), through the staging area in
+// R-row chunks.
+template <int DP, int R, int NT>
+__device__ __forceinline__ void stage_rows(uint32_t dst, uint32_t part,
+                                           uint32_t stg, const float* src,
+                                           int64_t r0, int64_t rows, int d,
+                                           bool vec) {
+#pragma unroll 1
+  for (int cb = 0; cb < DP / 64; ++cb)
+#pragma unroll 1
+    for (int rr = 0; rr < tc::kRows; rr += R) {
+      tc::stage_chunk<R, NT>(stg, src, r0 + rr, rows, 64 * cb, d, vec);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      tc::split_chunk<R, tc::kRows, NT>(dst, part, stg, rr, cb);
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DqF32<DP>::NT, 1)
+    flash_dq_f32(BwdArgs a, int vec) {
+  using C = DqF32<DP>;
+  constexpr int NB = C::NB, BR = C::BR, BC = C::BC, NT = C::NT;
+  constexpr int KS = BC / 16;  // k-steps of dS K
+  extern __shared__ uint8_t dq_f32_smem[];
+  const uint32_t s_q = (tc::smem_addr(dq_f32_smem) + 1023) & ~1023u;
+  const uint32_t s_do = s_q + 3 * C::kQPart;
+  const uint32_t s_slot = s_do + 3 * C::kQPart;  // 2 slots
+  const uint32_t s_stg = s_slot + 2 * C::kSlot;
+
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int64_t bh = blockIdx.x;
+  const int64_t sq = a.sq, skv = a.band.skv;
+  const int d = a.d;
+  const int64_t r0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * BR;
+  const float* q = static_cast<const float*>(a.q) + bh * sq * d;
+  const float* dout = static_cast<const float*>(a.dout) + bh * sq * d;
+  const float* k = static_cast<const float*>(a.k) + bh * skv * d;
+  const float* v = static_cast<const float*>(a.v) + bh * skv * d;
+
+  const int64_t last = r0 + BR < sq ? r0 + BR : sq;
+  const int64_t row_lo = a.q_offset + r0, row_hi = a.q_offset + last - 1;
+  int64_t c_begin = 0, c_end = skv;
+  if (a.band.has_window && row_lo - a.band.window + 1 > 0)
+    c_begin = row_lo - a.band.window + 1;
+  if (a.band.causal && row_hi + 1 < c_end) c_end = row_hi + 1;
+  c_begin -= c_begin % BC;
+  const int n_tiles =
+      c_end > c_begin ? (int)((c_end - c_begin + BC - 1) / BC) : 0;
+  // Chunk ci: k/v tile ci / (3 NB); j = ci % (3 NB): K's column block j
+  // (S += Q K^T over it), V's block j - NB (dP += dO V^T), K's block
+  // j - 2 NB (dQ's columns of that block += dS K).
+  const int n_chunks = n_tiles * 3 * NB;
+  auto stage = [&](int ci) {
+    const int j = ci % (3 * NB);
+    tc::stage_chunk<BC, NT>(s_stg, j >= NB && j < 2 * NB ? v : k,
+                            c_begin + (int64_t)(ci / (3 * NB)) * BC, skv,
+                            64 * (j % NB), d, vec);
+    tc::cp_async_commit();
+  };
+
+  stage_rows<DP, BC, NT>(s_q, C::kQPart, s_stg, q, r0, sq, d, vec);
+  stage_rows<DP, BC, NT>(s_do, C::kQPart, s_stg, dout, r0, sq, d, vec);
+  if (n_chunks > 0) {
+    stage(0);
+    tc::cp_async_wait<0>();
+    tc::split_chunk<BC, BC, NT>(s_slot, C::kChunkPart, s_stg, 0, 0);
+    if (n_chunks > 1) stage(1);
+  }
+
+  const int64_t wrow = a.q_offset + r0;
+  float lse[2], dsum[2], dq[NB][32], s[BC / 2], dp[BC / 2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t r = r0 + 16 * warp + g + 8 * hh;
+    lse[hh] = r < sq ? a.lse[bh * sq + r] : 0.f;
+    dsum[hh] = r < sq ? a.dsum[bh * sq + r] : 0.f;
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[nb][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BC / 2; ++i) s[i] = dp[i] = 0.f;
+  uint32_t dsa[3][KS][4];
+
+  // The chunk loop, unrolled over a tile's chunks so that j, and with it
+  // every accumulator's index, is known at compile time.
+#pragma unroll 1
+  for (int it = 0; it < n_tiles; ++it) {
+    const int64_t c0 = c_begin + (int64_t)it * BC;
+#pragma unroll
+    for (int j = 0; j < 3 * NB; ++j) {
+      const int ci = it * 3 * NB + j;
+      const uint32_t slot = s_slot + (ci & 1) * C::kSlot;
+      tc::fence_async_smem();
+      __syncthreads();
+
+      // A score chunk (sc) or an output block (acc), fresh: the first
+      // product of each starts the sum.
+      float sc[BC / 2], acc[32];
+      if (j < 2 * NB) {  // Q K^T or dO V^T over column block j % NB
+        const uint32_t s_a = j < NB ? s_q : s_do;
+        tc::wgmma_fence();
+        tc::mma_ss_split<0, 4>(
+            sc,
+            [&](int p, int kd) {
+              return tc::sw128_desc(s_a + p * C::kQPart +
+                                    tc::desc_offset<BR>(0, 64 * (j % NB) +
+                                                               16 * kd));
+            },
+            [&](int p, int kd) {
+              return tc::sw128_desc(slot + p * C::kChunkPart +
+                                    tc::desc_offset<BC>(0, 16 * kd));
+            });
+      } else {  // dS K, K (keys, d) read as the MN-major B operand
+        tc::wgmma_fence();
+        tc::mma_rs_split<1, KS>(acc, dsa, [&](int p, int kk) {
+          return tc::sw128_desc(slot + p * C::kChunkPart +
+                                tc::desc_offset<BC>(16 * kk, 0));
+        });
+      }
+      tc::wgmma_commit();
+      if (ci + 1 < n_chunks) {
+        tc::cp_async_wait<0>();
+        tc::split_chunk<BC, BC, NT>(s_slot + ((ci + 1) & 1) * C::kSlot,
+                                    C::kChunkPart, s_stg, 0, 0);
+        if (ci + 2 < n_chunks) stage(ci + 2);
+      }
+      tc::wgmma_wait<0>();
+      if (j < 2 * NB) {
+        tc::pin(sc);
+      } else {
+        tc::pin(acc);
+        tc::pin(dsa);
+      }
+
+      if (j >= 2 * NB) {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          if (nb == j - 2 * NB)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) dq[nb][i] += acc[i];
+        continue;
+      }
+      if (j < NB) {
+#pragma unroll
+        for (int i = 0; i < BC / 2; ++i) s[i] = j == 0 ? sc[i] : s[i] + sc[i];
+        if (j == NB - 1) {  // s <- p f, 0 outside the band
+          const bool edge =
+              c0 + BC > skv || (a.band.causal && c0 + BC - 1 > wrow) ||
+              (a.band.has_window && wrow + tc::kRows - 1 - c0 >= a.band.window);
+          tc::by_case(edge, a.has_softcap, [&](auto kEdge, auto kCap) {
+#pragma unroll
+            for (int i = 0; i < BC / 2; ++i) {
+              const int hh = (i >> 1) & 1;
+              const bool keep =
+                  !decltype(kEdge)::value ||
+                  a.band.keep(wrow + 16 * warp + g + 8 * hh,
+                              c0 + 8 * (i >> 2) + 2 * t + (i & 1));
+              float p;
+              s[i] = f32_prob<decltype(kCap)::value>(a, s[i], lse[hh], keep,
+                                                     p);
+            }
+          });
+        }
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i)
+        dp[i] = j == NB ? sc[i] : dp[i] + sc[i];
+      if (j == 2 * NB - 1) {  // dS = p f (dP - D), split for dS K
+#pragma unroll
+        for (int i = 0; i < BC / 2; ++i) s[i] *= dp[i] - dsum[(i >> 1) & 1];
+        tc::to_a_frags3(s, dsa);
+      }
+    }
+  }
+
+  float* dqg = static_cast<float*>(a.dq) + bh * sq * d;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t r = r0 + 16 * warp + g + 8 * hh;
+    if (r >= sq) continue;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        tc::store_pair(dqg, r, 64 * nb + 8 * jj + 2 * t, d,
+                       dq[nb][4 * jj + 2 * hh] * a.scale,
+                       dq[nb][4 * jj + 2 * hh + 1] * a.scale);
+  }
+}
+
+// dk and dv of NC 64-column blocks (from NC blockIdx.z) of one tile of 64
+// keys. At head dim 256 the two blocks of a tile each recompute S^T and
+// dP^T, which keeps a block's accumulators within its registers.
+template <int DP>
+__global__ void __launch_bounds__(DkvF32<DP>::NT, 1)
+    flash_dkv_f32(BwdArgs a, int vec) {
+  using C = DkvF32<DP>;
+  constexpr int NB = C::NB, NC = C::NC, BK = C::BK, BQ = C::BQ;
+  constexpr int NT = C::NT;
+  constexpr int KS = BQ / 16;  // k-steps of P^T dO and dS^T Q
+  extern __shared__ uint8_t dkv_f32_smem[];
+  const uint32_t s_k = (tc::smem_addr(dkv_f32_smem) + 1023) & ~1023u;
+  const uint32_t s_v = s_k + 3 * C::kKPart;
+  const uint32_t s_slot = s_v + 3 * C::kKPart;  // 2 slots
+  const uint32_t s_stg = s_slot + 2 * C::kSlot;
+
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int cb = NC * blockIdx.z;  // the first column block of dk and dv
+  const int64_t bh = blockIdx.x;
+  const int64_t sq = a.sq, skv = a.band.skv;
+  const int d = a.d;
+  const int64_t c0 = (int64_t)blockIdx.y * BK;  // the first tiles are longest
+  const float* q = static_cast<const float*>(a.q) + bh * sq * d;
+  const float* dout = static_cast<const float*>(a.dout) + bh * sq * d;
+  const float* k = static_cast<const float*>(a.k) + bh * skv * d;
+  const float* v = static_cast<const float*>(a.v) + bh * skv * d;
+  const float* lse = a.lse + bh * sq;
+  const float* dsg = a.dsum + bh * sq;
+
+  const int64_t col_hi = (c0 + BK < skv ? c0 + BK : skv) - 1;
+  int64_t r_begin = 0, r_end = sq;
+  if (a.band.causal && c0 - a.q_offset > 0) r_begin = c0 - a.q_offset;
+  if (a.band.has_window && col_hi + a.band.window - a.q_offset < r_end)
+    r_end = col_hi + a.band.window - a.q_offset;
+  r_begin -= r_begin % BQ;
+  const int n_tiles =
+      r_end > r_begin ? (int)((r_end - r_begin + BQ - 1) / BQ) : 0;
+  // Chunk ci: q tile ci / (2 NB + NC); j = ci % (2 NB + NC): Q's column
+  // block j (S^T += K Q^T over it), dO's block j - NB (dP^T += V dO^T;
+  // at the blocks cb + x also dV's x-th += P^T dO), and last Q's blocks cb
+  // + x (dK's x-th += dS^T Q).
+  constexpr int kPer = 2 * NB + NC;
+  const int n_chunks = n_tiles * kPer;
+  auto stage = [&](int ci) {
+    const int j = ci % kPer;
+    tc::stage_chunk<BQ, NT>(s_stg, j >= NB && j < 2 * NB ? dout : q,
+                            r_begin + (int64_t)(ci / kPer) * BQ, sq,
+                            64 * (j >= 2 * NB ? cb + j - 2 * NB : j % NB), d,
+                            vec);
+    tc::cp_async_commit();
+  };
+
+  stage_rows<DP, BQ, NT>(s_k, C::kKPart, s_stg, k, c0, skv, d, vec);
+  stage_rows<DP, BQ, NT>(s_v, C::kKPart, s_stg, v, c0, skv, d, vec);
+  if (n_chunks > 0) {
+    stage(0);
+    tc::cp_async_wait<0>();
+    tc::split_chunk<BQ, BQ, NT>(s_slot, C::kChunkPart, s_stg, 0, 0);
+    if (n_chunks > 1) stage(1);
+  }
+
+  float dk[NC][32], dv[NC][32], s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+  for (int x = 0; x < NC; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[x][i] = dv[x][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+  uint32_t pa[3][KS][4], dsa[3][KS][4];
+
+  // The chunk loop, unrolled over a tile's chunks so that j is known at
+  // compile time.
+#pragma unroll 1
+  for (int it = 0; it < n_tiles; ++it) {
+    const int64_t r0 = r_begin + (int64_t)it * BQ;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int ci = it * kPer + j;
+      const uint32_t slot = s_slot + (ci & 1) * C::kSlot;
+      auto b_desc = [&](int p, int kk) {  // the chunk as the MN-major B
+        return tc::sw128_desc(slot + p * C::kChunkPart +
+                              tc::desc_offset<BQ>(16 * kk, 0));
+      };
+      tc::fence_async_smem();
+      __syncthreads();
+
+      // A score chunk (sc) or an output block (acc), fresh: the first
+      // product of each starts the sum.
+      float sc[BQ / 2], acc[32];
+      if (j < 2 * NB) {  // K Q^T or V dO^T over column block j % NB
+        const uint32_t s_a = j < NB ? s_k : s_v;
+        tc::wgmma_fence();
+        tc::mma_ss_split<0, 4>(
+            sc,
+            [&](int p, int kd) {
+              return tc::sw128_desc(s_a + p * C::kKPart +
+                                    tc::desc_offset<BK>(0, 64 * (j % NB) +
+                                                               16 * kd));
+            },
+            [&](int p, int kd) {
+              return tc::sw128_desc(slot + p * C::kChunkPart +
+                                    tc::desc_offset<BQ>(0, 16 * kd));
+            });
+      } else {  // dS^T Q
+        tc::wgmma_fence();
+        tc::mma_rs_split<1, KS>(acc, dsa, b_desc);
+      }
+      tc::wgmma_commit();
+      if (ci + 1 < n_chunks) {
+        tc::cp_async_wait<0>();
+        tc::split_chunk<BQ, BQ, NT>(s_slot + ((ci + 1) & 1) * C::kSlot,
+                                    C::kChunkPart, s_stg, 0, 0);
+        if (ci + 2 < n_chunks) stage(ci + 2);
+      }
+      tc::wgmma_wait<0>();
+      if (j < 2 * NB) {
+        tc::pin(sc);
+      } else {
+        tc::pin(acc);
+        tc::pin(dsa);
+      }
+
+      if (j >= 2 * NB) {
+#pragma unroll
+        for (int x = 0; x < NC; ++x)
+          if (x == j - 2 * NB)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) dk[x][i] += acc[i];
+        continue;
+      }
+      if (j < NB) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) s[i] = j == 0 ? sc[i] : s[i] + sc[i];
+        if (j == NB - 1) {
+          // Element i: key c0 + 16 warp + g + 8 hh, query row r0 + qc. P^T's
+          // parts become A fragments for dV; s keeps p f.
+          const bool edge =
+              r0 + BQ > sq || c0 + tc::kRows > skv ||
+              (a.band.causal && c0 + tc::kRows - 1 > a.q_offset + r0) ||
+              (a.band.has_window &&
+               a.q_offset + r0 + BQ - 1 - c0 >= a.band.window);
+          float pf[BQ / 2];
+          tc::by_case(edge, a.has_softcap, [&](auto kEdge, auto kCap) {
+#pragma unroll
+            for (int i = 0; i < BQ / 2; ++i) {
+              const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+              const bool keep =
+                  !decltype(kEdge)::value ||
+                  (r0 + qc < sq &&
+                   a.band.keep(a.q_offset + r0 + qc,
+                               c0 + 16 * warp + g + 8 * ((i >> 1) & 1)));
+              const float l = r0 + qc < sq ? lse[r0 + qc] : 0.f;
+              float p;
+              pf[i] = f32_prob<decltype(kCap)::value>(a, s[i], l, keep, p);
+              s[i] = p;
+            }
+          });
+          tc::to_a_frags3(s, pa);
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) s[i] = pf[i];
+        }
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i)
+        dp[i] = j == NB ? sc[i] : dp[i] + sc[i];
+#pragma unroll
+      for (int x = 0; x < NC; ++x) {
+        if (j - NB != cb + x) continue;
+        // dV's x-th block += P^T dO over this chunk, dO read MN-major
+        tc::wgmma_fence();
+        tc::mma_rs_split<1, KS>(acc, pa, b_desc);
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tc::pin(acc);
+        tc::pin(pa);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dv[x][i] += acc[i];
+      }
+      if (j == 2 * NB - 1) {  // dS^T = p f (dP^T - D), split for dS^T Q
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+          s[i] *= dp[i] - (r0 + qc < sq ? dsg[r0 + qc] : 0.f);
+        }
+        tc::to_a_frags3(s, dsa);
+      }
+    }
+  }
+
+  float* dkg = static_cast<float*>(a.dk) + bh * skv * d;
+  float* dvg = static_cast<float*>(a.dv) + bh * skv * d;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t c = c0 + 16 * warp + g + 8 * hh;
+    if (c >= skv) continue;
+#pragma unroll
+    for (int x = 0; x < NC; ++x)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 64 * (cb + x) + 8 * jj + 2 * t;
+        tc::store_pair(dkg, c, col, d, dk[x][4 * jj + 2 * hh] * a.scale,
+                       dk[x][4 * jj + 2 * hh + 1] * a.scale);
+        tc::store_pair(dvg, c, col, d, dv[x][4 * jj + 2 * hh],
+                       dv[x][4 * jj + 2 * hh + 1]);
+      }
+  }
+}
+
+template <int DP>
+cudaError_t launch_f32(const BwdArgs& a, int64_t bh, int vec,
+                       cudaStream_t stream) {
+  using Q = DqF32<DP>;
+  using K = DkvF32<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Q::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_dq_f32<DP>
+      <<<dim3((unsigned)bh, (unsigned)((a.sq + Q::BR - 1) / Q::BR)), Q::NT,
+         Q::kSmem, stream>>>(a, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_dkv_f32<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)K::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_dkv_f32<DP>
+      <<<dim3((unsigned)bh, (unsigned)((a.band.skv + K::BK - 1) / K::BK),
+              (unsigned)(K::NB / K::NC)),
+         K::NT, K::kSmem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_f32(const BwdArgs& a, int64_t bh, int vec,
+                         cudaStream_t stream) {
+  if (a.d <= 64) return launch_f32<64>(a, bh, vec, stream);
+  if (a.d <= 128) return launch_f32<128>(a, bh, vec, stream);
+  if (a.d <= 256) return launch_f32<256>(a, bh, vec, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, dout (bh, sq, d); k, v (bh, skv, d); lse, dsum (bh, sq) f32; dq, dk,
 // dv like q, k, v. All contiguous, f32 or bf16 (is_bf16), d <= 256. Launches
-// the dq kernel, then the dk/dv kernel, on `stream` (the tensor-core
-// kernels for bf16, the first-version kernels for f32); returns the first
-// cudaError_t that is not cudaSuccess.
+// the dq kernel, then the dk/dv kernel, on `stream` (flash_dq_tc and
+// flash_dkv_tc for bf16, flash_dq_f32 and flash_dkv_f32 for f32); returns
+// the first cudaError_t that is not cudaSuccess.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* dsum, void* dq, void* dk,
@@ -869,8 +1045,8 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
   a.band.causal = causal;
   a.band.has_window = has_window;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return (int)dispatch(a, bh, s);
-  const int vec = d % 8 == 0 && flash::aligned16(q) && flash::aligned16(k) &&
-                  flash::aligned16(v) && flash::aligned16(dout);
-  return (int)dispatch_tc(a, bh, vec, s);
+  const bool aligned = flash::aligned16(q) && flash::aligned16(k) &&
+                       flash::aligned16(v) && flash::aligned16(dout);
+  if (!is_bf16) return (int)dispatch_f32(a, bh, d % 4 == 0 && aligned, s);
+  return (int)dispatch_tc(a, bh, d % 8 == 0 && aligned, s);
 }

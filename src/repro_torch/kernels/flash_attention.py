@@ -5,10 +5,12 @@ Counterparts of `repro.kernels.flash_attention.flash_attention_pallas` and
 whose logsumexp output is optional) and of
 `repro.kernels.flash_attention_bwd.flash_attention_bwd_pallas`
 (`csrc/flash_attention_bwd.cu`: a dq kernel and a dk/dv kernel). Layout
-(B, H, S, D), contiguous, float32 or bfloat16, D <= 256. bfloat16 runs
-the tensor-core (wgmma) kernels, which round P, and in the backward dS,
-to bf16 before their products, as `ref.flash_fwd` / `ref.flash_bwd` do;
-float32 runs the first-version kernels, f32 on the CUDA cores.
+(B, H, S, D), contiguous, float32 or bfloat16, D <= 256. Both dtypes run
+on the tensor cores (wgmma). The bfloat16 kernels round P, and in the
+backward dS, to bf16 before their products, as `ref.flash_fwd` /
+`ref.flash_bwd` do. The float32 kernels split every f32 operand into
+three bf16 parts and take each product as six bf16 products with f32
+sums (`ref.split_bf16x3`, `ref.matmul_bf16x3`), which keeps f32 accuracy.
 """
 
 from __future__ import annotations
@@ -21,10 +23,10 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256
-# The kernels' smallest row tile (32 rows, at head dim 256); a grid's y
-# dimension holds at most 65535 tiles.
+# The kernels' smallest row tile (64 rows: the f32 kernels' q and key
+# tiles, one warpgroup); a grid's y dimension holds at most 65535 tiles.
 _MAX_TILES = 65535
-_MIN_TILE = 32
+_MIN_TILE = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -276,6 +276,12 @@ def sliding_min_pair(keys: torch.Tensor, vals: torch.Tensor, window: int):
     return out
 
 
+def _count_flash(kernel, q: torch.Tensor) -> None:
+    """One launch of a flash kernel, and of its f32 kernels where q is f32."""
+    kernel.launches += 1
+    kernel.f32_launches += int(q.dtype == torch.float32)
+
+
 def _resolved_scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return q.shape[-1] ** -0.5 if scale is None else scale
 
@@ -305,8 +311,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               name="flash_attention")
     out = flash_kernels.flash_fwd_cuda(q.contiguous(), k.contiguous(),
                                        v.contiguous(), with_lse=False, **band)
-    flash_attention.launches += 1
-    flash_attention.tc_launches += int(q.dtype == torch.bfloat16)
+    _count_flash(flash_attention, q)
     return out
 
 
@@ -327,8 +332,7 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                               name="flash_attention_fwd_lse")
     out = flash_kernels.flash_fwd_cuda(q.contiguous(), k.contiguous(),
                                        v.contiguous(), with_lse=True, **band)
-    flash_attention_fwd_lse.launches += 1
-    flash_attention_fwd_lse.tc_launches += int(q.dtype == torch.bfloat16)
+    _count_flash(flash_attention_fwd_lse, q)
     return out
 
 
@@ -350,8 +354,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = flash_kernels.flash_bwd_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(), o.contiguous(),
         lse.contiguous(), do.contiguous(), **band)
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.tc_launches += int(q.dtype == torch.bfloat16)
+    _count_flash(flash_attention_bwd, q)
     return out
 
 
@@ -402,8 +405,9 @@ KERNELS = (bucket_hist, bucket_prefix, bucket_positions, segment_accumulate,
            hash_insert, hash_lookup, sliding_min, sliding_min_pair,
            flash_attention, flash_attention_fwd_lse, flash_attention_bwd,
            segment_boundaries, kmer_extract, radix_hist)
-# The flash kernels run on the tensor cores for bf16 (and on the CUDA
-# cores for f32): `tc_launches` counts the tensor-core launches.
+# The flash kernels run on the tensor cores in both dtypes (bf16 products,
+# or f32 ones as six bf16 products each): `f32_launches` counts the
+# launches of the f32 kernels.
 FLASH_KERNELS = (flash_attention, flash_attention_fwd_lse, flash_attention_bwd)
 
 
@@ -411,7 +415,7 @@ def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
     for k in FLASH_KERNELS:
-        k.tc_launches = 0
+        k.f32_launches = 0
 
 
 reset_launches()
@@ -421,8 +425,8 @@ def launch_counts() -> Dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def tc_launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.tc_launches for k in FLASH_KERNELS}
+def f32_launch_counts() -> Dict[str, int]:
+    return {k.__name__: k.f32_launches for k in FLASH_KERNELS}
 
 
 def radix_partition_plan(buckets: torch.Tensor, num_buckets: int):

@@ -346,9 +346,47 @@ def _expand_kv(k: torch.Tensor, hq: int) -> torch.Tensor:
     return k if group == 1 else k.repeat_interleave(group, dim=1)
 
 
-def _scores(q, k, scale: float, softcap: Optional[float]) -> torch.Tensor:
+def split_bf16x3(x: torch.Tensor):
+    """The f32 flash kernels' split of an f32 tensor into three bf16 parts,
+    (hi, mid, lo) as f32 tensors: hi = bf16(x), mid = bf16(x - hi), lo =
+    bf16(x - hi - mid). Both differences are exact in f32 and lo holds the
+    last 8 of x's 24 bits, so hi + mid + lo == x wherever no part falls
+    below bf16's normal range (|x| >= 2**-110); |x| must not exceed bf16's
+    largest finite value."""
+    x = x.float()
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    return hi, mid, (r - mid).to(torch.bfloat16).float()
+
+
+# The six (a part, b part) products of matmul_bf16x3 (0 hi, 1 mid, 2 lo),
+# small terms first, in the order the kernels issue them in each chunk.
+SPLIT_PAIRS = ((0, 2), (2, 0), (1, 1), (0, 1), (1, 0), (0, 0))
+
+
+def matmul_bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b from the f32 flash kernels' split: both operands split three
+    ways (split_bf16x3) and six products of bf16 values, each over the
+    whole reduction, summed in f32, the small ones first. The products
+    left out (mid lo, lo mid, lo lo) are below 2**-24 |a b| term by term.
+    This holds the split's accuracy, not the kernels' order of rounding:
+    they interleave the six products of each reduction chunk of at most 64
+    in one wgmma accumulation into a fresh accumulator, and add the chunk
+    sums in f32 on the CUDA cores. chip_smoke.py's phase 3 holds that
+    order, on the card."""
+    pa, pb = split_bf16x3(a), split_bf16x3(b)
+    out = None
+    for i, j in SPLIT_PAIRS:
+        term = torch.matmul(pa[i], pb[j])
+        out = term if out is None else out + term
+    return out
+
+
+def _scores(q, k, scale: float, softcap: Optional[float],
+            matmul=torch.matmul) -> torch.Tensor:
     """f32 scores q.k * scale, capped as cap * tanh(s / cap)."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     return s
@@ -357,7 +395,8 @@ def _scores(q, k, scale: float, softcap: Optional[float]) -> torch.Tensor:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None, scale: Optional[float] = None,
-              q_offset: int = 0, with_lse: bool = False):
+              q_offset: int = 0, with_lse: bool = False,
+              matmul=torch.matmul):
     """Plain version of the flash forward kernel (rows 11 and 12).
 
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> o (B, Hq, Sq, D) in q's
@@ -368,18 +407,19 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     NEG_INF, so a fully masked row gives o = 0 and lse = NEG_INF. The
     kernel's online softmax reaches the same values up to f32 rounding,
     and in bf16 up to p's rounding against the running max where this
-    rounds against the final one.
+    rounds against the final one. `matmul` takes both products
+    (matmul_bf16x3: the f32 kernels' split, whole reductions at a time).
     """
     hq, d = q.shape[1], q.shape[3]
     scale = d ** -0.5 if scale is None else scale
     mask = _full_band(q, k, q_offset, causal, window)
-    s = torch.where(mask, _scores(q, _expand_kv(k, hq), scale, softcap),
-                    NEG_INF)
+    s = torch.where(mask, _scores(q, _expand_kv(k, hq), scale, softcap,
+                                  matmul), NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    o = (torch.matmul(p.to(v.dtype).float(), _expand_kv(v, hq).float())
+    o = (matmul(p.to(v.dtype).float(), _expand_kv(v, hq).float())
          / l_safe).to(q.dtype)
     if not with_lse:
         return o
@@ -389,7 +429,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
               causal: bool, window: Optional[int], softcap: Optional[float],
-              scale: float, q_offset: int = 0):
+              scale: float, q_offset: int = 0, matmul=torch.matmul):
     """Plain version of the flash backward kernels (row 13).
 
     Full head count: q, o, do (B, H, Sq, D); k, v (B, H, Skv, D); lse
@@ -400,21 +440,22 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Arithmetic is f32, except that p is rounded to dO's dtype before dv's
     product and ds to q's dtype before dq's and dk's, as the bf16
     tensor-core kernels round them (in f32 the casts do nothing); ds
-    itself is computed from the f32 p.
+    itself is computed from the f32 p. `matmul` takes the five products
+    (matmul_bf16x3: the f32 kernels' split, whole reductions at a time).
     """
     mask = _full_band(q, k, q_offset, causal, window)
-    s = _scores(q, k, scale, softcap)
+    s = _scores(q, k, scale, softcap, matmul)
     p = torch.where(mask, torch.exp(torch.where(mask, s, NEG_INF)
                                     - lse[..., None]), 0.0)
     do32 = do.float()
     dsum = (do32 * o.float()).sum(-1, keepdim=True)
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do32)
-    ds = p * (torch.matmul(do32, v.float().transpose(-1, -2)) - dsum)
+    dv = matmul(p.to(do.dtype).float().transpose(-1, -2), do32)
+    ds = p * (matmul(do32, v.float().transpose(-1, -2)) - dsum)
     if softcap is not None:
         ds = ds * (1.0 - (s / softcap) ** 2)
     ds = ds.to(q.dtype).float()
-    dq = torch.matmul(ds, k.float()) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dq = matmul(ds, k.float()) * scale
+    dk = matmul(ds.transpose(-1, -2), q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -259,7 +259,7 @@ def test_meta_kernel_counts_match_the_bound_column(i):
     assert cost.bytes == nbytes and cost.ops == nops, row
     # nothing launched, no launch counted
     assert not any(ops.launch_counts().values())
-    assert not any(ops.tc_launch_counts().values())
+    assert not any(ops.f32_launch_counts().values())
     if perf_ms is not None:
         bound = max(nbytes / HBM, nops / BF16) * 1e3
         assert abs(bound - perf_ms) <= 0.5 * _last_digit(perf_ms), \

@@ -436,12 +436,12 @@ def test_sliding_min_kernels_match_plain_on_card(window, bits):
 def test_flash_kernels_match_plain_on_card(d, dtype):
     """Rows 11-13 against ref.flash_fwd / ref.flash_bwd: GQA 4/2 and 8/1
     by index, a window with a softcap, q_offsets (77 is not a multiple of
-    a tile), lengths that are not multiples of a tile, and for the bf16
-    tensor-core kernels many tiles through both stages of their ring (seq
-    1000 causal, seq 2048 under a window of 300); head dim 15 takes no
-    16-byte copies. f32 within 1e-5 (o, lse) and 5e-5 (grads); bf16
-    within one bf16 step of each value plus 1e-4 of the largest, every
-    launch on the tensor cores. bf16 also within one bf16 step of each
+    a tile), lengths that are not multiples of a tile, and many tiles
+    through the kernels' rings (seq 1000 causal, seq 2048 under a window
+    of 300); head dim 15 takes no 16-byte copies. f32 within 1e-5 (o,
+    lse) and 5e-5 (grads); bf16 within one bf16 step of each value plus
+    1e-4 of the largest; one launch a row, an f32 one counted as the
+    f32 kernels'. bf16 also within one bf16 step of each
     term whose factor (p, ds) both sides round (ref.flash_rounded_terms):
     nearly equal f32 values may round to neighbouring bf16 values."""
     dev = _cuda()
@@ -487,10 +487,14 @@ def test_flash_kernels_match_plain_on_card(d, dtype):
         for g, w, t in zip(got, ref.flash_bwd(q, kq, vq, wo, wlse, do,
                                               **band), terms[1:]):
             held(g, w, 5e-5, t)
-        tc = 1 if dt == torch.bfloat16 else 0
-        assert ops.tc_launch_counts() == {
-            "flash_attention": tc, "flash_attention_fwd_lse": tc,
-            "flash_attention_bwd": tc}
+        f32 = int(dt == torch.float32)
+        assert {k: n for k, n in ops.launch_counts().items()
+                if k in ops.f32_launch_counts()} == {
+            "flash_attention": 1, "flash_attention_fwd_lse": 1,
+            "flash_attention_bwd": 1}
+        assert ops.f32_launch_counts() == {
+            "flash_attention": f32, "flash_attention_fwd_lse": f32,
+            "flash_attention_bwd": f32}
 
 
 @pytest.mark.gpu
