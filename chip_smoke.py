@@ -5129,11 +5129,16 @@ def profile_path(torch, fabsp, genome, n_reads):
 
 def _log_profile(torch, prof, wall_us, what):
     """Device time by kernel and the device's busy share of `wall_us`;
-    returns the count of device kernel records."""
+    returns the count of device kernel records. The device-side records
+    of the port's spans (`core/spans.py`) cover kernels already counted,
+    so they are left out."""
+    from repro_torch.core.spans import PREFIX
+
     cuda = torch.autograd.DeviceType.CUDA
     rows = [(e.key, e.count, e.self_device_time_total)
             for e in prof.key_averages()
-            if e.device_type == cuda and e.self_device_time_total > 0]
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and not e.key.startswith(PREFIX)]
     rows.sort(key=lambda r: -r[2])
     device_us = sum(r[2] for r in rows)
     log(f"  {what}: wall {wall_us / 1e3:.1f} ms under the profiler, "

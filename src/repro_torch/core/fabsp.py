@@ -61,6 +61,7 @@ from repro_torch.core.aggregation import plan_capacity
 from repro_torch.core.owner import owner_pe
 from repro_torch.core.sort import (AccumResult, accumulate, radix_sort,
                                    sort_with_weights)
+from repro_torch.core.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,24 +330,24 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
     if mode == "superkmer":
         # Route packed super-k-mers to the owner of their minimizer; the
         # receiver re-extracts the k-mers (`_recv_pairs`).
-        m = cfg.minimizer_len
-        sk = minimizer.segment_superkmers(
-            chunk, k, m, bps, canonical=cfg.canonical,
-            canonical_impl=cfg.canonical_impl, order=cfg.minimizer_order)
-        raw = sk.lengths.shape[1]           # one slot per k-mer instance
-        lanes = tuple(sk.words[..., s] for s in range(sk.words.shape[-1]))
-        kinds = ("word",) * len(lanes) + ("i32",)
-        owners = owner_pe(sk.minimizers, num_pes, encoding.word_bits(m, bps))
-        sk_valid, injected = inject_drop(sk.lengths > 0)
-        rr = route(lanes + (sk.lengths,), kinds, owners, sk_valid,
-                   cap_n, cc_n, rc_n, h2n)
+        with span("compress"):
+            m = cfg.minimizer_len
+            sk = minimizer.segment_superkmers(
+                chunk, k, m, bps, canonical=cfg.canonical,
+                canonical_impl=cfg.canonical_impl, order=cfg.minimizer_order)
+            raw = sk.lengths.shape[1]           # one slot per k-mer instance
+            lanes = tuple(sk.words[..., s] for s in range(sk.words.shape[-1]))
+            kinds = ("word",) * len(lanes) + ("i32",)
+            sk_valid, injected = inject_drop(sk.lengths > 0)
+        with span("route"):
+            owners = owner_pe(sk.minimizers, num_pes,
+                              encoding.word_bits(m, bps))
+            rr = route(lanes + (sk.lengths,), kinds, owners, sk_valid,
+                       cap_n, cc_n, rc_n, h2n)
         return (torch.stack(rr.lanes[:-1], -1), rr.lanes[-1], None), \
             (raw, rr.sent_valid, rr.wire_bytes, rr.overflow + injected,
              rr.hop2_dropped, rr.fill)
 
-    words = encoding.extract_kmers(chunk, k, bps, canonical=cfg.canonical,
-                                   canonical_impl=cfg.canonical_impl)
-    raw = words.shape[1]
     mask = encoding.kmer_mask(k, bps)
 
     def kmer_owners(w):
@@ -358,31 +359,41 @@ def _phase1_step(chunk: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
         return route(lanes, kinds, kmer_owners(payload), pvalid, capacity,
                      ccap, rcap, hop2, cfg.route2d_impl, kmer_owners)
 
-    if mode == "packed":
-        payload, pvalid = aggregation.l3_compress(words, k, bps,
-                                                  impl=cfg.phase2_impl)
-        pvalid, injected = inject_drop(pvalid)
-        rr = route_kmers(payload, None, pvalid, cap_n, cc_n, rc_n, h2n)
-        return (rr.lanes[0], None, None), (raw, rr.sent_valid, rr.wire_bytes,
-                                           rr.overflow + injected,
-                                           rr.hop2_dropped, rr.fill)
+    # Each lane set to route: (payload, counts, valid, capacity, compact
+    # capacity, route capacity, hop-2 capacity).
+    with span("compress"):
+        words = encoding.extract_kmers(chunk, k, bps, canonical=cfg.canonical,
+                                       canonical_impl=cfg.canonical_impl)
+        raw = words.shape[1]
+        if mode == "packed":
+            payload, pvalid = aggregation.l3_compress(words, k, bps,
+                                                      impl=cfg.phase2_impl)
+            pvalid, injected = inject_drop(pvalid)
+            sets = [(payload, None, pvalid, cap_n, cc_n, rc_n, h2n)]
+        elif mode == "dual":
+            valid = torch.ones(words.shape, dtype=torch.bool,
+                               device=words.device)
+            nw, nv, hw, hc, hv = _l3_split_dual(words, valid, k, bps,
+                                                impl=cfg.phase2_impl)
+            nv, injected = inject_drop(nv)
+            sets = [(nw, None, nv, cap_n, cc_n, rc_n, h2n),
+                    (hw, hc, hv, cap_h, cc_h, rc_h, h2h)]
+        elif mode == "none":
+            valid, injected = inject_drop(
+                torch.ones(words.shape, dtype=torch.bool, device=words.device))
+            sets = [(words, None, valid, cap_n, cc_n, rc_n, h2n)]
+        else:
+            raise ValueError(f"unknown l3_mode {mode!r}")
+    with span("route"):
+        rrs = [route_kmers(*lane_set) for lane_set in sets]
     if mode == "dual":
-        valid = torch.ones(words.shape, dtype=torch.bool, device=words.device)
-        nw, nv, hw, hc, hv = _l3_split_dual(words, valid, k, bps,
-                                            impl=cfg.phase2_impl)
-        nv, injected = inject_drop(nv)
-        rn = route_kmers(nw, None, nv, cap_n, cc_n, rc_n, h2n)
-        rh = route_kmers(hw, hc, hv, cap_h, cc_h, rc_h, h2h)
+        rn, rh = rrs
         return (rn.lanes[0], rh.lanes[0], rh.lanes[1]), \
             (raw, rn.sent_valid + rh.sent_valid,
              rn.wire_bytes + rh.wire_bytes,
              rn.overflow + rh.overflow + injected,
              rn.hop2_dropped + rh.hop2_dropped, rn.fill + rh.fill)
-    if mode != "none":
-        raise ValueError(f"unknown l3_mode {mode!r}")
-    valid, injected = inject_drop(
-        torch.ones(words.shape, dtype=torch.bool, device=words.device))
-    rr = route_kmers(words, None, valid, cap_n, cc_n, rc_n, h2n)
+    rr, = rrs
     return (rr.lanes[0], None, None), (raw, rr.sent_valid, rr.wire_bytes,
                                        rr.overflow + injected,
                                        rr.hop2_dropped, rr.fill)
@@ -481,16 +492,17 @@ def _stream_fold(chunks: torch.Tensor, store: Optional[countstore.CountStore],
             chunks[:, i], cfg=cfg, num_pes=num_pes, cap_n=cap_n,
             cap_h=cap_h, mode=mode, grid=grid, hop2_caps=hop2_caps,
             compact_caps=compact_caps, chunk_idx=i, fault=fault, group=group)
-        if sink is not None:
-            sink(recv)
-        elif store is None:
-            recvs.append(recv)
-        else:
-            kmers, cnts = _recv_pairs(recv, cfg=cfg, mode=mode)
-            del recv
-            if fault is not None and fault.site == "store_drop":
-                cnts = _drop_inserts(store, kmers, cnts, fault, i)
-            countstore.store_insert(store, kmers, cnts)
+        with span("insert"):
+            if sink is not None:
+                sink(recv)
+            elif store is None:
+                recvs.append(recv)
+            else:
+                kmers, cnts = _recv_pairs(recv, cfg=cfg, mode=mode)
+                del recv
+                if fault is not None and fault.site == "store_drop":
+                    cnts = _drop_inserts(store, kmers, cnts, fault, i)
+                countstore.store_insert(store, kmers, cnts)
         raw_t += raw
         wire_t += wire
         sent_t += sent_w
@@ -539,7 +551,8 @@ def _local_count(reads_local: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
               fault=fault, group=group)
     if cfg.receiver_impl == "stacked":
         recvs, fold_stats = _stream_fold(chunks, None, **kw)
-        result = _phase2(recvs, cfg=cfg, mode=mode)
+        with span("histogram"):
+            result = _phase2(recvs, cfg=cfg, mode=mode)
         del recvs
         return _flat(result), _round_stats(
             num_pes, torch.zeros((rows,), dtype=torch.int32,
@@ -547,9 +560,10 @@ def _local_count(reads_local: torch.Tensor, *, cfg: DAKCConfig, num_pes: int,
     wb = encoding.word_bits(cfg.k, cfg.bits_per_symbol)
     store = countstore.empty_store(rows, store_cap, wb, chunks.device)
     store, fold_stats = _stream_fold(chunks, store, **kw)
-    result = countstore.store_histogram(
-        store, total_bits=encoding.kmer_bits(cfg.k, cfg.bits_per_symbol),
-        impl=cfg.phase2_impl)
+    with span("histogram"):
+        result = countstore.store_histogram(
+            store, total_bits=encoding.kmer_bits(cfg.k, cfg.bits_per_symbol),
+            impl=cfg.phase2_impl)
     store_ovf = store.dropped
     del store
     return _flat(result), _round_stats(num_pes, store_ovf, fold_stats)
@@ -1061,26 +1075,30 @@ def count_kmers(reads, cfg: DAKCConfig, *, num_pes: int, grid=None,
         group = group.pes(num_pes)
     grid = _topology_grid(cfg, num_pes, grid)
     dev = resolve_device(device, group)
-    reads, local = _place_reads(reads, num_pes, dev, group)
+    with span("place"):
+        reads, local = _place_reads(reads, num_pes, dev, group)
     shape = tuple(reads.shape)
-    store_cap = _resolve_store_capacity(reads, cfg, num_pes, dev)
-    engaged = _hop2_engaged(cfg)
-    est = _valid_estimate(reads, cfg, num_pes, shape, engaged, dev)
+    with span("plan"):
+        store_cap = _resolve_store_capacity(reads, cfg, num_pes, dev)
+        engaged = _hop2_engaged(cfg)
+        est = _valid_estimate(reads, cfg, num_pes, shape, engaged, dev)
     ctrl = resilience.RetryController(cfg.retry, slack=cfg.slack,
                                       store_cap=store_cap,
                                       hop2_padded=not engaged)
     while True:
-        mode, cap_n, cap_h = _plan_caps(cfg, num_pes, shape, ctrl.slack)
-        hop2_caps = _retry_hop2_caps(cfg, num_pes, shape, ctrl, est)
-        compact_caps = (None if est is None else _resolve_compact(
-            cfg, num_pes, shape, ctrl.slack, est))
+        with span("plan"):
+            mode, cap_n, cap_h = _plan_caps(cfg, num_pes, shape, ctrl.slack)
+            hop2_caps = _retry_hop2_caps(cfg, num_pes, shape, ctrl, est)
+            compact_caps = (None if est is None else _resolve_compact(
+                cfg, num_pes, shape, ctrl.slack, est))
         result, raw_stats = _local_count(
             local, cfg=cfg, num_pes=num_pes, cap_n=cap_n, cap_h=cap_h,
             store_cap=ctrl.store_cap, mode=mode, grid=grid,
             hop2_caps=hop2_caps, compact_caps=compact_caps,
             fault=resilience.active_trace_fault(cfg.faults, ctrl.attempts),
             group=group)
-        stats, _ = _host_stats(raw_stats, group)
+        with span("stats"):
+            stats, _ = _host_stats(raw_stats, group)
         if not ctrl.observe(route_dropped=stats.overflow,
                             store_dropped=stats.store_overflow,
                             hop2_dropped=stats.hop2_dropped):
