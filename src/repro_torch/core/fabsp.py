@@ -586,16 +586,18 @@ def _sampled_distinct_estimate(reads: torch.Tensor, cfg: DAKCConfig,
                                num_pes: int, dev=None) -> Optional[int]:
     """Global distinct-count estimate from one sample chunk, inverted under
     the uniform-pool model (see the JAX package); None when the sample is
-    fully distinct. The sample's k-mers are extracted on `dev` (None: where
-    the reads lie) and counted on the host, as the JAX package's are."""
+    fully distinct. The sample's k-mers are extracted and counted on `dev`
+    (None: where the reads lie): `torch.unique` gives the same distinct
+    count as the JAX package's host `np.unique`, and the one integer is all
+    that comes back to the host."""
     n_reads, m = reads.shape
     k, bps = cfg.k, cfg.bits_per_symbol
     sample = reads[:min(cfg.chunk_reads, n_reads)].to(dev)
     words = encoding.extract_kmers(
         sample, k, bps, canonical=cfg.canonical,
-        canonical_impl=cfg.canonical_impl).cpu().numpy()
-    s = int(words.size)
-    d = int(np.unique(words).size)
+        canonical_impl=cfg.canonical_impl)
+    s = words.numel()
+    d = torch.unique(words).numel()
     total = n_reads * (m - k + 1)
     bound = min(total, 1 << encoding.kmer_bits(k, bps))
     if d >= s:
