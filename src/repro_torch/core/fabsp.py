@@ -67,7 +67,8 @@ from repro_torch.core.spans import span
 @dataclasses.dataclass(frozen=True)
 class DAKCConfig:
     """Tuning parameters (paper Table III / Sec. VI-H); the fields, defaults
-    and validation of `repro.core.fabsp.DAKCConfig`."""
+    and validation of `repro.core.fabsp.DAKCConfig`, whose `store_sizing`
+    this one widens by 'split' (`_sampled_distinct_estimate`)."""
     k: int
     chunk_reads: int = 256        # reads per scan step
     slack: float = 1.5            # capacity = E[load] * slack   (L2 tile)
@@ -87,7 +88,7 @@ class DAKCConfig:
     minimizer_len: int = 7
     minimizer_order: str = "plain"
     compact_impl: str = "off"
-    store_sizing: str = "sample"   # 'sample' estimate | 'bound' oracle
+    store_sizing: str = "sample"   # 'sample', 'split' | 'bound' oracle
     store_slack: float = 1.5
     store_capacity: Optional[int] = None
     retry: resilience.RetryPolicy = resilience.RetryPolicy()
@@ -111,7 +112,7 @@ class DAKCConfig:
                 ("transport_impl", ("kmer", "superkmer")),
                 ("minimizer_order", ("plain", "hashed")),
                 ("compact_impl", ("prefix", "off")),
-                ("store_sizing", ("sample", "bound")),
+                ("store_sizing", ("sample", "split", "bound")),
                 ("spill_query", ("fold", "refuse"))):
             v = getattr(self, knob)
             if v not in allowed:
@@ -582,14 +583,86 @@ def _default_store_capacity(cfg: DAKCConfig, shape, num_pes: int) -> int:
     return plan_capacity(distinct_bound, num_pes, cfg.store_slack)
 
 
+# The store sizings that estimate from the first chunk's sample.
+_SAMPLED_SIZINGS = ("sample", "split")
+# Under 'split', a multiplicity that fewer than this many words of the
+# sample's fitted uniform pool reach, in expectation, marks a heavy word.
+_HEAVY_EXPECTED = 1e-3
+
+
+def _exp_distinct(u: float, n: int) -> float:
+    """Expected distinct words among `n` uniform draws from `u`."""
+    return u * -math.expm1(n * math.log1p(-1.0 / u))
+
+
+def _uniform_pool(s: int, d: int, bound: int) -> Optional[float]:
+    """The size (at most `bound`) of the uniform pool whose `s` draws give
+    `d` distinct words, inverted as the JAX package does; None when the
+    draws are all distinct."""
+    if d >= s:
+        return None
+    lo, hi = float(max(d, 2)), float(bound)
+    if _exp_distinct(hi, s) < d:
+        return hi
+    for _ in range(60):
+        mid = math.sqrt(lo * hi)
+        if _exp_distinct(mid, s) < d:
+            lo = mid
+        else:
+            hi = mid
+    return hi
+
+
+def _uniform_pool_estimate(s: int, d: int, total: int,
+                           bound: int) -> Optional[int]:
+    """Distinct words among `total` draws from that pool, at most `bound`;
+    None when the `s` draws are all distinct."""
+    u = _uniform_pool(s, d, bound)
+    if u is None:
+        return None
+    return min(max(int(math.ceil(_exp_distinct(u, total))), d), bound)
+
+
+def _poisson_tail(lam: float, c: int) -> float:
+    """P(X >= c) for X ~ Poisson(lam)."""
+    term = math.exp(c * math.log(lam) - lam - math.lgamma(c + 1))
+    tail, i = 0.0, c
+    while term > tail * 1e-17:
+        tail += term
+        i += 1
+        term *= lam / i
+    return tail
+
+
+def _has_heavy(top: int, s: int, d: int, bound: int) -> bool:
+    """Whether the sample's largest multiplicity `top` lies past every
+    multiplicity that the uniform pool fitted to the sample (`s` draws,
+    `d` distinct) gives to `_HEAVY_EXPECTED` words."""
+    u = _uniform_pool(s, d, bound)
+    if u is None:
+        return False
+    lam, c = s / u, 2
+    while u * _poisson_tail(lam, c) >= _HEAVY_EXPECTED:
+        c += 1
+    return top >= c
+
+
 def _sampled_distinct_estimate(reads: torch.Tensor, cfg: DAKCConfig,
                                num_pes: int, dev=None) -> Optional[int]:
-    """Global distinct-count estimate from one sample chunk, inverted under
-    the uniform-pool model (see the JAX package); None when the sample is
-    fully distinct. The sample's k-mers are extracted and counted on `dev`
-    (None: where the reads lie): `torch.unique` gives the same distinct
-    count as the JAX package's host `np.unique`, and the one integer is all
-    that comes back to the host."""
+    """Global distinct-count estimate from one sample chunk; None when the
+    sample is fully distinct. The sample's k-mers are extracted and counted
+    on `dev` (None: where the reads lie), and a few integers are all that
+    come back to the host.
+
+    'sample' (the JAX package's): the uniform-pool model inverted on the
+    whole sample (`torch.unique` counts the distinct words that the JAX
+    package's host `np.unique` does). Heavy words (a satellite repeat), and the
+    words of middling multiplicity around them, make such a sample look
+    like a small pool. 'split' takes the 'sample' integer unless a word is
+    heavy (`_has_heavy`); then it counts every sampled word once and adds
+    the words the sample missed, from its singletons f1 and doubletons f2
+    alone (Good-Turing; Chao's unseen f0 = f1 (f1 - 1) / (2 (f2 + 1)),
+    extrapolated to the whole read set as Shen, Chao and Lin, 2003)."""
     n_reads, m = reads.shape
     k, bps = cfg.k, cfg.bits_per_symbol
     sample = reads[:min(cfg.chunk_reads, n_reads)].to(dev)
@@ -597,27 +670,23 @@ def _sampled_distinct_estimate(reads: torch.Tensor, cfg: DAKCConfig,
         sample, k, bps, canonical=cfg.canonical,
         canonical_impl=cfg.canonical_impl)
     s = words.numel()
-    d = torch.unique(words).numel()
     total = n_reads * (m - k + 1)
     bound = min(total, 1 << encoding.kmer_bits(k, bps))
-    if d >= s:
-        return None
-
-    def exp_distinct(u: float, n: int) -> float:
-        return u * -math.expm1(n * math.log1p(-1.0 / u))
-
-    lo, hi = float(max(d, 2)), float(bound)
-    if exp_distinct(hi, s) < d:
-        u = hi
-    else:
-        for _ in range(60):
-            mid = math.sqrt(lo * hi)
-            if exp_distinct(mid, s) < d:
-                lo = mid
-            else:
-                hi = mid
-        u = hi
-    return min(max(int(math.ceil(exp_distinct(u, total))), d), bound)
+    # the sample's multiplicities, and how many words have each
+    mult, freq = (t.tolist() for t in torch.unique(
+        torch.unique(words, return_counts=True)[1], return_counts=True))
+    d = sum(freq)
+    if cfg.store_sizing != "split" or not _has_heavy(
+            max(mult, default=0), s, d, bound):
+        return _uniform_pool_estimate(s, d, total, bound)
+    f = dict(zip(mult, freq))
+    f1, f2 = f.get(1, 0), f.get(2, 0)
+    f0 = f1 * (f1 - 1) / (2 * (f2 + 1))
+    unseen = 0.0
+    if f0 > 0:
+        unseen = f0 * -math.expm1(
+            (total - s) * math.log1p(-f1 / (s * f0 + f1)))
+    return min(d + int(math.ceil(unseen)), bound)
 
 
 def _sampled_store_capacity(reads: torch.Tensor, cfg: DAKCConfig,
@@ -633,12 +702,13 @@ def _sampled_store_capacity(reads: torch.Tensor, cfg: DAKCConfig,
 
 def _resolve_store_capacity(reads: torch.Tensor, cfg: DAKCConfig,
                             num_pes: int, dev=None) -> int:
-    """Explicit override > 'sample' estimate > shape-only bound."""
+    """Explicit override > 'sample' or 'split' estimate > shape-only
+    bound."""
     if cfg.receiver_impl != "stream":
         return 0
     if cfg.store_capacity is not None:
         return cfg.store_capacity
-    if cfg.store_sizing == "sample":
+    if cfg.store_sizing in _SAMPLED_SIZINGS:
         return _sampled_store_capacity(reads, cfg, num_pes, dev)
     return _default_store_capacity(cfg, tuple(reads.shape), num_pes)
 
@@ -1148,7 +1218,8 @@ class KmerCounter:
     `finalize()` drains the bins one at a time through the reshard's fold.
 
     Store capacity starts from `cfg.store_capacity`, else from the first
-    batch's sample estimate ('sample') or its instance bound ('bound').
+    batch's sample estimate ('sample', 'split') or its instance bound
+    ('bound').
     `grid` and `group` are as in `count_kmers`: under a group every rank
     feeds the same global batches and queries, holds its PEs' stores,
     `finalize` returns its PEs' rows and `count` the global answers on
@@ -1210,7 +1281,8 @@ class KmerCounter:
 
     def _alloc(self, reads: torch.Tensor) -> None:
         cfg = self._cfg
-        if self._distinct_est is None and cfg.store_sizing == "sample":
+        if (self._distinct_est is None
+                and cfg.store_sizing in _SAMPLED_SIZINGS):
             self._distinct_est = _sampled_distinct_estimate(
                 reads, cfg, self._num_pes, self._dev)
         if self._store_cap is None:
